@@ -1,0 +1,316 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port on one NVIDIA GPU and check it, phase by phase.
+
+    python3 chip_smoke.py
+
+1. Print the device, and its name and power limit from nvidia-smi.
+2. Build every CUDA kernel of the port from the sources in this checkout.
+3. Hold the flash-attention kernel against its plain PyTorch version on the
+   card: the five shapes of tests/test_kernels.py in f32 and bf16, and the
+   llama3.2-3b prefill shape (B=4, T=S=1024, H=24, KV=8, hd=128, bf16,
+   causal, and window 256), with kernel, plain and library times and the
+   bound at the prefill shape.
+4. Serve llama3.2-3b at full width in bf16 with random weights from a seed:
+   batch 4, prompt length 1024, 32 greedy tokens through the port's serving
+   entry point, counting kernel launches; then the same prefill with the plain
+   attention, and the smoke config in f32 against its plain path.
+5. Print one `kernels` JSON line, the card again, and, as the last line,
+   {"ok": true, "device": {...}}.
+
+Any failed check raises, and the script exits non-zero without the last
+line.  It does the same when there is no CUDA device or no port beside it.
+There is no CPU path and no fallback to the plain version.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit).
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 without them
+PEAK_BYTES_PER_S = 3.35e12
+
+# (B, T, S, H, KV, hd, causal, window): tests/test_kernels.py ATTN_SHAPES
+ATTN_SHAPES = [
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 256, 256, 4, 4, 64, True, 64),
+    (2, 128, 256, 8, 2, 32, False, 0),
+    (1, 128, 128, 8, 1, 64, True, 0),
+    (1, 512, 512, 2, 2, 128, True, 128),
+]
+# The attention of every llama3.2-3b prefill layer at batch 4, prompt 1024.
+SLICE_SHAPE = (4, 1024, 1024, 24, 8, 128, True, 0)
+SLICE_WINDOW_SHAPE = (4, 1024, 1024, 24, 8, 128, True, 256)
+# Kernel vs plain, as tests/test_kernels.py holds the Pallas kernel to its oracle:
+# f32 differs only in summation order; bf16 also in where the plain version
+# rounds its scores and probabilities to bf16 (2^-8 relative).
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Full model, kernel vs plain attention, max |dlogits| / max |logits|: the plain
+# path rounds scores and probabilities to bf16 in each of the 28 layers, and
+# those ~2^-8 relative differences carry through the residual stream; 0.1 is
+# about ten times the difference that alone predicts.
+MODEL_REL_TOL = 0.1
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, from CUDA events around `iters` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_breakdown(fn, label: str, per_call_ms: float, top: int = 6) -> None:
+    """Profile one fn() with torch.profiler and print where the device time
+    goes: kernel time by group and the top kernels, and the idle share
+    against `per_call_ms` (a CUDA-event time of the same call, unprofiled)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda r: -r[1],
+    )
+    busy = sum(r[1] for r in rows)
+    if busy == 0:
+        print(f"  {label}: device time by kernel not measured (the profiler saw no device time)")
+        return
+    groups = {"flash_attn kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, ms, _ in rows:
+        low = name.lower()
+        g = "flash_attn kernel" if "flash_attn" in low else (
+            "matmul" if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "gemv")) else "other")
+        groups[g] += ms
+    shares = ", ".join(f"{g} {ms:.2f} ms ({ms / busy:.1%})" for g, ms in groups.items())
+    print(f"  {label}: device busy {busy:.2f} ms of {per_call_ms:.2f} ms "
+          f"(idle share {max(0.0, 1 - busy / per_call_ms):.1%}); {shares}")
+    for name, ms, count in rows[:top]:
+        print(f"    {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+
+
+def attention_bound(shape, dtype_name: str):
+    """(ms, "operations" | "bytes"): the least time an H100 needs for this
+    attention: 4*hd flops for every visible (query, key) pair against the
+    peak for the dtype, or q, k, v read and o written once against HBM."""
+    from repro_torch.kernels.attention.ref import visible_mask
+
+    b, t, s, h, kv, hd, causal, window = shape
+    pairs = int(visible_mask(t, s, causal=causal, window=window).sum()) if (causal or window) else t * s
+    flops = 4.0 * hd * pairs * b * h
+    elem = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (2 * b * t * h * hd + 2 * b * s * kv * hd) * elem
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_inputs(shape, dtype, seed: int):
+    import torch
+
+    b, t, s, h, kv, hd, _, _ = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    return mk(b, t, h, hd), mk(b, s, kv, hd), mk(b, s, kv, hd)
+
+
+def check_attention(shape, dtype_name: str, seed: int) -> float:
+    """Kernel vs plain version on the card; returns the max abs error."""
+    import torch
+    from repro_torch.kernels.attention import ops, ref
+
+    dtype = getattr(torch, dtype_name)
+    q, k, v = attention_inputs(shape, dtype, seed)
+    causal, window = shape[6], shape[7]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    plain = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    o, p = out.float(), plain.float()
+    err = (o - p).abs().max().item()
+    tol = TOL[dtype_name]
+    ok = bool(torch.isfinite(o).all()) and bool(((o - p).abs() <= tol + tol * p.abs()).all())
+    print(f"  attention {shape} {dtype_name}: max_abs_err {err:.3e} (atol=rtol={tol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel disagrees with the plain version at {shape} {dtype_name}")
+    return err
+
+
+def time_attention(shape):
+    """Kernel, plain and library (SDPA) times in ms at a bf16 shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops, ref
+
+    q, k, v = attention_inputs(shape, torch.bfloat16, seed=7)
+    causal, window = shape[6], shape[7]
+    kernel_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
+    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal, window=window), iters=5)
+    library_ms = None
+    if causal and not window:
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
+    return kernel_ms, plain_ms, library_ms
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: the port (src/repro_torch) is not beside {Path(__file__).name}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.checkpoint import convert
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    print(f"[1] device: {kind}; count {torch.cuda.device_count()}; torch {torch.__version__}, cuda {torch.version.cuda}")
+    print(f"[1] nvidia-smi: {smi}")
+
+    # 2. build
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    for src in _build.sources():
+        _build.load(src.stem)
+    print(f"[2] built {[s.name for s in _build.sources()]} in {time.perf_counter() - t0:.1f}s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {name}: {line.strip()}")
+
+    # 3. kernel vs plain
+    print("[3] flash attention, kernel vs plain version")
+    for i, shape in enumerate(ATTN_SHAPES):
+        for dt in ("float32", "bfloat16"):
+            check_attention(shape, dt, seed=i)
+    slice_err = check_attention(SLICE_SHAPE, "bfloat16", seed=100)
+    check_attention(SLICE_WINDOW_SHAPE, "bfloat16", seed=101)
+    kernel_ms, plain_ms, library_ms = time_attention(SLICE_SHAPE)
+    bound_ms, bound_by = attention_bound(SLICE_SHAPE, "bfloat16")
+    print(f"  slice shape {SLICE_SHAPE}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"library (SDPA) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"roofline share {bound_ms / kernel_ms:.4f}")
+    w_kernel_ms, w_plain_ms, _ = time_attention(SLICE_WINDOW_SHAPE)
+    w_bound_ms, w_bound_by = attention_bound(SLICE_WINDOW_SHAPE, "bfloat16")
+    print(f"  window shape {SLICE_WINDOW_SHAPE}: kernel {w_kernel_ms:.4f} ms, plain {w_plain_ms:.4f} ms, "
+          f"bound {w_bound_ms:.4f} ms ({w_bound_by})")
+
+    # 4. the slice: llama3.2-3b serving at full width
+    cfg = get_config("llama3.2-3b")
+    b, t, new = 4, 1024, 32
+    print(f"[4] serve {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype}, "
+          f"batch {b}, prompt {t}, {new} new tokens")
+    model = build_model(cfg, "cuda")
+    params = convert.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = serve.random_prompts(cfg, b, t, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.launches = 0
+    res = serve.generate(model, params, prompts, new)
+    launches = ops.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  flash-attention launches during the run: {launches} (expected {cfg.n_layers}, one per prefill layer)")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"expected {cfg.n_layers} kernel launches, got {launches}")
+    if not bool(torch.isfinite(res.prefill_logits).all()):
+        raise AssertionError("prefill logits are not finite")
+    if tuple(res.tokens.shape) != (b, new) or not bool(((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(res.tokens.shape)}")
+    steps = new - 1
+    print(f"  first prefill {res.prefill_s * 1e3:.1f} ms; decoded {steps} steps x batch {b} in "
+          f"{res.decode_s:.3f}s ({steps * b / res.decode_s:.1f} tok/s); peak memory {peak_gb:.2f} GB")
+    print(f"  tokens[0]: {res.tokens[0].tolist()}")
+
+    plain_model = build_model(cfg.replace(use_kernels=False), "cuda")
+    prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": prompts}), iters=3, warmup=1)
+    plain_prefill_ms = cuda_ms(lambda: plain_model.prefill(params, {"tokens": prompts}), iters=3, warmup=1)
+    plain_logits, _ = plain_model.prefill(params, {"tokens": prompts})
+    lg = res.prefill_logits
+    rel = ((lg - plain_logits).abs().max() / lg.abs().max()).item()
+    agree = int((lg.argmax(-1) == plain_logits.argmax(-1)).sum())
+    print(f"  prefill {prefill_ms:.1f} ms with the kernel, {plain_prefill_ms:.1f} ms with plain attention")
+    device_breakdown(lambda: model.prefill(params, {"tokens": prompts}), "prefill, kernel path", prefill_ms)
+    device_breakdown(lambda: plain_model.prefill(params, {"tokens": prompts}), "prefill, plain path",
+                     plain_prefill_ms)
+    token = res.tokens[:, -1:]
+    decode_cache = model.init_cache(b, t + new)
+    decode_ms = cuda_ms(lambda: model.decode_step(params, token, decode_cache, t), iters=5, warmup=2)
+    device_breakdown(lambda: model.decode_step(params, token, decode_cache, t), "one decode step", decode_ms)
+    print(f"  kernel vs plain attention: max|dlogits|/max|logits| {rel:.3e} (bound {MODEL_REL_TOL}); "
+          f"argmax agrees on {agree}/{b} rows")
+    if not rel < MODEL_REL_TOL:
+        raise AssertionError(f"full-model logits differ by {rel:.3e} relative (> {MODEL_REL_TOL})")
+    del params, plain_logits, res, decode_cache
+    torch.cuda.empty_cache()
+
+    # smoke config in f32: the kernel path against the plain path, prefill and decode
+    small = get_smoke_config("llama3.2-3b")
+    runs = {}
+    for use in (True, False):
+        runs[use] = serve.serve(small.replace(use_kernels=use), batch=2, prompt_len=128, new_tokens=8, seed=3)
+    d = (runs[True].prefill_logits - runs[False].prefill_logits).abs().max().item()
+    same = bool(torch.equal(runs[True].tokens, runs[False].tokens))
+    print(f"  smoke config f32, kernel vs plain: max|dlogits| {d:.3e} (atol 1e-4), greedy tokens equal: {same}")
+    if not (d <= 1e-4 and same):
+        raise AssertionError("smoke model: kernel path disagrees with the plain path")
+
+    # 5. summary
+    kernels = [{
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/attention/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/attention/kernel.py:96",
+        "launches": launches,
+        "max_abs_err": slice_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

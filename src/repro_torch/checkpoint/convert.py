@@ -1,0 +1,55 @@
+"""Parameters of the port: JAX weights carried across, or drawn on the card.
+
+The tree is the JAX package's (`repro/models/model.py::build_model().init`):
+  {"embed" (Vpad,D), "lm_head" (D,Vpad) unless tied,
+   "layers": {"ln1": {"scale"}, "attn": {"wq","wk","wv","wo"}, "ln2": {"scale"},
+              "mlp": {"w_gate","w_in","w_out"}} stacked (L, ...),
+   "final_norm": {"scale"}}
+as plain dicts of torch tensors with the same names, shapes and dtypes.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers, transformer
+
+
+def _tensor(a: Any, device: torch.device) -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy: arrays from JAX are read-only
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, which torch.from_numpy does not take
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def params_from_jax(tree: Mapping[str, Any], device="cuda") -> dict:
+    """The port's parameters from a JAX parameter tree whose leaves are numpy
+    arrays (e.g. `jax.tree.map(np.asarray, params)`).  Bits are kept."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, dev)
+
+    return walk(tree)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
+    """Random parameters drawn on `device` from `generator` (which must live
+    on that device), from the distributions of the JAX package's init:
+    N(0, 1/fan_in) dense weights, unit norm scales.  JAX's bits cannot be
+    reproduced; use `params_from_jax` for that."""
+    dev = resolve_device(device)
+    return {
+        **layers.embed_init(generator, cfg, dev),
+        "layers": transformer.init_layer_stack(generator, cfg, cfg.n_layers, dev),
+        "final_norm": layers.rmsnorm_init(cfg, dev),
+    }

@@ -1,0 +1,42 @@
+"""Architecture registry of the port: --arch <id> -> ModelConfig.
+
+Only the ported architectures are listed; any other id of the JAX package
+raises with a pointer to ROADMAP.md."""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+
+_MODULES: Dict[str, str] = {
+    "llama3.2-3b": "llama3_2_3b",
+}
+
+# Architectures of the JAX package that the port does not run yet.
+_NOT_PORTED = (
+    "rwkv6-3b", "qwen3-moe-30b-a3b", "qwen1.5-110b", "qwen1.5-0.5b",
+    "granite-moe-1b-a400m", "seamless-m4t-medium", "hymba-1.5b",
+    "paligemma-3b", "nemotron-4-340b",
+)
+
+
+def list_archs() -> List[str]:
+    return sorted(_MODULES)
+
+
+def _module(arch_id: str):
+    if arch_id in _NOT_PORTED:
+        raise ValueError(f"arch {arch_id!r} is not yet ported; see ROADMAP.md")
+    if arch_id not in _MODULES:
+        raise ValueError(f"unknown arch {arch_id!r}; options: {list_archs()}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).smoke_config()

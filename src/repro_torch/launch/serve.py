@@ -1,0 +1,117 @@
+"""Serve a batch of prompts: prefill, then greedy decode against the KV cache.
+
+The port of `examples/serve_decode.py`, on the card by default:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 --prompt-len 1024 --new-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+
+Weights are random, drawn on the device from `--seed`; prompts from
+`--seed + 1`.  Prompt lengths that are a multiple of 128 run every prefill
+layer's attention through the flash-attention kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import NamedTuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint import convert
+from repro_torch.configs import ModelConfig, get_config, get_smoke_config, list_archs
+from repro_torch.models import Model, build_model
+
+
+class ServeResult(NamedTuple):
+    tokens: torch.Tensor  # (B, new_tokens) greedy tokens, the first from the prefill
+    prefill_logits: torch.Tensor  # (B, Vpad) f32, last prompt position
+    prefill_s: float
+    decode_s: float  # the new_tokens - 1 decode steps
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _generator(seed: int, dev: torch.device) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def random_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int, device="cuda") -> torch.Tensor:
+    dev = resolve_device(device)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=_generator(seed, dev), device=dev)
+
+
+@torch.inference_mode()
+def generate(model: Model, params: dict, prompts: torch.Tensor, new_tokens: int,
+             *, window: int = 0) -> ServeResult:
+    """Prefill `prompts` (B, T), then take new_tokens - 1 greedy decode steps.
+
+    The prefill cache is copied into a cache preallocated for all
+    T + new_tokens positions (or the ring of `window` slots), which the
+    decode steps then update in place.  argmax takes the first of equal
+    maxima, as jnp.argmax does."""
+    dev = model.device
+    b, t = prompts.shape
+    total = t + new_tokens
+
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompts}, window=window)
+    s = cache["k"].shape[2]
+    full = model.init_cache(b, total, window)
+    if full["k"].shape[2] > s:
+        for kk in ("k", "v"):
+            full[kk][:, :, :s] = cache[kk]
+        cache = full
+    del full  # an unused zero cache is not held through the decode loop
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+
+    token = torch.argmax(logits, dim=-1)[:, None]
+    generated = [token]
+    t0 = time.perf_counter()
+    for i in range(new_tokens - 1):
+        step_logits, cache = model.decode_step(params, token, cache, t + i, window=window)
+        token = torch.argmax(step_logits, dim=-1)[:, None]
+        generated.append(token)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    return ServeResult(torch.cat(generated, dim=1), logits, prefill_s, decode_s)
+
+
+def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, new_tokens: int, window: int = 0,
+          seed: int = 0, device="cuda") -> ServeResult:
+    """Build the model, draw weights from `seed` and prompts from `seed + 1`, and generate."""
+    model = build_model(cfg, device)
+    params = convert.init(cfg, _generator(seed, model.device), model.device)
+    prompts = random_prompts(cfg, batch, prompt_len, seed + 1, model.device)
+    return generate(model, params, prompts, new_tokens, window=window)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama3.2-3b", choices=list_archs())
+    ap.add_argument("--smoke", action="store_true", help="use the reduced smoke config (CPU-runnable)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--window", type=int, default=0, help="sliding-window decode (0 = full attention)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len, new_tokens=args.new_tokens,
+                window=args.window, seed=args.seed, device=args.device)
+    b, steps = args.batch, args.new_tokens - 1
+    print(f"prefill {b}x{args.prompt_len}: {res.prefill_s:.2f}s")
+    print(f"decoded {steps} steps x batch {b} in {res.decode_s:.2f}s "
+          f"({steps * b / max(res.decode_s, 1e-9):.1f} tok/s)")
+    print("sample token ids:", res.tokens[0, :16].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,277 @@
+"""Shared layers of the port: norms, RoPE, GQA attention (prefill and
+KV-cache decode), MLP variants, embeddings.
+
+A port of `repro/models/layers.py` for the dense serving path.  Functions
+are pure over plain dicts of tensors whose leaf names and layouts are the
+JAX package's: activations (B, T, H, hd), `wq` (d, h, hd), `wo` (h, hd, d).
+The JAX package's sharding hints (`constrain`, `constrain_alt`) are no-ops
+without a mesh and are left out.  `_sdpa_blocked` is not ported yet (see
+ROADMAP.md); `attention_impl="blocked"` raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.attention import ops as attn_ops
+
+# ----------------------------------------------------------------------------
+# init helpers
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size: int, device) -> torch.Tensor:
+    """N(0, 1/in_axis_size) drawn in f32, as `layers._dense_init` of the JAX
+    package; the bits differ from jax.random's."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return x.mul_(1.0 / math.sqrt(in_axis_size)).to(dtype)
+
+
+# ----------------------------------------------------------------------------
+# norms
+
+
+def rmsnorm_init(cfg: ModelConfig, device, lead: tuple = ()) -> dict:
+    return {"scale": torch.ones(lead + (cfg.d_model,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(torch.square(x), dim=-1, keepdim=True) + eps)
+    return (x * params["scale"]).to(dt)
+
+
+# ----------------------------------------------------------------------------
+# rotary embeddings
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., T, n, head_dim); positions: (T,) or broadcastable to (..., T).
+
+    Rotates the two halves of the head (not interleaved pairs), with no
+    frequency scaling, as the JAX package does."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half))
+    ang = positions.to(device=x.device, dtype=torch.float32)[..., None] * freq  # (..., T, half)
+    cos = torch.cos(ang)[..., None, :]  # broadcast over the head axis
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# attention
+
+
+def attention_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple = ()) -> dict:
+    """`lead` prefixes every shape, e.g. (L,) for a stack of layers."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = _dtype(cfg.param_dtype)
+    p = {
+        "wq": _dense_init(gen, lead + (d, h, hd), dt, d, device),
+        "wk": _dense_init(gen, lead + (d, kv, hd), dt, d, device),
+        "wv": _dense_init(gen, lead + (d, kv, hd), dt, d, device),
+        "wo": _dense_init(gen, lead + (h, hd, d), dt, h * hd, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(lead + (h, hd), dtype=torch.float32, device=device)
+        p["bk"] = torch.zeros(lead + (kv, hd), dtype=torch.float32, device=device)
+        p["bv"] = torch.zeros(lead + (kv, hd), dtype=torch.float32, device=device)
+    return p
+
+
+def _qkv(params, cfg: ModelConfig, x: torch.Tensor):
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"])
+    k = torch.einsum("bsd,dnk->bsnk", x, params["wk"])
+    v = torch.einsum("bsd,dnk->bsnk", x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    return q, k, v
+
+
+def _scale(hd: int) -> torch.Tensor:
+    return torch.tensor(math.sqrt(hd), dtype=torch.float32)
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
+    """Scaled dot-product attention with GQA (kv repeated to H heads).
+
+    q: (B,T,H,hd); k,v: (B,S,KV,hd); mask broadcastable to (B,H,T,S)."""
+    b, t, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    if t == 1:
+        return _sdpa_decode_grouped(q, k, v, mask, kvh, g, hd)
+    if g > 1:  # jnp.repeat: each kv head g times in a row
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    scores = torch.einsum("bthk,bshk->bhts", q, k).float()
+    scores = scores / _scale(hd)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bshk->bthk", probs, v)
+
+
+def _sdpa_decode_grouped(q, k, v, mask, kvh: int, g: int, hd: int) -> torch.Tensor:
+    """Decode attention without the GQA repeat: q heads grouped per kv head."""
+    b, t = q.shape[:2]
+    qg = q.reshape(b, t, kvh, g, hd)
+    scores = torch.einsum("btngk,bsnk->bngts", qg, k).float()
+    scores = scores / _scale(hd)
+    if mask is not None:  # (..., T, S)-broadcastable
+        m = mask[:, None] if mask.dim() == 4 else mask
+        scores = torch.where(m, scores, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bngts,bsnk->btngk", probs, v)
+    return out.reshape(b, t, kvh * g, hd)
+
+
+def causal_window_mask(t: int, s: int, offset: int, window: int, device=None) -> torch.Tensor:
+    """(T,S) mask: query position i (global pos offset+i) may see key j
+    iff j <= offset+i and (window==0 or offset+i-j < window)."""
+    qpos = offset + torch.arange(t, device=device)[:, None]
+    kpos = torch.arange(s, device=device)[None, :]
+    m = kpos <= qpos
+    if window > 0:
+        m = m & (qpos - kpos < window)
+    return m
+
+
+def attention_full(
+    params,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    return_kv: bool = False,
+):
+    """Full-sequence self-attention (prefill).  Prompts whose length is a
+    multiple of 128 go through the flash-attention kernel when
+    `cfg.use_kernels`, as the JAX package's `use_pallas` path does."""
+    q, k, v = _qkv(params, cfg, x)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if cfg.use_kernels and causal and x.shape[1] % 128 == 0:
+        out = attn_ops.flash_attention(q, k, v, causal=True, window=window)
+    elif cfg.attention_impl == "blocked" and x.shape[1] > 1:
+        raise NotImplementedError("attention_impl='blocked' (_sdpa_blocked) is not yet ported; see ROADMAP.md")
+    else:
+        mask = causal_window_mask(x.shape[1], k.shape[1], 0, window, x.device) if causal else None
+        out = _sdpa(cfg, q, k, v, mask)
+    y = torch.einsum("bthk,hkd->btd", out, params["wo"])
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def attention_decode(
+    params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # (B, 1, D)
+    cache_k: torch.Tensor,  # (B, S, KV, hd)
+    cache_v: torch.Tensor,
+    pos: int,  # number of tokens already in the cache
+    *,
+    window: int = 0,
+):
+    """Single-token decode against a KV cache.
+
+    With window > 0 the cache is a ring buffer of length `window` (slot =
+    pos % window); otherwise the cache has length seq_len and slot = pos.
+    Unlike the JAX package, which returns updated copies, this writes the new
+    k, v into `cache_k`, `cache_v` in place (saving a copy of the cache per
+    layer and step) and returns them.  A slot past the cache's end raises,
+    where jax.lax.dynamic_update_slice would clamp it to the last slot.
+    """
+    pos = int(pos)
+    q, k, v = _qkv(params, cfg, x)
+    posv = torch.tensor([pos], device=x.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k = rope(k, posv, cfg.rope_theta)
+
+    s = cache_k.shape[1]
+    slot = pos % window if window else pos
+    if slot >= s:
+        raise ValueError(f"decode slot {slot} is past the cache length {s}; pad the cache first")
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+
+    kpos = torch.arange(s, device=x.device)
+    if window:
+        # ring buffer: valid slots are those written within the last `window` steps
+        valid = (kpos <= slot) | (pos >= s)  # once full, all slots valid
+    else:
+        valid = kpos <= pos
+    mask = valid[None, None, None, :]  # (1,1,1,S) -> broadcast over (B,H,T)
+    y = _sdpa(cfg, q, cache_k, cache_v, mask)
+    y = torch.einsum("bthk,hkd->btd", y, params["wo"])
+    return y, cache_k, cache_v
+
+
+# ----------------------------------------------------------------------------
+# MLPs
+
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple = ()) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    dt = _dtype(cfg.param_dtype)
+    if cfg.activation == "silu_glu":
+        return {
+            "w_gate": _dense_init(gen, lead + (d, f), dt, d, device),
+            "w_in": _dense_init(gen, lead + (d, f), dt, d, device),
+            "w_out": _dense_init(gen, lead + (f, d), dt, f, device),
+        }
+    return {
+        "w_in": _dense_init(gen, lead + (d, f), dt, d, device),
+        "w_out": _dense_init(gen, lead + (f, d), dt, f, device),
+    }
+
+
+def mlp(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.activation == "silu_glu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_in"])
+    elif cfg.activation == "sq_relu":  # Nemotron-4: squared ReLU
+        h = torch.square(F.relu(x @ params["w_in"]))
+    elif cfg.activation == "gelu":  # jax.nn.gelu defaults to the tanh form
+        h = F.gelu(x @ params["w_in"], approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {cfg.activation}")
+    return h @ params["w_out"]
+
+
+# ----------------------------------------------------------------------------
+# embedding / unembedding
+
+
+def embed_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    v, d = cfg.padded_vocab, cfg.d_model
+    dt = _dtype(cfg.param_dtype)
+    p = {"embed": _dense_init(gen, (v, d), dt, d, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = _dense_init(gen, (d, v), dt, d, device)
+    return p
+
+
+def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens].to(_dtype(cfg.compute_dtype))
+
+
+def logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """All padded-vocab columns, unmasked, in f32."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ w.to(x.dtype)).float()

@@ -1,0 +1,115 @@
+"""Layer stack of the dense family for serving: prefill and KV-cache decode.
+
+A port of the dense-family parts of `repro/models/transformer.py`.  Layer
+parameters stay stacked over a leading L axis, as in the JAX package, and
+the layers run as a Python loop over views `a[i]` (there is no scan).
+Other families raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not run yet (only dense is ported)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not yet ported; see ROADMAP.md")
+
+
+def layer_params(stacked: dict, i: int) -> dict:
+    """Parameters of layer i: the [i] view of every stacked leaf."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
+
+
+def init_layer_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int, device) -> dict:
+    """Stacked (L, ...) parameters of n_layers dense blocks."""
+    check_family(cfg)
+    lead = (n_layers,)
+    return {
+        "ln1": layers.rmsnorm_init(cfg, device, lead),
+        "attn": layers.attention_init(gen, cfg, device, lead),
+        "ln2": layers.rmsnorm_init(cfg, device, lead),
+        "mlp": layers.mlp_init(gen, cfg, device, lead),
+    }
+
+
+def _kv_to_ring_cache(k: torch.Tensor, window: int) -> torch.Tensor:
+    """Pack full-sequence kv (B,T,KV,hd) into a ring cache of length `window`
+    such that slot = t % window holds the latest token with that residue."""
+    t = k.shape[1]
+    if window <= 0 or t <= window:
+        return k
+    base = t - window
+    perm = (base + torch.arange(window, device=k.device)) % window
+    cache = torch.zeros((k.shape[0], window) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
+    cache[:, perm] = k[:, base:]
+    return cache
+
+
+def _block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *, window: int):
+    """One dense layer over the whole prompt.  Returns (x_out, (k_cache, v_cache))."""
+    h = layers.rmsnorm(p["ln1"], x)
+    y, (k, v) = layers.attention_full(
+        p["attn"], cfg, h, positions, causal=True, window=window, return_kv=True
+    )
+    x = x + y
+    x = x + layers.mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))
+    return x, (_kv_to_ring_cache(k, window), _kv_to_ring_cache(v, window))
+
+
+def run_stack_prefill(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                      *, window: int = 0):
+    """Prefill: full-sequence forward that also captures the decode cache.
+    Returns (x, cache) with cache leaves stacked (L, B, S, KV, hd); each
+    layer's k, v are written straight into the preallocated stack."""
+    check_family(cfg)
+    cache = None
+    for i in range(cfg.n_layers):
+        x, (k, v) = _block_full(layer_params(stacked, i), cfg, x, positions, window=window)
+        if cache is None:
+            shape = (cfg.n_layers,) + tuple(k.shape)
+            cache = {"k": k.new_empty(shape), "v": v.new_empty(shape)}
+        cache["k"][i] = k
+        cache["v"][i] = v
+    return x, cache
+
+
+def _block_decode(p: dict, cache_l: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+                  pos: int, *, window: int):
+    """One layer of single-token decode; updates cache_l's k, v in place."""
+    h = layers.rmsnorm(p["ln1"], x)
+    y, _, _ = layers.attention_decode(
+        p["attn"], cfg, h, cache_l["k"], cache_l["v"], pos, window=window
+    )
+    x = x + y
+    return x + layers.mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))
+
+
+def run_stack_decode(stacked: dict, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
+                     x: torch.Tensor, pos: int, *, window: int = 0):
+    """Single-token decode through the stack.  Returns (x, cache): the
+    stacked cache is updated in place and returned."""
+    check_family(cfg)
+    for i in range(cfg.n_layers):
+        cache_l = {"k": cache["k"][i], "v": cache["v"][i]}
+        x = _block_decode(layer_params(stacked, i), cache_l, cfg, x, pos, window=window)
+    return x, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, window: int = 0, *, device) -> dict:
+    """Zero decode cache (stacked over layers).  For windowed attention the
+    kv cache length is min(cache_len, window)."""
+    check_family(cfg)
+    l, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = layers._dtype(cfg.compute_dtype)
+    s = min(cache_len, window) if window else cache_len
+    return {
+        "k": torch.zeros((l, batch, s, kv, hd), dtype=dt, device=device),
+        "v": torch.zeros((l, batch, s, kv, hd), dtype=dt, device=device),
+    }

@@ -1,0 +1,89 @@
+"""Rules of the PyTorch port: it stands apart from the JAX package, and it
+runs on the card unless the caller asks for the CPU."""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(node.func, "id", "")) in (
+            "import_module", "__import__",
+        ):
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                    yield arg.value.split(".")[0]
+                elif isinstance(arg, ast.JoinedStr) and arg.values and isinstance(arg.values[0], ast.Constant):
+                    yield arg.values[0].value.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_files_were_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"ops.py", "kernel.py", "ref.py", "layers.py", "serve.py", "chip_smoke.py"} <= names
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points rightly run on it")
+
+
+def _entry_points():
+    from repro_torch.checkpoint import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("llama3.2-3b")
+    return {
+        "build_model": lambda: build_model(cfg),
+        "convert.init": lambda: convert.init(cfg, torch.Generator()),
+        "convert.params_from_jax": lambda: convert.params_from_jax({}),
+        "serve.random_prompts": lambda: serve.random_prompts(cfg, 1, 8, seed=0),
+        "serve.main": lambda: serve.main(["--smoke", "--prompt-len", "8", "--new-tokens", "2"]),
+    }
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["build_model", "convert.init", "convert.params_from_jax", "serve.random_prompts", "serve.main"],
+)
+def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
+    _no_card()
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        _entry_points()[name]()
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, where):
+    """In the checkout without a card, and beside nothing of the repo, the
+    script exits non-zero and never prints its ok line."""
+    _no_card()
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
