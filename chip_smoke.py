@@ -14,7 +14,17 @@
    batch 4, prompt length 1024, 32 greedy tokens through the port's serving
    entry point, counting kernel launches; then the same prefill with the plain
    attention, and the smoke config in f32 against its plain path.
-5. Print one `kernels` JSON line, the card again, and, as the last line,
+5. Hold the wkv6 kernel against its plain PyTorch version on the card: the
+   four wkv shapes of tests/test_kernels.py, chunk 16/32/64, bf16 r/k/v,
+   strong decay, and the rwkv6-3b prefill scan (B=4, T=1024, H=40,
+   K=V=64, bf16 r/k/v, f32 w, chunk 32), with kernel and plain times and
+   the bound there.
+6. Serve rwkv6-3b at full width in bf16 with random weights from a seed:
+   batch 4, prompt length 1024, 32 greedy tokens through the same entry
+   point, counting kernel launches (one wkv6 launch per prefill layer);
+   then the same prefill with the plain wkv scan, and the smoke config in
+   f32 against its plain path.
+7. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -56,6 +66,40 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # those ~2^-8 relative differences carry through the residual stream; 0.1 is
 # about ten times the difference that alone predicts.
 MODEL_REL_TOL = 0.1
+
+# (B, T, H, K, V, chunk, decay_scale, r/k/v dtype): tests/test_kernels.py's
+# four wkv shapes, its chunk sizes, bf16 inputs and strong decay.
+WKV_CASES = [
+    (2, 128, 3, 16, 16, 32, 0.5, "float32"),
+    (1, 64, 2, 32, 32, 32, 0.5, "float32"),
+    (1, 256, 1, 64, 64, 32, 0.5, "float32"),
+    (4, 32, 2, 8, 8, 32, 0.5, "float32"),
+    (2, 128, 2, 16, 16, 16, 0.5, "float32"),
+    (2, 128, 2, 16, 16, 32, 0.5, "float32"),
+    (2, 128, 2, 16, 16, 64, 0.5, "float32"),
+    (1, 64, 2, 16, 16, 32, 0.5, "bfloat16"),
+    (1, 128, 1, 8, 8, 64, 1.0, "float32"),
+]
+# The wkv scan of every rwkv6-3b prefill layer at batch 4, prompt 1024.
+WKV_SLICE = (4, 1024, 40, 64, 64, 32, 0.5, "bfloat16")
+# Kernel vs plain: tests/test_kernels.py's tolerances (atol, rtol) for f32,
+# bf16 inputs and strong decay.  Both sides compute in f32 from the same
+# inputs, so they differ only in the order of f32 sums.
+WKV_TOL = {"float32": (5e-4, 1e-3), "bfloat16": (5e-2, 5e-2), "strong": (2e-3, 5e-3)}
+# Full rwkv6-3b, kernel vs plain wkv scan.  Both scans are f32 from the same
+# inputs and differ by ~1e-6 relative, so a layer's output changes only where
+# that moves a bf16 rounding (2^-8 relative) of the normed wkv output.
+# - Layer by layer, each layer fed the same input (the kernel path's): max
+#   |dout| / max |out| of the layer below 2e-2, a few bf16 roundings.
+# - In bf16, max |dlogits| / max |logits| below 0.5: through 32 layers of
+#   random weights the bf16 model carries a rounding-level change up to the
+#   size of its logits' own spread.  The run prints the control beside it:
+#   the plain scan at chunk 16 against chunk 32, which changes only the
+#   order of sums.  A wrong scan moves the logits by more than their max.
+# - In f32 (weights cast up), max |dlogits| / max |logits| below 1e-3: f32
+#   roundings are 2^16 times finer than bf16's, so the same 32 layers leave
+#   them far below the bf16 gap.
+RWKV_LAYER_TOL, RWKV_F32_TOL, RWKV_BF16_TOL = 2e-2, 1e-3, 0.5
 
 
 def nvidia_smi() -> str:
@@ -103,10 +147,10 @@ def device_breakdown(fn, label: str, per_call_ms: float, top: int = 6) -> None:
     if busy == 0:
         print(f"  {label}: device time by kernel not measured (the profiler saw no device time)")
         return
-    groups = {"flash_attn kernel": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"flash_attn kernel": 0.0, "wkv kernel": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms, _ in rows:
         low = name.lower()
-        g = "flash_attn kernel" if "flash_attn" in low else (
+        g = "flash_attn kernel" if "flash_attn" in low else "wkv kernel" if "wkv6" in low else (
             "matmul" if any(s in low for s in ("gemm", "nvjet", "xmma", "cutlass", "gemv")) else "other")
         groups[g] += ms
     shares = ", ".join(f"{g} {ms:.2f} ms ({ms / busy:.1%})" for g, ms in groups.items())
@@ -178,6 +222,196 @@ def time_attention(shape):
     return kernel_ms, plain_ms, library_ms
 
 
+def wkv_inputs(case, seed: int):
+    """r, k, v (in the case's dtype), w, u, s0 (f32) on the card, distributed
+    as tests/test_kernels.py's: decays w = exp(-exp(N(0,1) * decay_scale))."""
+    import torch
+
+    b, t, h, k, v, _, decay_scale, dtype_name = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = lambda *sh: torch.randn(sh, generator=gen, device="cuda")  # noqa: E731
+    dt = getattr(torch, dtype_name)
+    return (n(b, t, h, k).to(dt), n(b, t, h, k).to(dt), n(b, t, h, v).to(dt),
+            torch.exp(-torch.exp(n(b, t, h, k) * decay_scale)), n(h, k) * 0.1, n(b, h, k, v) * 0.2)
+
+
+def check_wkv(case, seed: int) -> float:
+    """Kernel vs plain version on the card, on y and s_T; returns the max abs error."""
+    import torch
+    from repro_torch.kernels.wkv import ops, ref
+
+    xs = wkv_inputs(case, seed)
+    chunk = case[5]
+    y, s = ops.wkv6(*xs, chunk=chunk)
+    py, ps = ref.wkv6_ref(*xs, chunk=min(chunk, case[1]))
+    torch.cuda.synchronize()
+    atol, rtol = WKV_TOL["strong" if case[6] >= 1.0 else case[7]]
+    err, ok = 0.0, True
+    for o, p in ((y, py), (s, ps)):
+        err = max(err, (o - p).abs().max().item())
+        ok = ok and bool(torch.isfinite(o).all()) and bool(((o - p).abs() <= atol + rtol * p.abs()).all())
+    print(f"  wkv6 {case}: max_abs_err {err:.3e} (atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"wkv6 kernel disagrees with the plain version at {case}")
+    return err
+
+
+def wkv_bound(case, with_s0: bool = True):
+    """(ms, "operations" | "bytes"): the least time an H100 needs for this
+    scan.  Bytes: r, k, v read once in their dtype, w read once in f32, y and
+    s_T written once in f32, s0 read once if given.  Operations, per chunk of
+    C and per (b, h): 4*C*K*V for the state's application to r and its
+    update (a multiply-add each), and C*(C+1)*(K+V) for the scores and their
+    application to v over tau <= t; against the f32 peak without tensor
+    cores (the kernel computes in f32).  The expf calls are not counted."""
+    b, t, h, k, v, chunk, _, dtype_name = case
+    c = min(chunk, t)
+    elem = 2 if dtype_name == "bfloat16" else 4
+    nbytes = b * t * h * ((2 * k + v) * elem + 4 * k + 4 * v) + 4 * b * h * k * v * (2 if with_s0 else 1)
+    flops = (t // c) * b * h * (4 * c * k * v + c * (c + 1) * (k + v))
+    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_wkv(case):
+    """Kernel and plain times in ms.  No single PyTorch call computes wkv6,
+    so there is no library time."""
+    from repro_torch.kernels.wkv import ops, ref
+
+    xs = wkv_inputs(case, seed=7)
+    chunk = case[5]
+    kernel_ms = cuda_ms(lambda: ops.wkv6(*xs, chunk=chunk))
+    plain_ms = cuda_ms(lambda: ref.wkv6_ref(*xs, chunk=chunk), iters=3)
+    return kernel_ms, plain_ms
+
+
+def serve_rwkv(counters) -> int:
+    """Phase 6: rwkv6-3b at full width; returns the wkv6 launches of the serve run."""
+    import torch
+    from repro_torch.checkpoint import convert
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config("rwkv6-3b")
+    b, t, new = 4, 1024, 32
+    print(f"[6] serve {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype}, "
+          f"batch {b}, prompt {t}, {new} new tokens")
+    model = build_model(cfg, "cuda")
+    params = convert.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    weight_gb = sum(a.numel() * a.element_size() for a in _leaves(params)) / 1e9
+    prompts = serve.random_prompts(cfg, b, t, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = serve.generate(model, params, prompts, new)
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launches during the run: {launches} (expected wkv6 {cfg.n_layers}, one per prefill layer; "
+          f"decode steps the state in plain PyTorch)")
+    if launches != {"flash_attention": 0, "wkv6": cfg.n_layers}:
+        raise AssertionError(f"expected {cfg.n_layers} wkv6 launches and no other, got {launches}")
+    if not bool(torch.isfinite(res.prefill_logits).all()):
+        raise AssertionError("prefill logits are not finite")
+    if tuple(res.tokens.shape) != (b, new) or not bool(((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()):
+        raise AssertionError(f"bad generated tokens {tuple(res.tokens.shape)}")
+    cache = model.init_cache(b, t + new)
+    state_mb = sum(a.numel() * a.element_size() for a in cache.values()) / 1e6
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    steps = new - 1
+    print(f"  weights {weight_gb:.2f} GB, decode cache {state_mb:.1f} MB; peak memory {peak_gb:.2f} GB "
+          f"of {total_gb:.1f} GB")
+    if not peak_gb < total_gb:
+        raise AssertionError("peak memory above the card's")
+    print(f"  first prefill {res.prefill_s * 1e3:.1f} ms; decoded {steps} steps x batch {b} in "
+          f"{res.decode_s:.3f}s ({steps * b / res.decode_s:.1f} tok/s)")
+    print(f"  tokens[0]: {res.tokens[0].tolist()}")
+
+    plain_model = build_model(cfg.replace(use_kernels=False), "cuda")
+    prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": prompts}), iters=3, warmup=1)
+    plain_prefill_ms = cuda_ms(lambda: plain_model.prefill(params, {"tokens": prompts}), iters=3, warmup=1)
+    plain_logits, _ = plain_model.prefill(params, {"tokens": prompts})
+    lg = res.prefill_logits
+    rel = rel_gap(lg, plain_logits)
+    agree = int((lg.argmax(-1) == plain_logits.argmax(-1)).sum())
+    print(f"  prefill {prefill_ms:.1f} ms with the kernel, {plain_prefill_ms:.1f} ms with the plain wkv scan")
+    device_breakdown(lambda: model.prefill(params, {"tokens": prompts}), "prefill, kernel path", prefill_ms)
+    device_breakdown(lambda: plain_model.prefill(params, {"tokens": prompts}), "prefill, plain path",
+                     plain_prefill_ms)
+    token = res.tokens[:, -1:]
+    decode_ms = cuda_ms(lambda: model.decode_step(params, token, cache, t), iters=5, warmup=2)
+    device_breakdown(lambda: model.decode_step(params, token, cache, t), "one decode step", decode_ms)
+    control = rel_gap(plain_logits, build_model(cfg.replace(use_kernels=False, wkv_chunk=16), "cuda").prefill(
+        params, {"tokens": prompts})[0])
+    print(f"  kernel vs plain wkv scan, bf16: max|dlogits|/max|logits| {rel:.3e} (bound {RWKV_BF16_TOL}); "
+          f"argmax agrees on {agree}/{b} rows; control, plain scan at chunk 16 vs 32: {control:.3e}")
+    layer_rel = per_layer_gap(cfg, params, prompts)
+    print(f"  kernel vs plain wkv scan, each layer fed the same input: worst max|dout|/max|out| "
+          f"{layer_rel:.3e} (bound {RWKV_LAYER_TOL})")
+    del plain_logits, res, cache
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    params32 = _map(params, lambda a: a.float())
+    del params
+    lg32 = build_model(cfg32, "cuda").prefill(params32, {"tokens": prompts})[0]
+    rel32 = rel_gap(lg32, build_model(cfg32.replace(use_kernels=False), "cuda").prefill(
+        params32, {"tokens": prompts})[0])
+    print(f"  kernel vs plain wkv scan, f32 (weights cast up): max|dlogits|/max|logits| {rel32:.3e} "
+          f"(bound {RWKV_F32_TOL})")
+    del params32, lg32
+    torch.cuda.empty_cache()
+
+    # smoke config in f32: the kernel path against the plain path, prefill and decode
+    small = get_smoke_config("rwkv6-3b")
+    runs = {}
+    for use in (True, False):
+        runs[use] = serve.serve(small.replace(use_kernels=use), batch=2, prompt_len=128, new_tokens=8, seed=3)
+    d = (runs[True].prefill_logits - runs[False].prefill_logits).abs().max().item()
+    same = bool(torch.equal(runs[True].tokens, runs[False].tokens))
+    print(f"  smoke config f32, kernel vs plain: max|dlogits| {d:.3e} (atol 1e-4), greedy tokens equal: {same}")
+    if not (rel < RWKV_BF16_TOL and layer_rel < RWKV_LAYER_TOL and rel32 < RWKV_F32_TOL):
+        raise AssertionError("rwkv6-3b: the kernel path disagrees with the plain path beyond its bounds")
+    if not (d <= 1e-4 and same):
+        raise AssertionError("rwkv smoke model: kernel path disagrees with the plain path")
+    return launches["wkv6"]
+
+
+def rel_gap(a, b) -> float:
+    """max |a - b| / max |a|."""
+    return ((a - b).abs().max() / a.abs().max()).item()
+
+
+def per_layer_gap(cfg, params, prompts) -> float:
+    """Worst max|dout|/max|out| over the layers when each layer gets the
+    same input, the kernel path's output of the layer below, on both paths."""
+    import torch
+    from repro_torch.models import layers, transformer
+
+    one = cfg.replace(n_layers=1)
+    worst = 0.0
+    with torch.inference_mode():
+        x = layers.embed(params, cfg, prompts)
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i in range(cfg.n_layers):
+            p_i = _map(params["layers"], lambda a: a[i:i + 1])
+            xk, _ = transformer.run_stack_prefill(p_i, one, x, pos)
+            xp, _ = transformer.run_stack_prefill(p_i, one.replace(use_kernels=False), x, pos)
+            worst = max(worst, rel_gap(xk.float(), xp.float()))
+            x = xk
+    return worst
+
+
+def _map(tree, fn):
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
 def main() -> int:
     import torch
 
@@ -193,6 +427,7 @@ def main() -> int:
     from repro_torch.checkpoint import convert
     from repro_torch.kernels import _build
     from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.wkv import ops as wkv_ops
     from repro_torch.launch import serve
     from repro_torch.models import build_model
 
@@ -233,6 +468,8 @@ def main() -> int:
     print(f"  window shape {SLICE_WINDOW_SHAPE}: kernel {w_kernel_ms:.4f} ms, plain {w_plain_ms:.4f} ms, "
           f"bound {w_bound_ms:.4f} ms ({w_bound_by})")
 
+    counters = {"flash_attention": ops, "wkv6": wkv_ops}
+
     # 4. the slice: llama3.2-3b serving at full width
     cfg = get_config("llama3.2-3b")
     b, t, new = 4, 1024, 32
@@ -243,13 +480,15 @@ def main() -> int:
     prompts = serve.random_prompts(cfg, b, t, seed=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.launches = 0
+    for c in counters.values():
+        c.launches = 0
     res = serve.generate(model, params, prompts, new)
-    launches = ops.launches
+    counts = {name: c.launches for name, c in counters.items()}
+    launches = counts["flash_attention"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  flash-attention launches during the run: {launches} (expected {cfg.n_layers}, one per prefill layer)")
-    if launches != cfg.n_layers:
-        raise AssertionError(f"expected {cfg.n_layers} kernel launches, got {launches}")
+    if counts != {"flash_attention": cfg.n_layers, "wkv6": 0}:
+        raise AssertionError(f"expected {cfg.n_layers} flash-attention launches and no other, got {counts}")
     if not bool(torch.isfinite(res.prefill_logits).all()):
         raise AssertionError("prefill logits are not finite")
     if tuple(res.tokens.shape) != (b, new) or not bool(((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()):
@@ -292,7 +531,21 @@ def main() -> int:
     if not (d <= 1e-4 and same):
         raise AssertionError("smoke model: kernel path disagrees with the plain path")
 
-    # 5. summary
+    # 5. wkv6 kernel vs plain
+    print("[5] wkv6, kernel vs plain version")
+    for i, case in enumerate(WKV_CASES):
+        check_wkv(case, seed=200 + i)
+    wkv_err = check_wkv(WKV_SLICE, seed=300)
+    wkv_ms, wkv_plain_ms = time_wkv(WKV_SLICE)
+    wkv_bound_ms, wkv_bound_by = wkv_bound(WKV_SLICE)
+    print(f"  slice shape {WKV_SLICE}: kernel {wkv_ms:.4f} ms, plain {wkv_plain_ms:.4f} ms, "
+          f"library none (no single PyTorch call computes wkv6), bound {wkv_bound_ms:.4f} ms ({wkv_bound_by}), "
+          f"roofline share {wkv_bound_ms / wkv_ms:.4f}")
+
+    # 6. the slice: rwkv6-3b serving at full width
+    wkv_launches = serve_rwkv(counters)
+
+    # 7. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -305,6 +558,18 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, {
+        "name": "wkv6",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/wkv/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv/kernel.py:118",
+        "launches": wkv_launches,
+        "max_abs_err": wkv_err,
+        "ms": wkv_ms,
+        "plain_ms": wkv_plain_ms,
+        "bound_ms": wkv_bound_ms,
+        "bound_by": wkv_bound_by,
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -2,8 +2,12 @@
 
 The tree is the JAX package's (`repro/models/model.py::build_model().init`):
   {"embed" (Vpad,D), "lm_head" (D,Vpad) unless tied,
-   "layers": {"ln1": {"scale"}, "attn": {"wq","wk","wv","wo"}, "ln2": {"scale"},
-              "mlp": {"w_gate","w_in","w_out"}} stacked (L, ...),
+   "layers": stacked (L, ...), by family
+     dense: {"ln1": {"scale"}, "attn": {"wq","wk","wv","wo"}, "ln2": {"scale"},
+             "mlp": {"w_gate","w_in","w_out"}}
+     ssm:   {"ln1": {"scale"}, "tmix": {"mu","wr","wk","wv","wg","wo","decay_w0",
+             "decay_a1","decay_a2","bonus_u","ln_out"}, "ln2": {"scale"},
+             "cmix": {"mu_c","w_in","w_out","w_recept"}},
    "final_norm": {"scale"}}
 as plain dicts of torch tensors with the same names, shapes and dtypes.
 """
@@ -45,7 +49,9 @@ def params_from_jax(tree: Mapping[str, Any], device="cuda") -> dict:
 def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
     """Random parameters drawn on `device` from `generator` (which must live
     on that device), from the distributions of the JAX package's init:
-    N(0, 1/fan_in) dense weights, unit norm scales.  JAX's bits cannot be
+    N(0, 1/fan_in) dense weights, unit norm scales, and for ssm the constant
+    lerp weights (0.5), decay bias (-1) and groupnorm scale (1), with the
+    decay LoRA and bonus u N(0, 1/fan_in) in f32.  JAX's bits cannot be
     reproduced; use `params_from_jax` for that."""
     dev = resolve_device(device)
     return {

@@ -61,7 +61,8 @@ class ModelConfig:
     scan_layers: bool = True
     remat: bool = True
     remat_policy: str = "full"
-    # Route prefill attention through the hand-written CUDA kernel.  The JAX
+    # Route prefill attention and the prefill wkv scan through the
+    # hand-written CUDA kernels.  The JAX
     # package's field is `use_pallas` (default False there); the port's
     # kernels are its point, so they are on by default here.
     use_kernels: bool = True

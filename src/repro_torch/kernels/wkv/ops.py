@@ -1,0 +1,43 @@
+"""Public wrapper of the wkv6 kernel, in the model's layout.
+
+The port of `repro/kernels/wkv/ops.py::wkv6`: (B, T, H, K) r, k, w and
+(B, T, H, V) v in, y (B, T, H, V) f32 and the final state (B, H, K, V) f32
+out.  The CUDA kernel reads the model's layout through strides, so nothing is
+folded or copied.  A CUDA tensor launches the kernel (or raises); a CPU
+tensor, and only a CPU tensor, goes to the plain version in `ref.py`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.wkv import kernel, ref
+
+# Kernel launches since import or since a caller last set it to 0.
+launches = 0
+
+
+def wkv6(
+    r: torch.Tensor,  # (B, T, H, K)
+    k: torch.Tensor,
+    v: torch.Tensor,  # (B, T, H, V)
+    w: torch.Tensor,  # (B, T, H, K) f32
+    u: torch.Tensor,  # (H, K) f32
+    s0: Optional[torch.Tensor] = None,  # (B, H, K, V) f32; None means zeros
+    *,
+    chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    global launches
+    chunk = min(chunk, r.shape[1])
+    if chunk > kernel.MAX_DIM:
+        # The JAX package caps the Pallas kernel's chunk at 64 for its VMEM
+        # budget; the CUDA kernel stages chunk x 64 tiles in shared memory.
+        raise ValueError(f"wkv6 chunk must be <= {kernel.MAX_DIM}, got {chunk}")
+    kernel.check_inputs(r, k, v, w, u, s0, chunk=chunk)
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u, s0, chunk=chunk)
+    out = kernel.wkv6_bthk(r, k, v, w, u, s0, chunk=chunk)
+    launches += 1
+    return out

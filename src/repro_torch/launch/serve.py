@@ -1,13 +1,17 @@
-"""Serve a batch of prompts: prefill, then greedy decode against the KV cache.
+"""Serve a batch of prompts: prefill, then greedy decode against the cache.
 
 The port of `examples/serve_decode.py`, on the card by default:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 --prompt-len 1024 --new-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --batch 4 --prompt-len 1024 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
 
 Weights are random, drawn on the device from `--seed`; prompts from
-`--seed + 1`.  Prompt lengths that are a multiple of 128 run every prefill
-layer's attention through the flash-attention kernel.
+`--seed + 1`.  For llama3.2-3b, prompt lengths that are a multiple of 128
+run every prefill layer's attention through the flash-attention kernel; for
+rwkv6-3b every prefill layer of more than one token runs its wkv scan
+through the wkv6 kernel, and decode steps the recurrent state.
 """
 
 from __future__ import annotations
@@ -45,28 +49,35 @@ def random_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int, dev
     return torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=_generator(seed, dev), device=dev)
 
 
+def _grow_kv_cache(model: Model, cache: dict, batch: int, total: int, window: int) -> dict:
+    """The prefill KV cache copied into one of `total` positions (or the
+    ring of `window` slots); the prefill cache itself when that is no longer."""
+    s = cache["k"].shape[2]
+    full = model.init_cache(batch, total, window)
+    if full["k"].shape[2] <= s:
+        return cache
+    for kk in ("k", "v"):
+        full[kk][:, :, :s] = cache[kk]
+    return full
+
+
 @torch.inference_mode()
 def generate(model: Model, params: dict, prompts: torch.Tensor, new_tokens: int,
              *, window: int = 0) -> ServeResult:
     """Prefill `prompts` (B, T), then take new_tokens - 1 greedy decode steps.
 
-    The prefill cache is copied into a cache preallocated for all
+    A KV cache (dense) is copied into a cache preallocated for all
     T + new_tokens positions (or the ring of `window` slots), which the
-    decode steps then update in place.  argmax takes the first of equal
-    maxima, as jnp.argmax does."""
+    decode steps then update in place.  The ssm family's prefill state is
+    its decode cache as it is, and `window` has no effect on it, as in the
+    JAX package.  argmax takes the first of equal maxima, as jnp.argmax does."""
     dev = model.device
     b, t = prompts.shape
-    total = t + new_tokens
 
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, {"tokens": prompts}, window=window)
-    s = cache["k"].shape[2]
-    full = model.init_cache(b, total, window)
-    if full["k"].shape[2] > s:
-        for kk in ("k", "v"):
-            full[kk][:, :, :s] = cache[kk]
-        cache = full
-    del full  # an unused zero cache is not held through the decode loop
+    if model.cfg.family != "ssm":
+        cache = _grow_kv_cache(model, cache, b, t + new_tokens, window)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -98,7 +109,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
-    ap.add_argument("--window", type=int, default=0, help="sliding-window decode (0 = full attention)")
+    ap.add_argument("--window", type=int, default=0,
+                    help="sliding-window decode (0 = full attention; no effect on rwkv6-3b)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)

@@ -1,7 +1,8 @@
 """Top-level serving API of the port: build_model(cfg, device) ->
 Model(prefill, decode_step, init_cache).
 
-A port of the serving half of `repro/models/model.py::build_model`.  The
+A port of the serving half of `repro/models/model.py::build_model`, for
+the families in `transformer.PORTED_FAMILIES` (dense and ssm).  The
 training entry (`loss_fn`, chunked cross-entropy) waits for the training
 slice, and parameters come from `repro_torch.checkpoint.convert`
 (`init` on the card, or `params_from_jax`).

@@ -1,8 +1,13 @@
-"""Layer stack of the dense family for serving: prefill and KV-cache decode.
+"""Layer stacks for serving: prefill, then decode against a cache.
 
-A port of the dense-family parts of `repro/models/transformer.py`.  Layer
-parameters stay stacked over a leading L axis, as in the JAX package, and
-the layers run as a Python loop over views `a[i]` (there is no scan).
+A port of the dense and ssm parts of `repro/models/transformer.py`:
+
+  dense     : [RMSNorm -> GQA attention] + [RMSNorm -> MLP], KV-cache decode
+  ssm       : [RMSNorm -> time-mix] + [RMSNorm -> channel-mix] (RWKV-6),
+              decode against the recurrent state
+
+Layer parameters stay stacked over a leading L axis, as in the JAX package,
+and the layers run as a Python loop over views `a[i]` (there is no scan).
 Other families raise.
 """
 
@@ -13,12 +18,14 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, rwkv
+
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet (only dense is ported)."""
-    if cfg.family != "dense":
+    """Raise for a family the port does not run yet."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not yet ported; see ROADMAP.md")
 
 
@@ -28,9 +35,16 @@ def layer_params(stacked: dict, i: int) -> dict:
 
 
 def init_layer_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int, device) -> dict:
-    """Stacked (L, ...) parameters of n_layers dense blocks."""
+    """Stacked (L, ...) parameters of n_layers blocks."""
     check_family(cfg)
     lead = (n_layers,)
+    if cfg.family == "ssm":
+        return {
+            "ln1": layers.rmsnorm_init(cfg, device, lead),
+            "tmix": rwkv.time_mix_init(gen, cfg, device, lead),
+            "ln2": layers.rmsnorm_init(cfg, device, lead),
+            "cmix": rwkv.channel_mix_init(gen, cfg, device, lead),
+        }
     return {
         "ln1": layers.rmsnorm_init(cfg, device, lead),
         "attn": layers.attention_init(gen, cfg, device, lead),
@@ -53,36 +67,55 @@ def _kv_to_ring_cache(k: torch.Tensor, window: int) -> torch.Tensor:
 
 
 def _block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *, window: int):
-    """One dense layer over the whole prompt.  Returns (x_out, (k_cache, v_cache))."""
+    """One layer over the whole prompt.  Returns (x_out, cache_l): the
+    per-layer decode cache, whose leaves are init_cache's without the L axis."""
+    if cfg.family == "ssm":
+        h = layers.rmsnorm(p["ln1"], x)
+        y, x_att, s = rwkv.time_mix(p["tmix"], cfg, h)
+        x = x + y
+        h = layers.rmsnorm(p["ln2"], x)
+        y, x_ffn = rwkv.channel_mix(p["cmix"], cfg, h)
+        return x + y, {"x_att": x_att, "x_ffn": x_ffn, "s": s}
     h = layers.rmsnorm(p["ln1"], x)
     y, (k, v) = layers.attention_full(
         p["attn"], cfg, h, positions, causal=True, window=window, return_kv=True
     )
     x = x + y
     x = x + layers.mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))
-    return x, (_kv_to_ring_cache(k, window), _kv_to_ring_cache(v, window))
+    return x, {"k": _kv_to_ring_cache(k, window), "v": _kv_to_ring_cache(v, window)}
 
 
 def run_stack_prefill(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                       *, window: int = 0):
     """Prefill: full-sequence forward that also captures the decode cache.
-    Returns (x, cache) with cache leaves stacked (L, B, S, KV, hd); each
-    layer's k, v are written straight into the preallocated stack."""
+    Returns (x, cache) with cache leaves stacked over layers: k, v (L, B, S,
+    KV, hd) for dense; x_att, x_ffn (L, B, D) and s (L, B, H, hd, hd) f32 for
+    ssm.  Each layer's leaves are written straight into the preallocated stack."""
     check_family(cfg)
     cache = None
     for i in range(cfg.n_layers):
-        x, (k, v) = _block_full(layer_params(stacked, i), cfg, x, positions, window=window)
+        x, cache_l = _block_full(layer_params(stacked, i), cfg, x, positions, window=window)
         if cache is None:
-            shape = (cfg.n_layers,) + tuple(k.shape)
-            cache = {"k": k.new_empty(shape), "v": v.new_empty(shape)}
-        cache["k"][i] = k
-        cache["v"][i] = v
+            cache = {kk: a.new_empty((cfg.n_layers,) + tuple(a.shape)) for kk, a in cache_l.items()}
+        for kk, a in cache_l.items():
+            cache[kk][i] = a
     return x, cache
 
 
 def _block_decode(p: dict, cache_l: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
                   pos: int, *, window: int):
-    """One layer of single-token decode; updates cache_l's k, v in place."""
+    """One layer of single-token decode; updates cache_l's leaves in place
+    (views of the stacked cache), where the JAX package returns new ones."""
+    if cfg.family == "ssm":
+        y, xp, s = rwkv.time_mix(
+            p["tmix"], cfg, layers.rmsnorm(p["ln1"], x), cache_l["x_att"], cache_l["s"]
+        )
+        x = x + y
+        cache_l["x_att"].copy_(xp)
+        cache_l["s"].copy_(s)
+        y, xp = rwkv.channel_mix(p["cmix"], cfg, layers.rmsnorm(p["ln2"], x), cache_l["x_ffn"])
+        cache_l["x_ffn"].copy_(xp)
+        return x + y
     h = layers.rmsnorm(p["ln1"], x)
     y, _, _ = layers.attention_decode(
         p["attn"], cfg, h, cache_l["k"], cache_l["v"], pos, window=window
@@ -94,21 +127,31 @@ def _block_decode(p: dict, cache_l: Dict[str, torch.Tensor], cfg: ModelConfig, x
 def run_stack_decode(stacked: dict, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
                      x: torch.Tensor, pos: int, *, window: int = 0):
     """Single-token decode through the stack.  Returns (x, cache): the
-    stacked cache is updated in place and returned."""
+    stacked cache (KV for dense, token-shift carries and wkv state for ssm)
+    is updated in place and returned."""
     check_family(cfg)
     for i in range(cfg.n_layers):
-        cache_l = {"k": cache["k"][i], "v": cache["v"][i]}
+        cache_l = {kk: a[i] for kk, a in cache.items()}
         x = _block_decode(layer_params(stacked, i), cache_l, cfg, x, pos, window=window)
     return x, cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, window: int = 0, *, device) -> dict:
     """Zero decode cache (stacked over layers).  For windowed attention the
-    kv cache length is min(cache_len, window)."""
+    kv cache length is min(cache_len, window); the ssm cache (token-shift
+    carries and wkv state) has no length, so cache_len and window do not
+    change it."""
     check_family(cfg)
     l, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    h, d = cfg.n_heads, cfg.d_model
     dt = layers._dtype(cfg.compute_dtype)
     s = min(cache_len, window) if window else cache_len
+    if cfg.family == "ssm":
+        return {
+            "x_att": torch.zeros((l, batch, d), dtype=dt, device=device),
+            "x_ffn": torch.zeros((l, batch, d), dtype=dt, device=device),
+            "s": torch.zeros((l, batch, h, hd, hd), dtype=torch.float32, device=device),
+        }
     return {
         "k": torch.zeros((l, batch, s, kv, hd), dtype=dt, device=device),
         "v": torch.zeros((l, batch, s, kv, hd), dtype=dt, device=device),

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (flash attention, wkv6) against their plain
+PyTorch versions, on the card.
 
 Marked `cuda`: without an NVIDIA GPU every test here skips (a CUDA kernel has
 no CPU mode).  This file imports nothing of JAX, so it runs on a GPU host
@@ -13,6 +14,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.attention import ops, ref  # noqa: E402
+from repro_torch.kernels.wkv import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.wkv import ref as wkv_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -69,3 +72,69 @@ def test_rows_that_see_no_key_are_zero_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert not out[:, 191:].any()
     np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(), atol=2e-5, rtol=2e-5)
+
+
+# (B, T, H, K, V, chunk, decay_scale): tests/test_kernels.py's wkv shapes and
+# chunk sizes, its strong-decay case, rwkv6-3b's prefill scan at batch 4 x
+# 1024, and ragged prompts shorter than the model's chunk of 32 (one chunk of
+# T, also when T is not a power of two).
+WKV_CASES = [
+    (2, 128, 3, 16, 16, 32, 0.5),
+    (1, 64, 2, 32, 32, 32, 0.5),
+    (1, 256, 1, 64, 64, 32, 0.5),
+    (4, 32, 2, 8, 8, 32, 0.5),
+    (2, 128, 2, 16, 16, 16, 0.5),
+    (2, 128, 2, 16, 16, 32, 0.5),
+    (2, 128, 2, 16, 16, 64, 0.5),
+    (1, 128, 1, 8, 8, 64, 1.0),
+    (4, 1024, 40, 64, 64, 32, 0.5),
+    (2, 16, 4, 64, 64, 32, 0.5),
+    (2, 20, 4, 64, 64, 32, 0.5),
+]
+# Kernel vs plain version, both f32 inside (bf16 r/k/v are widened before any
+# arithmetic on both sides): tests/test_kernels.py's f32 tolerances, the
+# looser ones under strong decay.
+WKV_TOL = {0.5: dict(atol=5e-4, rtol=1e-3), 1.0: dict(atol=2e-3, rtol=5e-3)}
+
+
+def _wkv_inputs(case, dtype, device):
+    b, t, h, k, v, _, decay_scale = case
+    rng = np.random.default_rng(sum(case[:5]))
+    n = lambda *sh: rng.standard_normal(sh, dtype=np.float32)  # noqa: E731
+    w = np.exp(-np.exp(n(b, t, h, k) * decay_scale)).astype(np.float32)
+    f = lambda a, dt=torch.float32: torch.from_numpy(a).to(device, dt)  # noqa: E731
+    return (f(n(b, t, h, k), dtype), f(n(b, t, h, k), dtype), f(n(b, t, h, v), dtype), f(w),
+            f(n(h, k) * 0.1), f(n(b, h, k, v) * 0.2))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+def test_wkv_kernel_matches_plain_version(cuda_device, case, dtype):
+    xs = _wkv_inputs(case, getattr(torch, dtype), cuda_device)
+    chunk = case[5]
+    before = wkv_ops.launches
+    y, s = wkv_ops.wkv6(*xs, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv_ops.launches == before + 1
+    py, ps = wkv_ref.wkv6_ref(*xs, chunk=min(chunk, case[1]))
+    assert y.dtype == s.dtype == torch.float32 and y.shape == py.shape and s.shape == ps.shape
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    tol = WKV_TOL[case[6]]
+    np.testing.assert_allclose(y.cpu().numpy(), py.cpu().numpy(), **tol)
+    np.testing.assert_allclose(s.cpu().numpy(), ps.cpu().numpy(), **tol)
+
+
+def test_wkv_kernel_reads_strided_views_and_zero_state(cuda_device):
+    """r, k, v, w as views into wider tensors (the kernel reads them through
+    strides), and s0=None (zeros, not read)."""
+    b, t, h, k = 2, 64, 3, 32
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    big = torch.randn(b, t, h, 4 * k, generator=gen, device=cuda_device)
+    r, kk, v = big[..., :k], big[..., k:2 * k], big[..., 2 * k:3 * k]
+    w = torch.exp(-torch.exp(big[..., 3 * k:] * 0.5))
+    u = torch.randn(h, k, generator=gen, device=cuda_device) * 0.1
+    y, s = wkv_ops.wkv6(r, kk, v, w, u, None, chunk=32)
+    py, ps = wkv_ref.wkv6_ref(r, kk, v, w, u, None, chunk=32)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.cpu().numpy(), py.cpu().numpy(), **WKV_TOL[0.5])
+    np.testing.assert_allclose(s.cpu().numpy(), ps.cpu().numpy(), **WKV_TOL[0.5])

@@ -163,10 +163,11 @@ def test_decode_past_the_cache_end_raises(weights):
 
 
 @pytest.mark.parametrize("which", ["full", "smoke"])
-def test_config_is_a_copy_of_the_jax_config(which):
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b"])
+def test_config_is_a_copy_of_the_jax_config(arch, which):
     """Field for field the JAX package's config, with use_pallas renamed use_kernels."""
-    port = get_config(ARCH) if which == "full" else get_smoke_config(ARCH)
-    ref = jax_get_config(ARCH) if which == "full" else jax_smoke_config(ARCH)
+    port = get_config(arch) if which == "full" else get_smoke_config(arch)
+    ref = jax_get_config(arch) if which == "full" else jax_smoke_config(arch)
     pd, rd = dataclasses.asdict(port), dataclasses.asdict(ref)
     assert pd.pop("use_kernels") is True and rd.pop("use_pallas") is False
     assert pd == rd
@@ -175,9 +176,9 @@ def test_config_is_a_copy_of_the_jax_config(which):
 
 
 def test_registry_lists_only_ported_archs():
-    assert list_archs() == [ARCH]
+    assert list_archs() == ["llama3.2-3b", "rwkv6-3b"]
     with pytest.raises(ValueError, match="not yet ported; see ROADMAP.md"):
-        get_config("rwkv6-3b")
+        get_config("hymba-1.5b")
     with pytest.raises(ValueError, match="unknown arch"):
         get_smoke_config("gpt-2")
 

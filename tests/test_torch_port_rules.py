@@ -41,7 +41,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_port_files_were_found():
     names = {p.name for p in PORT_FILES}
-    assert {"ops.py", "kernel.py", "ref.py", "layers.py", "serve.py", "chip_smoke.py"} <= names
+    assert {"ops.py", "kernel.py", "ref.py", "layers.py", "rwkv.py", "linear_scan.py", "serve.py",
+            "chip_smoke.py"} <= names
 
 
 def _no_card():
@@ -56,18 +57,24 @@ def _entry_points():
     from repro_torch.models import build_model
 
     cfg = get_smoke_config("llama3.2-3b")
+    rwkv_cfg = get_smoke_config("rwkv6-3b")
     return {
         "build_model": lambda: build_model(cfg),
+        "build_model[rwkv6-3b]": lambda: build_model(rwkv_cfg),
+        "convert.init[rwkv6-3b]": lambda: convert.init(rwkv_cfg, torch.Generator()),
         "convert.init": lambda: convert.init(cfg, torch.Generator()),
         "convert.params_from_jax": lambda: convert.params_from_jax({}),
         "serve.random_prompts": lambda: serve.random_prompts(cfg, 1, 8, seed=0),
         "serve.main": lambda: serve.main(["--smoke", "--prompt-len", "8", "--new-tokens", "2"]),
+        "serve.main[rwkv6-3b]": lambda: serve.main(
+            ["--arch", "rwkv6-3b", "--smoke", "--prompt-len", "8", "--new-tokens", "2"]),
     }
 
 
 @pytest.mark.parametrize(
     "name",
-    ["build_model", "convert.init", "convert.params_from_jax", "serve.random_prompts", "serve.main"],
+    ["build_model", "convert.init", "convert.params_from_jax", "serve.random_prompts", "serve.main",
+     "build_model[rwkv6-3b]", "convert.init[rwkv6-3b]", "serve.main[rwkv6-3b]"],
 )
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     _no_card()
