@@ -4,16 +4,23 @@
     python3 chip_smoke.py
 
 1. Print the device, and its name and power limit from nvidia-smi.
-2. Build every CUDA kernel of the port from the sources in this checkout.
+2. Build every CUDA kernel of the port from the sources in this checkout,
+   print the build time and ptxas's register lines, and count in the SASS of
+   the bf16 attention kernel its tensor-core (HGMMA) and TMA (UTMALDG)
+   instructions.
 3. Hold the flash-attention kernel against its plain PyTorch version on the
-   card: the five shapes of tests/test_kernels.py in f32 and bf16, and the
-   llama3.2-3b prefill shape (B=4, T=S=1024, H=24, KV=8, hd=128, bf16,
-   causal, and window 256), with kernel, plain and library times and the
-   bound at the prefill shape.
+   card: the five shapes of tests/test_kernels.py in f32 (the scalar route)
+   and bf16 (the wgmma + TMA route), ragged bf16 shapes at every head dim,
+   and the llama3.2-3b prefill shape (B=4, T=S=1024, H=24, KV=8, hd=128,
+   bf16, causal, and window 256).  At the prefill shapes: the bf16 route's
+   time, TFLOP/s and roofline share beside SDPA's time taken in turns
+   (kernel, SDPA, kernel), the plain version's time, and the f32 route's
+   time at the causal shape in f32.
 4. Serve llama3.2-3b at full width in bf16 with random weights from a seed:
    batch 4, prompt length 1024, 32 greedy tokens through the port's serving
    entry point, counting kernel launches; then the same prefill with the plain
-   attention, and the smoke config in f32 against its plain path.
+   attention, each layer fed the same input on both paths, and the smoke
+   config in f32 against its plain path.
 5. Hold the wkv6 kernel against its plain PyTorch version on the card: the
    four wkv shapes of tests/test_kernels.py, chunk 16/32/64, bf16 r/k/v,
    strong decay, and the rwkv6-3b prefill scan (B=4, T=1024, H=40,
@@ -54,6 +61,13 @@ ATTN_SHAPES = [
     (1, 128, 128, 8, 1, 64, True, 0),
     (1, 512, 512, 2, 2, 128, True, 128),
 ]
+# Edges of the bf16 route's 128 x 128 tiles: ragged T = S at every head dim,
+# non-causal T != S with S ragged, a window that crosses tile boundaries.
+RAGGED_SHAPES = [(1, t, t, 4, 2, hd, True, 0) for hd in (32, 64, 128) for t in (65, 100, 129, 200)] + [
+    (2, 128, 200, 4, 2, 64, False, 0),
+    (1, 100, 65, 4, 1, 128, False, 0),
+    (1, 512, 512, 4, 2, 128, True, 96),
+]
 # The attention of every llama3.2-3b prefill layer at batch 4, prompt 1024.
 SLICE_SHAPE = (4, 1024, 1024, 24, 8, 128, True, 0)
 SLICE_WINDOW_SHAPE = (4, 1024, 1024, 24, 8, 128, True, 256)
@@ -64,8 +78,11 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # Full model, kernel vs plain attention, max |dlogits| / max |logits|: the plain
 # path rounds scores and probabilities to bf16 in each of the 28 layers, and
 # those ~2^-8 relative differences carry through the residual stream; 0.1 is
-# about ten times the difference that alone predicts.
+# about ten times the difference that alone predicts.  Layer by layer, each
+# layer fed the same input on both paths: below 2e-2 of the layer's max
+# output, a few bf16 roundings (the bound of the rwkv check below).
 MODEL_REL_TOL = 0.1
+LLAMA_LAYER_TOL = 2e-2
 
 # (B, T, H, K, V, chunk, decay_scale, r/k/v dtype): tests/test_kernels.py's
 # four wkv shapes, its chunk sizes, bf16 inputs and strong decay.
@@ -108,6 +125,16 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_counts(build, name: str, opcodes) -> dict:
+    """How many SASS lines of the library built from `<name>.cu` hold each
+    opcode, from the toolkit's cuobjdump."""
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    lib = build.library_path(build.KERNELS_DIR / "attention" / "csrc" / f"{name}.cu")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return {op: sum(op in line for line in sass.splitlines()) for op in opcodes}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -161,9 +188,9 @@ def device_breakdown(fn, label: str, per_call_ms: float, top: int = 6) -> None:
 
 
 def attention_bound(shape, dtype_name: str):
-    """(ms, "operations" | "bytes"): the least time an H100 needs for this
-    attention: 4*hd flops for every visible (query, key) pair against the
-    peak for the dtype, or q, k, v read and o written once against HBM."""
+    """(ms, "operations" | "bytes", flops): the least time an H100 needs for
+    this attention: 4*hd flops for every visible (query, key) pair against
+    the peak for the dtype, or q, k, v read and o written once against HBM."""
     from repro_torch.kernels.attention.ref import visible_mask
 
     b, t, s, h, kv, hd, causal, window = shape
@@ -172,7 +199,7 @@ def attention_bound(shape, dtype_name: str):
     elem = 2 if dtype_name == "bfloat16" else 4
     nbytes = (2 * b * t * h * hd + 2 * b * s * kv * hd) * elem
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops
 
 
 def attention_inputs(shape, dtype, seed: int):
@@ -206,20 +233,41 @@ def check_attention(shape, dtype_name: str, seed: int) -> float:
 
 
 def time_attention(shape):
-    """Kernel, plain and library (SDPA) times in ms at a bf16 shape."""
+    """Times in ms at a bf16 shape: the kernel and the library call (SDPA, with an
+    explicit mask when there is a window) in turns, kernel, SDPA, kernel;
+    then the plain version.  Returns (kernel_ms_1, library_ms, kernel_ms_2,
+    plain_ms)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops, ref
 
     q, k, v = attention_inputs(shape, torch.bfloat16, seed=7)
-    causal, window = shape[6], shape[7]
-    kernel_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window))
+    t, s, causal, window = shape[1], shape[2], shape[6], shape[7]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if window:
+        mask = ref.visible_mask(t, s, causal=causal, window=window, device=q.device)
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    else:
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)  # noqa: E731
+    kernel = lambda: ops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+    kernel_ms_1 = cuda_ms(kernel, iters=100, warmup=10)
+    library_ms = cuda_ms(library, iters=100, warmup=10)
+    kernel_ms_2 = cuda_ms(kernel, iters=100, warmup=10)
     plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal, window=window), iters=5)
-    library_ms = None
-    if causal and not window:
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
-    return kernel_ms, plain_ms, library_ms
+    return kernel_ms_1, library_ms, kernel_ms_2, plain_ms
+
+
+def report_attention_times(label: str, shape):
+    """Print the bf16 route's time, TFLOP/s and roofline share beside SDPA's;
+    returns (kernel_ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    k1, lib_ms, k2, plain_ms = time_attention(shape)
+    kernel_ms = (k1 + k2) / 2
+    bound_ms, bound_by, flops = attention_bound(shape, "bfloat16")
+    print(f"  {label} {shape} bf16: kernel {k1:.4f} / {k2:.4f} ms (mean {kernel_ms:.4f}, "
+          f"{flops / kernel_ms / 1e9:.1f} TFLOP/s), library (SDPA) {lib_ms:.4f} ms "
+          f"(kernel/SDPA {kernel_ms / lib_ms:.2f}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"roofline share {bound_ms / kernel_ms:.4f}")
+    return kernel_ms, plain_ms, lib_ms, bound_ms, bound_by
 
 
 def wkv_inputs(case, seed: int):
@@ -445,28 +493,35 @@ def main() -> int:
     logs = _build.build_all()
     for src in _build.sources():
         _build.load(src.stem)
-    print(f"[2] built {[s.name for s in _build.sources()]} in {time.perf_counter() - t0:.1f}s")
+    print(f"[2] built {[s.name for s in _build.sources()]} in {time.perf_counter() - t0:.1f}s "
+          f"(one nvcc per source, in parallel)")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
+    sass = sass_counts(_build, "flash_attn_sm90", ("HGMMA", "UTMALDG"))
+    print(f"[2] flash_attn_sm90 SASS (cuobjdump -sass): {sass}")
+    if not all(sass.values()):
+        raise AssertionError(f"the bf16 attention kernel lacks wgmma or TMA instructions: {sass}")
 
     # 3. kernel vs plain
-    print("[3] flash attention, kernel vs plain version")
+    print("[3] flash attention, kernel vs plain version (f32: scalar route; bf16: wgmma + TMA route)")
     for i, shape in enumerate(ATTN_SHAPES):
         for dt in ("float32", "bfloat16"):
             check_attention(shape, dt, seed=i)
+    for i, shape in enumerate(RAGGED_SHAPES):
+        check_attention(shape, "bfloat16", seed=50 + i)
     slice_err = check_attention(SLICE_SHAPE, "bfloat16", seed=100)
     check_attention(SLICE_WINDOW_SHAPE, "bfloat16", seed=101)
-    kernel_ms, plain_ms, library_ms = time_attention(SLICE_SHAPE)
-    bound_ms, bound_by = attention_bound(SLICE_SHAPE, "bfloat16")
-    print(f"  slice shape {SLICE_SHAPE}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library (SDPA) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-          f"roofline share {bound_ms / kernel_ms:.4f}")
-    w_kernel_ms, w_plain_ms, _ = time_attention(SLICE_WINDOW_SHAPE)
-    w_bound_ms, w_bound_by = attention_bound(SLICE_WINDOW_SHAPE, "bfloat16")
-    print(f"  window shape {SLICE_WINDOW_SHAPE}: kernel {w_kernel_ms:.4f} ms, plain {w_plain_ms:.4f} ms, "
-          f"bound {w_bound_ms:.4f} ms ({w_bound_by})")
+    check_attention(SLICE_SHAPE, "float32", seed=102)
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = report_attention_times("slice shape", SLICE_SHAPE)
+    report_attention_times("window shape", SLICE_WINDOW_SHAPE)
+    q32, k32, v32 = attention_inputs(SLICE_SHAPE, torch.float32, seed=7)
+    f32_ms = cuda_ms(lambda: ops.flash_attention(q32, k32, v32, causal=True), iters=50, warmup=5)
+    del q32, k32, v32
+    f32_bound_ms, f32_bound_by, _ = attention_bound(SLICE_SHAPE, "float32")
+    print(f"  slice shape f32 (scalar route): kernel {f32_ms:.4f} ms, bound {f32_bound_ms:.4f} ms ({f32_bound_by}), "
+          f"roofline share {f32_bound_ms / f32_ms:.4f}")
 
     counters = {"flash_attention": ops, "wkv6": wkv_ops}
 
@@ -515,8 +570,13 @@ def main() -> int:
     device_breakdown(lambda: model.decode_step(params, token, decode_cache, t), "one decode step", decode_ms)
     print(f"  kernel vs plain attention: max|dlogits|/max|logits| {rel:.3e} (bound {MODEL_REL_TOL}); "
           f"argmax agrees on {agree}/{b} rows")
+    layer_rel = per_layer_gap(cfg, params, prompts)
+    print(f"  kernel vs plain attention, each layer fed the same input: worst max|dout|/max|out| "
+          f"{layer_rel:.3e} (bound {LLAMA_LAYER_TOL})")
     if not rel < MODEL_REL_TOL:
         raise AssertionError(f"full-model logits differ by {rel:.3e} relative (> {MODEL_REL_TOL})")
+    if not layer_rel < LLAMA_LAYER_TOL:
+        raise AssertionError(f"a layer's output differs by {layer_rel:.3e} relative (> {LLAMA_LAYER_TOL})")
     del params, plain_logits, res, decode_cache
     torch.cuda.empty_cache()
 
@@ -549,7 +609,7 @@ def main() -> int:
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/attention/csrc/flash_attn.cu",
+        "source": "src/repro_torch/kernels/attention/csrc/flash_attn_sm90.cu",
         "replaces": "src/repro/kernels/attention/kernel.py:96",
         "launches": launches,
         "max_abs_err": slice_err,
@@ -558,6 +618,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "f32_source": "src/repro_torch/kernels/attention/csrc/flash_attn.cu",
+        "f32_ms": f32_ms,
     }, {
         "name": "wkv6",
         "route": "cuda",

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++ with a plain C entry.
+// Flash-attention forward for Hopper (sm_90a), f32, CUDA C++ with a plain C
+// entry.  bf16 inputs take the tensor-core route, `flash_attn_sm90.cu`.
 //
 // Replaces the TPU kernel `src/repro/kernels/attention/kernel.py`:
 // `flash_attention_bhtd` (pl.pallas_call at :124, body `_attn_kernel` :26).
@@ -6,38 +7,31 @@
 // softmax whose running max, denominator and accumulator are f32,
 // sm_scale = 1/sqrt(hd), kv blocks that are fully in the future or fully
 // expired are skipped, rows that see no key output 0 (denominator clamped to
-// 1e-30), and the output is in q's dtype.
+// 1e-30), and the output is f32.
+//
+// Why a route of its own: wgmma has no f32 product other than TF32, which
+// keeps about three decimal digits, and the f32 parity tests and the f32
+// smoke model need full f32 (the Pallas kernel's
+// preferred_element_type=f32).  So every product here is a scalar f32 FMA.
 //
 // Design.  The TPU walks kv blocks on a sequential grid axis and carries the
 // softmax state in VMEM scratch; here one thread block owns one (q block,
 // head, batch) triple and loops over the kv blocks itself, so nothing has to
 // carry between blocks.  BQ x hd of q and BK x hd of k (then v, in the same
-// buffer) are held in shared memory as f32; the BQ x BK scores and
-// probabilities too.  256 threads form a 16 x 16 grid: each computes a 4 x 4
-// patch of the scores and a 4 x (hd/16) patch of the accumulator in
-// registers.  One warp per 8 rows does the softmax with shuffles.  The kv
-// head of q head h is h / (H/KV): kv is read once per q head from its own
-// rows, never repeated in memory.  All products are scalar f32 FMAs, so f32
-// inputs keep full f32 precision (the Pallas kernel's
-// preferred_element_type=f32), and bf16 inputs are widened with
-// __bfloat162float and the output narrowed with __float2bfloat16 (round to
-// nearest even, as XLA's convert).
+// buffer) are held in shared memory; the BQ x BK scores and probabilities
+// too.  256 threads form a 16 x 16 grid: each computes a 4 x 4 patch of the
+// scores and a 4 x (hd/16) patch of the accumulator in registers.  One warp
+// per 8 rows does the softmax with shuffles.  The kv head of q head h is
+// h / (H/KV): kv is read once per q head from its own rows, never repeated
+// in memory.
 //
-// Bound on an H100 SXM.  For the llama3.2-3b prefill shape (B=4, T=S=1024,
-// H=24, KV=8, hd=128, bf16, causal) the work is 4*hd*B*H*T(T+1)/2 = 25.8
-// GFLOP, 26 us at the 989 TFLOP/s bf16 tensor-core peak; the bytes
-// (q, k, v read once, o written once) are 67 MB, 20 us at 3.35 TB/s.  So the
-// bound is the tensor cores.
-//
-// What this simple design leaves on the table: it never touches the tensor
-// cores (scalar FMAs on the 67 TFLOP/s f32 pipe, and every FMA needs shared
-// memory operands, so shared-memory bandwidth caps it near half of that);
-// the diagonal blocks compute their masked half anyway; global loads are not
-// overlapped with compute (no cp.async / TMA pipeline); ~82 KB of shared
-// memory per block at hd=128 lets two blocks share an SM.  The next step is
-// wgmma on bf16 tiles fed by TMA, with warp specialisation (FA3 style).
+// Bound on an H100 SXM.  For the llama3.2-3b prefill shape in f32 (B=4,
+// T=S=1024, H=24, KV=8, hd=128, causal) the work is 25.8 GFLOP, 385 us at
+// the 67 TFLOP/s f32 peak without tensor cores; the bytes (q, k, v read
+// once, o written once) are 134 MB, 40 us at 3.35 TB/s.  Every FMA reads
+// its operands from shared memory, which caps it well below that peak; the
+// loads are synchronous and the diagonal blocks compute their masked half.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,11 +51,6 @@ struct Strides {  // in elements; the head dim is contiguous
   int64_t o_b, o_t, o_h;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal, int window) {
   return kpos < S && (!causal || kpos <= qpos) && (window <= 0 || qpos - kpos < window);
 }
@@ -74,19 +63,19 @@ constexpr int smem_floats() {
 // Copy `rows` rows of HD elements from global (row stride `rs`) into shared
 // f32 rows of stride HD + 1 (the pad keeps column reads conflict-free);
 // rows at or past `valid` are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int64_t rs,
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int64_t rs,
                                           int rows, int valid) {
   for (int i = threadIdx.x; i < rows * HD; i += NTHREADS) {
     const int r = i / HD, d = i % HD;
-    dst[r * (HD + 1) + d] = r < valid ? to_f32(src[(int64_t)r * rs + d]) : 0.f;
+    dst[r * (HD + 1) + d] = r < valid ? src[(int64_t)r * rs + d] : 0.f;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NTHREADS)
-flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                      T* __restrict__ o, int T_len, int S_len, int group, Strides st,
+flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                      float* __restrict__ o, int T_len, int S_len, int group, Strides st,
                       int causal, int window, float sm_scale) {
   constexpr int CV = HD / 16;  // accumulator columns per thread
   extern __shared__ float smem[];
@@ -105,11 +94,11 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
   const int ty = tid / 16, tx = tid % 16;
   const int warp = tid / 32, lane = tid % 32;
 
-  const T* qb = q + (int64_t)b * st.q_b + (int64_t)q0 * st.q_t + (int64_t)h * st.q_h;
-  const T* kb = k + (int64_t)b * st.k_b + (int64_t)kvh * st.k_h;
-  const T* vb = v + (int64_t)b * st.v_b + (int64_t)kvh * st.v_h;
+  const float* qb = q + (int64_t)b * st.q_b + (int64_t)q0 * st.q_t + (int64_t)h * st.q_h;
+  const float* kb = k + (int64_t)b * st.k_b + (int64_t)kvh * st.k_h;
+  const float* vb = v + (int64_t)b * st.v_b + (int64_t)kvh * st.v_h;
 
-  load_tile<T, HD>(sQ, qb, st.q_t, BQ, T_len - q0);
+  load_tile<HD>(sQ, qb, st.q_t, BQ, T_len - q0);
   for (int r = tid; r < BQ; r += NTHREADS) {
     sM[r] = NEG_INF;
     sL[r] = 0.f;
@@ -130,7 +119,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 
   for (int kt = kb_begin; kt < kb_end; ++kt) {
     const int k0 = kt * BK;
-    load_tile<T, HD>(sKV, kb + (int64_t)k0 * st.k_s, st.k_s, BK, S_len - k0);
+    load_tile<HD>(sKV, kb + (int64_t)k0 * st.k_s, st.k_s, BK, S_len - k0);
     __syncthreads();
 
     // scores: rows ty*RQ + i, columns tx + 16*j
@@ -186,7 +175,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
       }
     }
     // v replaces k in the same buffer: every read of k ended at the last barrier
-    load_tile<T, HD>(sKV, vb + (int64_t)k0 * st.v_s, st.v_s, BK, S_len - k0);
+    load_tile<HD>(sKV, vb + (int64_t)k0 * st.v_s, st.v_s, BK, S_len - k0);
     __syncthreads();
 
     // acc = acc * alpha + P @ V: rows ty*RQ + i, columns tx + 16*j
@@ -214,48 +203,36 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
     const int r = ty * RQ + i;
     if (q0 + r >= T_len) continue;
     const float inv_l = 1.f / fmaxf(sL[r], 1e-30f);
-    T* orow = o + (int64_t)b * st.o_b + (int64_t)(q0 + r) * st.o_t + (int64_t)h * st.o_h;
+    float* orow = o + (int64_t)b * st.o_b + (int64_t)(q0 + r) * st.o_t + (int64_t)h * st.o_h;
 #pragma unroll
-    for (int j = 0; j < CV; ++j) store(orow + tx + 16 * j, acc[i][j] * inv_l);
+    for (int j = 0; j < CV; ++j) orow[tx + 16 * j] = acc[i][j] * inv_l;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
                    int T_len, int S_len, const Strides& st, int causal, int window,
                    float sm_scale, cudaStream_t stream) {
   const size_t smem = smem_floats<HD>() * sizeof(float);
-  auto kernel = flash_attn_fwd_kernel<T, HD>;
+  auto kernel = flash_attn_fwd_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  kernel<<<grid, NTHREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           static_cast<const T*>(v), static_cast<T*>(o), T_len,
+  kernel<<<grid, NTHREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                           static_cast<const float*>(v), static_cast<float*>(o), T_len,
                                            S_len, H / KV, st, causal, window, sm_scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o, int B,
-                        int H, int KV, int T_len, int S_len, const Strides& st, int causal,
-                        int window, float sm_scale, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  strides: 12 int64 in elements, in the
-// order of `Strides` (q, k, v, o; each batch, sequence, head).  Launches on
-// `stream` and returns cudaGetLastError() of the launch (0 on success).
-extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
-                              int B, int H, int KV, int T_len, int S_len, int hd,
-                              const int64_t* strides, int causal, int window, float sm_scale,
-                              void* stream) {
+// f32 q (B,H,T,hd), k and v (B,KV,S,hd), o like q.  strides: 12 int64 in
+// elements, (batch, sequence, head) of q, k, v, o; the head dim is
+// contiguous.  Launches on `stream` and returns cudaGetLastError() of the
+// launch (0 on success).
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
+                              int T_len, int S_len, int hd, const int64_t* strides, int causal, int window,
+                              float sm_scale, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV || T_len <= 0 || S_len <= 0)
     return (int)cudaErrorInvalidValue;
   Strides st;
@@ -264,14 +241,12 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   st.v_b = strides[6]; st.v_s = strides[7]; st.v_h = strides[8];
   st.o_b = strides[9]; st.o_t = strides[10]; st.o_h = strides[11];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_hd<float>(hd, q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
-  else if (dtype == 1)
-    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  switch (hd) {
+    case 32: return (int)launch<32>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
+    case 64: return (int)launch<64>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
+    case 128: return (int)launch<128>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* flash_attn_error_string(int code) {

@@ -4,8 +4,10 @@ The port of `repro/kernels/attention/ops.py::flash_attention`.  It takes
 (B, T, H, hd) q and (B, S, KV, hd) k, v as the model holds them and hands the
 kernel transposed views, so nothing is copied.  A CUDA tensor launches the
 kernel (or raises); a CPU tensor, and only a CPU tensor, goes to the plain
-version in `ref.py`.  The JAX wrapper's `block_q`/`block_k` have no
-counterpart: the CUDA kernel fixes its own tiles and masks ragged edges.
+version in `ref.py`.  On the card the dtype picks the kernel
+(`kernel.ROUTES`): bf16 the tensor-core kernel, f32 the scalar one.  The JAX
+wrapper's `block_q`/`block_k` have no counterpart: each CUDA kernel fixes its
+own tiles and masks ragged edges.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from repro_torch.kernels.attention import kernel
 from repro_torch.kernels.attention.ref import attention_ref
 
-# Kernel launches since import or since a caller last set it to 0.
+# Kernel launches (either route) since import or since a caller last set it to 0.
 launches = 0
 
 

@@ -126,6 +126,53 @@ def test_kernel_binding_refuses_cpu_tensors():
         kernel.flash_attention_bhtd(q, q[:, :1], q[:, :1])
 
 
+def test_dtype_picks_the_kernel_route():
+    """bf16 goes to the wgmma + TMA kernel, f32 to the scalar f32 kernel;
+    each route names a CUDA source of the port, and no other dtype has one."""
+    from repro_torch.kernels import _build
+
+    assert kernel.ROUTES == {torch.float32: "flash_attn", torch.bfloat16: "flash_attn_sm90"}
+    names = {src.stem for src in _build.sources()}
+    assert set(kernel.ROUTES.values()) <= names
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.check_inputs(*(torch.zeros(1, 2, 64, 64, dtype=torch.float16),) * 3, causal=True)
+
+
+def _tma_error(x):
+    return kernel.tma_layout_error(x.shape, x.stride(), x.data_ptr(), x.element_size())
+
+
+@pytest.mark.parametrize("hd", kernel.HEAD_DIMS)
+def test_tma_check_accepts_the_models_views(hd):
+    """The model's (B,T,H,hd) q and (B,S,KV,hd) k, v, transposed to the
+    kernel's (B,H,T,hd) as ops.flash_attention does, contiguous or cut from
+    one fused qkv projection, at every head dim."""
+    b, t, h, kv = 2, 100, 6, 2
+    for x in (torch.zeros(b, t, h, hd, dtype=torch.bfloat16), torch.zeros(b, t, kv, hd, dtype=torch.bfloat16)):
+        assert _tma_error(x.transpose(1, 2)) is None
+    fused = torch.zeros(b, t, (h + 2 * kv) * hd, dtype=torch.bfloat16)
+    for lo, hi in ((0, h * hd), (h * hd, (h + kv) * hd), ((h + kv) * hd, (h + 2 * kv) * hd)):
+        assert _tma_error(fused[..., lo:hi].unflatten(-1, (-1, hd)).transpose(1, 2)) is None
+    # one batch, one head: the strides of size-1 dims are never stepped over
+    assert kernel.tma_layout_error((1, 1, t, hd), (7, 3, hd, 1), 0, 2) is None
+
+
+@pytest.mark.parametrize(
+    "case, shape, strides, ptr, why",
+    [
+        ("row_stride_odd", (1, 4, 128, 64), (128 * 257, 64, 257, 1), 0, "sequence stride of 514 bytes"),
+        ("head_stride_4_elements", (1, 4, 128, 64), (4 * 128 * 64, 4, 256, 1), 0, "head stride of 8 bytes"),
+        ("batch_stride_not_16", (2, 4, 128, 64), (4 * 128 * 64 + 1, 64, 256, 1), 0, "batch stride"),
+        ("base_2_bytes_in", (1, 4, 128, 64), (4 * 128 * 64, 64, 256, 1), 2, "base address"),
+        ("hd_not_contiguous", (1, 4, 128, 64), (4 * 128 * 128, 128, 512, 2), 0, "head dimension"),
+        ("zero_stride", (1, 4, 128, 64), (0, 0, 64, 1), 0, "head stride of 0 bytes"),
+    ],
+)
+def test_tma_check_refuses_what_tma_cannot_read(case, shape, strides, ptr, why):
+    err = kernel.tma_layout_error(shape, strides, ptr, 2)
+    assert err is not None and why in err, (case, err)
+
+
 def test_cpu_calls_do_not_count_as_launches():
     before = ops.launches
     xs = _inputs(ATTN_SHAPES[0], seed=0)

@@ -1,5 +1,7 @@
 """The port's CUDA kernels (flash attention, wkv6) against their plain
-PyTorch versions, on the card.
+PyTorch versions, on the card.  Flash attention has two routes, by dtype:
+f32 the scalar kernel, bf16 the wgmma + TMA kernel; every attention case
+runs both.
 
 Marked `cuda`: without an NVIDIA GPU every test here skips (a CUDA kernel has
 no CPU mode).  This file imports nothing of JAX, so it runs on a GPU host
@@ -30,6 +32,13 @@ ATTN_SHAPES = [
     (1, 1024, 1024, 24, 8, 128, True, 0),
     (1, 1024, 1024, 24, 8, 128, True, 256),
     (1, 100, 100, 4, 2, 64, True, 0),  # ragged: T not a multiple of the kernel's tiles
+    # ragged T = S at every head dim: the bf16 route's 128 x 128 tiles end
+    # inside the sequence, and TMA zero-fills the rest of the tile
+    *[(1, t, t, 4, 2, hd, True, 0) for hd in (32, 64, 128) for t in (65, 100, 129, 200)],
+    (2, 128, 200, 4, 2, 64, False, 0),  # non-causal, T != S, S ragged
+    (1, 100, 65, 4, 1, 128, False, 0),  # non-causal, T > S, both ragged
+    (1, 512, 512, 4, 2, 128, True, 96),  # a window that crosses tile boundaries
+    (1, 512, 512, 4, 2, 32, True, 96),
 ]
 # f32 differs from the plain version only in summation order; bf16 also in
 # where the plain version rounds scores and probabilities (2^-8 relative).
@@ -72,6 +81,54 @@ def test_rows_that_see_no_key_are_zero_on_the_card(cuda_device):
     torch.cuda.synchronize()
     assert not out[:, 191:].any()
     np.testing.assert_allclose(out.cpu().numpy(), plain.cpu().numpy(), atol=2e-5, rtol=2e-5)
+
+
+def test_bf16_rows_that_see_no_key_are_zero_on_the_card(cuda_device):
+    """Rows 191.. see no key (non-causal window, T > S); on the bf16 route the
+    masked scores of a row that has seen no key must not count as exp(0)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(1, 256, 2, 64, generator=gen, device=cuda_device).bfloat16()
+    k = torch.randn(1, 128, 1, 64, generator=gen, device=cuda_device).bfloat16()
+    v = torch.randn(1, 128, 1, 64, generator=gen, device=cuda_device).bfloat16()
+    out = ops.flash_attention(q, k, v, causal=False, window=64)
+    plain = ref.attention_ref(q, k, v, causal=False, window=64)
+    torch.cuda.synchronize()
+    assert not out[:, 191:].any() and bool(out[:, :191].float().abs().sum(-1).min() > 0)
+    np.testing.assert_allclose(out.float().cpu().numpy(), plain.float().cpu().numpy(), atol=2e-2, rtol=2e-2)
+
+
+def _fused_qkv(b, t, h, kv, hd, *, width_pad=0, offset=0, dtype=torch.bfloat16, device):
+    """q, k, v as column slices of one (B, T, (H + 2 KV) hd + pad) tensor,
+    starting `offset` elements into each row."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn(b, t, (h + 2 * kv) * hd + width_pad, generator=gen, device=device).to(dtype)
+    cuts = [offset, offset + h * hd, offset + (h + kv) * hd, offset + (h + 2 * kv) * hd]
+    return tuple(x[..., lo:hi].unflatten(-1, (-1, hd)) for lo, hi in zip(cuts, cuts[1:]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_reads_fused_qkv_slices(cuda_device, dtype):
+    q, k, v = _fused_qkv(2, 200, 8, 2, 128, dtype=getattr(torch, dtype), device=cuda_device)
+    assert q.stride(1) == (8 + 4) * 128 and not q.is_contiguous()
+    before = ops.launches
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    plain = ref.attention_ref(q, k, v, causal=True)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(), plain.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", ["row_stride_not_16_bytes", "base_not_16_bytes"])
+def test_bf16_view_that_tma_refuses_raises_before_launch(cuda_device, case):
+    if case == "row_stride_not_16_bytes":  # rows of (H + 2 KV) hd + 1 elements
+        q, k, v = _fused_qkv(1, 128, 4, 2, 64, width_pad=1, device=cuda_device)
+    else:  # every slice starts one element (2 bytes) into its row
+        q, k, v = _fused_qkv(1, 128, 4, 2, 64, width_pad=8, offset=1, device=cuda_device)
+    before = ops.launches
+    with pytest.raises(ValueError, match="bf16 kernel cannot take this view"):
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.launches == before
 
 
 # (B, T, H, K, V, chunk, decay_scale): tests/test_kernels.py's wkv shapes and
