@@ -7,7 +7,8 @@
 2. Build every CUDA kernel of the port from the sources in this checkout,
    print the build time and ptxas's register lines, and count in the SASS of
    the bf16 attention kernel its tensor-core (HGMMA) and TMA (UTMALDG)
-   instructions.
+   instructions, and in that of the tensor-core wkv6 kernel its mma.sync
+   (HMMA), wgmma (HGMMA) and cp.async (LDGSTS) instructions.
 3. Hold the flash-attention kernel against its plain PyTorch version on the
    card: the five shapes of tests/test_kernels.py in f32 (the scalar route)
    and bf16 (the wgmma + TMA route), ragged bf16 shapes at every head dim,
@@ -21,14 +22,17 @@
    entry point, counting kernel launches; then the same prefill with the plain
    attention, each layer fed the same input on both paths, and the smoke
    config in f32 against its plain path.
-5. Hold the wkv6 kernel against its plain PyTorch version on the card: the
-   four wkv shapes of tests/test_kernels.py, chunk 16/32/64, bf16 r/k/v,
-   strong decay, and the rwkv6-3b prefill scan (B=4, T=1024, H=40,
-   K=V=64, bf16 r/k/v, f32 w, chunk 32), with kernel and plain times and
-   the bound there.
+5. Hold both wkv6 kernels against their plain PyTorch version on the card:
+   the scalar route at the four wkv shapes of tests/test_kernels.py, chunk
+   16/32/64, bf16 r/k/v, strong decay and a ragged prompt; the tensor-core
+   route at K = V = 64 with chunk 16/32/48/64, bf16 and strong decay; both
+   at the rwkv6-3b prefill scan (B=4, T=1024, H=40, K=V=64, bf16 r/k/v,
+   f32 w, chunk 32), with both kernels' times, the plain time, and the
+   bound of each route's pipe there.
 6. Serve rwkv6-3b at full width in bf16 with random weights from a seed:
    batch 4, prompt length 1024, 32 greedy tokens through the same entry
-   point, counting kernel launches (one wkv6 launch per prefill layer);
+   point, counting kernel launches (one wkv6 launch per prefill layer, all
+   on the tensor-core route);
    then the same prefill with the plain wkv scan, and the smoke config in
    f32 against its plain path.
 7. Print one `kernels` JSON line, the card again, and, as the last line,
@@ -42,6 +46,7 @@ There is no CPU path and no fallback to the plain version.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -51,6 +56,9 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit).
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 without them
+# The tensor-core wkv6 kernel's pipe: TF32 tensor cores (495 TFLOP/s) with
+# every f32 product split into three TF32 passes.
+PEAK_FLOPS["tf32x3"] = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
 
 # (B, T, S, H, KV, hd, causal, window): tests/test_kernels.py ATTN_SHAPES
@@ -85,7 +93,9 @@ MODEL_REL_TOL = 0.1
 LLAMA_LAYER_TOL = 2e-2
 
 # (B, T, H, K, V, chunk, decay_scale, r/k/v dtype): tests/test_kernels.py's
-# four wkv shapes, its chunk sizes, bf16 inputs and strong decay.
+# four wkv shapes, its chunk sizes, bf16 inputs and strong decay; then K = V
+# = 64 at every chunk the tensor-core route takes, bf16, strong decay at
+# chunks 32 and 64, and a ragged 64-wide prompt (scalar route).
 WKV_CASES = [
     (2, 128, 3, 16, 16, 32, 0.5, "float32"),
     (1, 64, 2, 32, 32, 32, 0.5, "float32"),
@@ -96,6 +106,12 @@ WKV_CASES = [
     (2, 128, 2, 16, 16, 64, 0.5, "float32"),
     (1, 64, 2, 16, 16, 32, 0.5, "bfloat16"),
     (1, 128, 1, 8, 8, 64, 1.0, "float32"),
+    (2, 128, 2, 64, 64, 16, 0.5, "float32"),
+    (2, 192, 2, 64, 64, 48, 0.5, "float32"),
+    (2, 128, 2, 64, 64, 64, 0.5, "bfloat16"),
+    (1, 128, 2, 64, 64, 32, 1.0, "bfloat16"),
+    (1, 128, 2, 64, 64, 64, 1.0, "float32"),
+    (2, 20, 4, 64, 64, 32, 0.5, "float32"),
 ]
 # The wkv scan of every rwkv6-3b prefill layer at batch 4, prompt 1024.
 WKV_SLICE = (4, 1024, 40, 64, 64, 32, 0.5, "bfloat16")
@@ -131,7 +147,7 @@ def sass_counts(build, name: str, opcodes) -> dict:
     """How many SASS lines of the library built from `<name>.cu` hold each
     opcode, from the toolkit's cuobjdump."""
     cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
-    lib = build.library_path(build.KERNELS_DIR / "attention" / "csrc" / f"{name}.cu")
+    lib = build.library_path(next(src for src in build.sources() if src.stem == name))
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True, timeout=120,
                           check=True).stdout
     return {op: sum(op in line for line in sass.splitlines()) for op in opcodes}
@@ -283,14 +299,24 @@ def wkv_inputs(case, seed: int):
             torch.exp(-torch.exp(n(b, t, h, k) * decay_scale)), n(h, k) * 0.1, n(b, h, k, v) * 0.2)
 
 
-def check_wkv(case, seed: int) -> float:
-    """Kernel vs plain version on the card, on y and s_T; returns the max abs error."""
+def check_wkv(case, seed: int, kernel_name=None) -> float:
+    """Kernel vs plain version on the card, on y and s_T; returns the max abs
+    error.  Through the wrapper, asserting the route `kernel.route` names, or,
+    given `kernel_name`, that kernel called directly."""
     import torch
-    from repro_torch.kernels.wkv import ops, ref
+    from repro_torch.kernels.wkv import kernel, ops, ref
 
     xs = wkv_inputs(case, seed)
     chunk = case[5]
-    y, s = ops.wkv6(*xs, chunk=chunk)
+    if kernel_name is None:
+        name = kernel.route(case[1], case[3], case[4], chunk)
+        before = dict(ops.route_launches)
+        y, s = ops.wkv6(*xs, chunk=chunk)
+        if ops.route_launches[name] != before[name] + 1:
+            raise AssertionError(f"wkv6 at {case} did not run on the {name} route")
+    else:
+        name = kernel_name
+        y, s = kernel.wkv6_bthk(*xs, chunk=chunk, kernel=name)
     py, ps = ref.wkv6_ref(*xs, chunk=min(chunk, case[1]))
     torch.cuda.synchronize()
     atol, rtol = WKV_TOL["strong" if case[6] >= 1.0 else case[7]]
@@ -298,39 +324,60 @@ def check_wkv(case, seed: int) -> float:
     for o, p in ((y, py), (s, ps)):
         err = max(err, (o - p).abs().max().item())
         ok = ok and bool(torch.isfinite(o).all()) and bool(((o - p).abs() <= atol + rtol * p.abs()).all())
-    print(f"  wkv6 {case}: max_abs_err {err:.3e} (atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}")
+    print(f"  wkv6 {case} [{name}]: max_abs_err {err:.3e} (atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"wkv6 kernel disagrees with the plain version at {case}")
     return err
 
 
-def wkv_bound(case, with_s0: bool = True):
+def wkv_bound(case, with_s0: bool = True, pipe: str = "float32"):
     """(ms, "operations" | "bytes"): the least time an H100 needs for this
     scan.  Bytes: r, k, v read once in their dtype, w read once in f32, y and
     s_T written once in f32, s0 read once if given.  Operations, per chunk of
     C and per (b, h): 4*C*K*V for the state's application to r and its
     update (a multiply-add each), and C*(C+1)*(K+V) for the scores and their
-    application to v over tau <= t; against the f32 peak without tensor
-    cores (the kernel computes in f32).  The expf calls are not counted."""
+    application to v over tau <= t; against the peak of `pipe`: "float32",
+    the f32 pipe without tensor cores (the scalar kernel), or "tf32x3", the
+    TF32 tensor cores at a third of their rate (the tensor-core kernel, which
+    splits each f32 product into three).  The expf calls are not counted."""
     b, t, h, k, v, chunk, _, dtype_name = case
     c = min(chunk, t)
     elem = 2 if dtype_name == "bfloat16" else 4
     nbytes = b * t * h * ((2 * k + v) * elem + 4 * k + 4 * v) + 4 * b * h * k * v * (2 if with_s0 else 1)
     flops = (t // c) * b * h * (4 * c * k * v + c * (c + 1) * (k + v))
-    t_ops, t_bytes = flops / PEAK_FLOPS["float32"], nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flops / PEAK_FLOPS[pipe], nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def wkv_bounds(case) -> dict:
+    """The bound of each route's pipe: {"tf32x3": (ms, by), "float32": (ms, by)}."""
+    return {pipe: wkv_bound(case, pipe=pipe) for pipe in ("tf32x3", "float32")}
+
+
 def time_wkv(case):
-    """Kernel and plain times in ms.  No single PyTorch call computes wkv6,
-    so there is no library time."""
-    from repro_torch.kernels.wkv import ops, ref
+    """Times in ms of the tensor-core kernel and the scalar kernel in turns
+    (tensor-core, scalar, tensor-core), then the plain version.  No single
+    PyTorch call computes wkv6, so there is no library time.  Returns
+    (sm90_ms_1, scalar_ms, sm90_ms_2, plain_ms)."""
+    from repro_torch.kernels.wkv import kernel, ref
 
     xs = wkv_inputs(case, seed=7)
     chunk = case[5]
-    kernel_ms = cuda_ms(lambda: ops.wkv6(*xs, chunk=chunk))
+    sm90 = lambda: kernel.wkv6_bthk(*xs, chunk=chunk, kernel="wkv6_sm90")  # noqa: E731
+    sm90_ms_1 = cuda_ms(sm90, iters=50, warmup=5)
+    scalar_ms = cuda_ms(lambda: kernel.wkv6_bthk(*xs, chunk=chunk, kernel="wkv6"))
+    sm90_ms_2 = cuda_ms(sm90, iters=50, warmup=5)
     plain_ms = cuda_ms(lambda: ref.wkv6_ref(*xs, chunk=chunk), iters=3)
-    return kernel_ms, plain_ms
+    return sm90_ms_1, scalar_ms, sm90_ms_2, plain_ms
+
+
+def reset_counts(counters) -> None:
+    """Set every kernel wrapper's launch counts to 0."""
+    for c in counters.values():
+        if hasattr(c, "reset_counts"):
+            c.reset_counts()
+        else:
+            c.launches = 0
 
 
 def serve_rwkv(counters) -> int:
@@ -352,15 +399,17 @@ def serve_rwkv(counters) -> int:
     prompts = serve.random_prompts(cfg, b, t, seed=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     res = serve.generate(model, params, prompts, new)
     launches = {name: c.launches for name, c in counters.items()}
+    routes = dict(counters["wkv6"].route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"  launches during the run: {launches} (expected wkv6 {cfg.n_layers}, one per prefill layer; "
-          f"decode steps the state in plain PyTorch)")
+    print(f"  launches during the run: {launches}, wkv6 by route {routes} (expected wkv6 {cfg.n_layers}, one per "
+          f"prefill layer, all on wkv6_sm90; decode steps the state in plain PyTorch)")
     if launches != {"flash_attention": 0, "wkv6": cfg.n_layers}:
         raise AssertionError(f"expected {cfg.n_layers} wkv6 launches and no other, got {launches}")
+    if routes != {"wkv6": 0, "wkv6_sm90": cfg.n_layers}:
+        raise AssertionError(f"expected all {cfg.n_layers} wkv6 launches on the tensor-core route, got {routes}")
     if not bool(torch.isfinite(res.prefill_logits).all()):
         raise AssertionError("prefill logits are not finite")
     if tuple(res.tokens.shape) != (b, new) or not bool(((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()):
@@ -423,7 +472,7 @@ def serve_rwkv(counters) -> int:
         raise AssertionError("rwkv6-3b: the kernel path disagrees with the plain path beyond its bounds")
     if not (d <= 1e-4 and same):
         raise AssertionError("rwkv smoke model: kernel path disagrees with the plain path")
-    return launches["wkv6"]
+    return routes["wkv6_sm90"]
 
 
 def rel_gap(a, b) -> float:
@@ -496,13 +545,19 @@ def main() -> int:
     print(f"[2] built {[s.name for s in _build.sources()]} in {time.perf_counter() - t0:.1f}s "
           f"(one nvcc per source, in parallel)")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}")
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+        if regs:
+            print(f"    {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, "
+                  f"spill stores up to {max(spills, default=0)} bytes")
     sass = sass_counts(_build, "flash_attn_sm90", ("HGMMA", "UTMALDG"))
     print(f"[2] flash_attn_sm90 SASS (cuobjdump -sass): {sass}")
     if not all(sass.values()):
         raise AssertionError(f"the bf16 attention kernel lacks wgmma or TMA instructions: {sass}")
+    wkv_sass = sass_counts(_build, "wkv6_sm90", ("HMMA", "HGMMA", "LDGSTS"))
+    print(f"[2] wkv6_sm90 SASS (cuobjdump -sass): {wkv_sass}")
+    if not all(wkv_sass.values()):
+        raise AssertionError(f"the tensor-core wkv6 kernel lacks mma.sync, wgmma or cp.async instructions: {wkv_sass}")
 
     # 3. kernel vs plain
     print("[3] flash attention, kernel vs plain version (f32: scalar route; bf16: wgmma + TMA route)")
@@ -535,8 +590,7 @@ def main() -> int:
     prompts = serve.random_prompts(cfg, b, t, seed=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     res = serve.generate(model, params, prompts, new)
     counts = {name: c.launches for name, c in counters.items()}
     launches = counts["flash_attention"]
@@ -591,16 +645,22 @@ def main() -> int:
     if not (d <= 1e-4 and same):
         raise AssertionError("smoke model: kernel path disagrees with the plain path")
 
-    # 5. wkv6 kernel vs plain
-    print("[5] wkv6, kernel vs plain version")
+    # 5. wkv6 kernels vs plain
+    print("[5] wkv6, kernel vs plain version (K = V = 64 with whole chunks: tensor-core route; else scalar)")
     for i, case in enumerate(WKV_CASES):
         check_wkv(case, seed=200 + i)
     wkv_err = check_wkv(WKV_SLICE, seed=300)
-    wkv_ms, wkv_plain_ms = time_wkv(WKV_SLICE)
-    wkv_bound_ms, wkv_bound_by = wkv_bound(WKV_SLICE)
-    print(f"  slice shape {WKV_SLICE}: kernel {wkv_ms:.4f} ms, plain {wkv_plain_ms:.4f} ms, "
-          f"library none (no single PyTorch call computes wkv6), bound {wkv_bound_ms:.4f} ms ({wkv_bound_by}), "
-          f"roofline share {wkv_bound_ms / wkv_ms:.4f}")
+    check_wkv(WKV_SLICE, seed=301, kernel_name="wkv6")
+    w1, wkv_scalar_ms, w2, wkv_plain_ms = time_wkv(WKV_SLICE)
+    wkv_ms = (w1 + w2) / 2
+    bounds = wkv_bounds(WKV_SLICE)
+    (wkv_bound_ms, wkv_bound_by), (scalar_bound_ms, scalar_bound_by) = bounds["tf32x3"], bounds["float32"]
+    print(f"  slice shape {WKV_SLICE}: tensor-core kernel {w1:.4f} / {w2:.4f} ms (mean {wkv_ms:.4f}), "
+          f"scalar kernel {wkv_scalar_ms:.4f} ms, plain {wkv_plain_ms:.4f} ms, "
+          f"library none (no single PyTorch call computes wkv6)")
+    print(f"  bounds: tensor-core route (TF32 tensor cores / 3) {wkv_bound_ms:.4f} ms ({wkv_bound_by}), "
+          f"roofline share {wkv_bound_ms / wkv_ms:.4f}; scalar route (f32 pipe) {scalar_bound_ms:.4f} ms "
+          f"({scalar_bound_by}), roofline share {scalar_bound_ms / wkv_scalar_ms:.4f}")
 
     # 6. the slice: rwkv6-3b serving at full width
     wkv_launches = serve_rwkv(counters)
@@ -623,7 +683,7 @@ def main() -> int:
     }, {
         "name": "wkv6",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/wkv/csrc/wkv6.cu",
+        "source": "src/repro_torch/kernels/wkv/csrc/wkv6_sm90.cu",
         "replaces": "src/repro/kernels/wkv/kernel.py:118",
         "launches": wkv_launches,
         "max_abs_err": wkv_err,
@@ -632,6 +692,10 @@ def main() -> int:
         "bound_ms": wkv_bound_ms,
         "bound_by": wkv_bound_by,
         "library_ms": None,
+        "scalar_source": "src/repro_torch/kernels/wkv/csrc/wkv6.cu",
+        "scalar_ms": wkv_scalar_ms,
+        "scalar_bound_ms": scalar_bound_ms,
+        "scalar_bound_by": scalar_bound_by,
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -1,10 +1,11 @@
-"""Public wrapper of the wkv6 kernel, in the model's layout.
+"""Public wrapper of the wkv6 kernels, in the model's layout.
 
 The port of `repro/kernels/wkv/ops.py::wkv6`: (B, T, H, K) r, k, w and
 (B, T, H, V) v in, y (B, T, H, V) f32 and the final state (B, H, K, V) f32
-out.  The CUDA kernel reads the model's layout through strides, so nothing is
-folded or copied.  A CUDA tensor launches the kernel (or raises); a CPU
-tensor, and only a CPU tensor, goes to the plain version in `ref.py`.
+out.  The CUDA kernels read the model's layout through strides, so nothing
+is folded or copied.  A CUDA tensor launches the kernel that
+`kernel.route` picks from the shapes (or raises); a CPU tensor, and only a
+CPU tensor, goes to the plain version in `ref.py`.
 """
 
 from __future__ import annotations
@@ -15,8 +16,17 @@ import torch
 
 from repro_torch.kernels.wkv import kernel, ref
 
-# Kernel launches since import or since a caller last set it to 0.
+# Kernel launches since import or since a caller last set them to 0: all of
+# them, and by route.
 launches = 0
+route_launches = {"wkv6": 0, "wkv6_sm90": 0}
+
+
+def reset_counts() -> None:
+    global launches
+    launches = 0
+    for name in route_launches:
+        route_launches[name] = 0
 
 
 def wkv6(
@@ -30,14 +40,16 @@ def wkv6(
     chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
-    chunk = min(chunk, r.shape[1])
-    if chunk > kernel.MAX_DIM:
+    run = min(chunk, r.shape[1])
+    if run > kernel.MAX_DIM:
         # The JAX package caps the Pallas kernel's chunk at 64 for its VMEM
-        # budget; the CUDA kernel stages chunk x 64 tiles in shared memory.
-        raise ValueError(f"wkv6 chunk must be <= {kernel.MAX_DIM}, got {chunk}")
-    kernel.check_inputs(r, k, v, w, u, s0, chunk=chunk)
+        # budget; the CUDA kernels stage chunk x 64 tiles in shared memory.
+        raise ValueError(f"wkv6 chunk must be <= {kernel.MAX_DIM}, got {run}")
+    kernel.check_inputs(r, k, v, w, u, s0, chunk=run)
     if r.device.type == "cpu":
-        return ref.wkv6_ref(r, k, v, w, u, s0, chunk=chunk)
-    out = kernel.wkv6_bthk(r, k, v, w, u, s0, chunk=chunk)
+        return ref.wkv6_ref(r, k, v, w, u, s0, chunk=run)
+    name = kernel.route(r.shape[1], r.shape[-1], v.shape[-1], chunk)
+    out = kernel.wkv6_bthk(r, k, v, w, u, s0, chunk=run, kernel=name)
     launches += 1
+    route_launches[name] += 1
     return out

@@ -1,7 +1,9 @@
 """The port's CUDA kernels (flash attention, wkv6) against their plain
 PyTorch versions, on the card.  Flash attention has two routes, by dtype:
 f32 the scalar kernel, bf16 the wgmma + TMA kernel; every attention case
-runs both.
+runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
+tensor-core kernel, every other shape the scalar one; each wkv case asserts
+which ran.
 
 Marked `cuda`: without an NVIDIA GPU every test here skips (a CUDA kernel has
 no CPU mode).  This file imports nothing of JAX, so it runs on a GPU host
@@ -16,6 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.attention import ops, ref  # noqa: E402
+from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv import ref as wkv_ref  # noqa: E402
 
@@ -134,7 +137,9 @@ def test_bf16_view_that_tma_refuses_raises_before_launch(cuda_device, case):
 # (B, T, H, K, V, chunk, decay_scale): tests/test_kernels.py's wkv shapes and
 # chunk sizes, its strong-decay case, rwkv6-3b's prefill scan at batch 4 x
 # 1024, and ragged prompts shorter than the model's chunk of 32 (one chunk of
-# T, also when T is not a power of two).
+# T, also when T is not a power of two).  K = V = 64 with whole chunks runs
+# the tensor-core kernel (at every chunk it takes, and under strong decay);
+# every other case the scalar one.
 WKV_CASES = [
     (2, 128, 3, 16, 16, 32, 0.5),
     (1, 64, 2, 32, 32, 32, 0.5),
@@ -147,10 +152,16 @@ WKV_CASES = [
     (4, 1024, 40, 64, 64, 32, 0.5),
     (2, 16, 4, 64, 64, 32, 0.5),
     (2, 20, 4, 64, 64, 32, 0.5),
+    (2, 128, 2, 64, 64, 16, 0.5),
+    (2, 192, 2, 64, 64, 48, 0.5),
+    (2, 128, 2, 64, 64, 64, 0.5),
+    (1, 128, 2, 64, 64, 32, 1.0),
+    (1, 128, 2, 64, 64, 64, 1.0),
 ]
 # Kernel vs plain version, both f32 inside (bf16 r/k/v are widened before any
-# arithmetic on both sides): tests/test_kernels.py's f32 tolerances, the
-# looser ones under strong decay.
+# arithmetic on both sides; the tensor-core kernel splits every f32 operand
+# into two TF32 halves): tests/test_kernels.py's f32 tolerances, the looser
+# ones under strong decay.
 WKV_TOL = {0.5: dict(atol=5e-4, rtol=1e-3), 1.0: dict(atol=2e-3, rtol=5e-3)}
 
 
@@ -164,34 +175,73 @@ def _wkv_inputs(case, dtype, device):
             f(n(h, k) * 0.1), f(n(b, h, k, v) * 0.2))
 
 
+def _expected_route(case):
+    b, t, h, k, v, chunk, _ = case
+    return "wkv6_sm90" if k == v == 64 and chunk <= t else "wkv6"
+
+
+def _assert_wkv_close(out, plain, tol):
+    (y, s), (py, ps) = out, plain
+    assert y.dtype == s.dtype == torch.float32 and y.shape == py.shape and s.shape == ps.shape
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    np.testing.assert_allclose(y.cpu().numpy(), py.cpu().numpy(), **tol)
+    np.testing.assert_allclose(s.cpu().numpy(), ps.cpu().numpy(), **tol)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", WKV_CASES, ids=str)
 def test_wkv_kernel_matches_plain_version(cuda_device, case, dtype):
     xs = _wkv_inputs(case, getattr(torch, dtype), cuda_device)
     chunk = case[5]
-    before = wkv_ops.launches
+    route = _expected_route(case)
+    before, before_route = wkv_ops.launches, wkv_ops.route_launches[route]
     y, s = wkv_ops.wkv6(*xs, chunk=chunk)
     torch.cuda.synchronize()
-    assert wkv_ops.launches == before + 1
-    py, ps = wkv_ref.wkv6_ref(*xs, chunk=min(chunk, case[1]))
-    assert y.dtype == s.dtype == torch.float32 and y.shape == py.shape and s.shape == ps.shape
-    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
-    tol = WKV_TOL[case[6]]
-    np.testing.assert_allclose(y.cpu().numpy(), py.cpu().numpy(), **tol)
-    np.testing.assert_allclose(s.cpu().numpy(), ps.cpu().numpy(), **tol)
+    assert wkv_ops.launches == before + 1 and wkv_ops.route_launches[route] == before_route + 1
+    _assert_wkv_close((y, s), wkv_ref.wkv6_ref(*xs, chunk=min(chunk, case[1])), WKV_TOL[case[6]])
 
 
-def test_wkv_kernel_reads_strided_views_and_zero_state(cuda_device):
-    """r, k, v, w as views into wider tensors (the kernel reads them through
-    strides), and s0=None (zeros, not read)."""
-    b, t, h, k = 2, 64, 3, 32
+@pytest.mark.parametrize("k", [32, 64])
+def test_wkv_kernel_reads_strided_views_and_zero_state(cuda_device, k):
+    """r, k, v, w as views into wider tensors (the kernels read them through
+    strides), and s0=None (zeros, not read); K = 64 takes the tensor-core
+    kernel, K = 32 the scalar one."""
+    b, t, h = 2, 64, 3
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     big = torch.randn(b, t, h, 4 * k, generator=gen, device=cuda_device)
     r, kk, v = big[..., :k], big[..., k:2 * k], big[..., 2 * k:3 * k]
     w = torch.exp(-torch.exp(big[..., 3 * k:] * 0.5))
     u = torch.randn(h, k, generator=gen, device=cuda_device) * 0.1
+    route = "wkv6_sm90" if k == 64 else "wkv6"
+    before = wkv_ops.route_launches[route]
     y, s = wkv_ops.wkv6(r, kk, v, w, u, None, chunk=32)
     py, ps = wkv_ref.wkv6_ref(r, kk, v, w, u, None, chunk=32)
     torch.cuda.synchronize()
+    assert wkv_ops.route_launches[route] == before + 1
     np.testing.assert_allclose(y.cpu().numpy(), py.cpu().numpy(), **WKV_TOL[0.5])
     np.testing.assert_allclose(s.cpu().numpy(), ps.cpu().numpy(), **WKV_TOL[0.5])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [16, 32, 48, 64])
+def test_wkv_sm90_every_chunk_matches_plain_version_under_strong_decay(cuda_device, chunk, dtype):
+    case = (2, 192, 3, 64, 64, chunk, 1.0)
+    xs = _wkv_inputs(case, getattr(torch, dtype), cuda_device)
+    out = wkv_kernel.wkv6_bthk(*xs, chunk=chunk, kernel="wkv6_sm90")
+    torch.cuda.synchronize()
+    _assert_wkv_close(out, wkv_ref.wkv6_ref(*xs, chunk=chunk), WKV_TOL[1.0])
+
+
+@pytest.mark.parametrize("case", ["row_stride_not_16_bytes", "u_base_not_8_bytes"])
+def test_wkv_sm90_view_that_cp_async_refuses_raises_before_launch(cuda_device, case):
+    xs = list(_wkv_inputs((1, 64, 2, 64, 64, 32, 0.5), torch.float32, cuda_device))
+    if case == "row_stride_not_16_bytes":  # rows of 64 + 1 f32 elements
+        xs[0] = torch.nn.functional.pad(xs[0], (0, 1))[..., :64]
+        match = "cannot take this view"
+    else:  # u one f32 element into its buffer
+        xs[4] = torch.cat([torch.zeros(1, device=cuda_device), xs[4].flatten()])[1:].view(2, 64)
+        match = "8 bytes"
+    before = wkv_ops.launches
+    with pytest.raises(ValueError, match=match):
+        wkv_ops.wkv6(*xs, chunk=32)
+    assert wkv_ops.launches == before

@@ -205,3 +205,75 @@ def test_cpu_calls_do_not_count_as_launches():
     before = ops.launches
     ops.wkv6(*_torch(_inputs(1, 32, 1, 8, 8)), chunk=32)
     assert ops.launches == before
+
+
+# --- the kernel routes ----------------------------------------------------------
+
+# (T, K, V, chunk asked for) -> the kernel that runs it on the card
+ROUTE_CASES = [
+    *[((t, k, v, 32), "wkv6_sm90" if k == v == 64 else "wkv6") for _, t, _, k, v in WKV_SHAPES],
+    ((1024, 64, 64, 32), "wkv6_sm90"),  # rwkv6-3b's prefill scan
+    ((128, 64, 64, 16), "wkv6_sm90"),
+    ((192, 64, 64, 48), "wkv6_sm90"),
+    ((128, 64, 64, 64), "wkv6_sm90"),
+    ((16, 64, 64, 32), "wkv6"),  # ragged prompts: one chunk of T
+    ((20, 64, 64, 32), "wkv6"),
+    ((96, 64, 64, 24), "wkv6"),  # a chunk that is not a multiple of 16
+    ((128, 64, 32, 32), "wkv6"),
+]
+
+
+@pytest.mark.parametrize("shape,expected", ROUTE_CASES, ids=str)
+def test_route_picks_the_kernel_from_the_shapes(shape, expected):
+    assert kernel.route(*shape) == expected
+
+
+def test_rwkv_smoke_config_takes_the_tensor_core_route():
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("rwkv6-3b")
+    hd = cfg.resolved_head_dim
+    assert kernel.route(128, hd, hd, cfg.wkv_chunk) == "wkv6_sm90"
+
+
+def test_cpu_calls_count_on_no_route():
+    before, routes = ops.launches, dict(ops.route_launches)
+    for shape in [(1, 64, 2, 64, 64), (1, 32, 1, 8, 8)]:
+        ops.wkv6(*_torch(_inputs(*shape)), chunk=32)
+    assert ops.launches == before and ops.route_launches == routes
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_align_error_takes_the_models_views(dtype):
+    dt = getattr(torch, dtype)
+    x = torch.zeros(2, 64, 40, 64, dtype=dt)
+    fused = torch.zeros(2, 64, 40, 4 * 64, dtype=dt)
+    for view in (x, fused[..., :64], fused[..., 64:128], x[:1], x[:, 32:]):
+        assert kernel.align_error(view) is None
+
+
+@pytest.mark.parametrize("case", ["row_stride", "base_offset", "head_stride"])
+def test_align_error_refuses_views_cp_async_cannot_copy(case):
+    if case == "row_stride":  # rows of 65 f32: 260 bytes
+        view = torch.zeros(1, 8, 1, 65)[..., :64]
+    elif case == "base_offset":  # one bf16 element into the row
+        view = torch.zeros(1, 8, 2, 72, dtype=torch.bfloat16)[..., 1:65]
+    else:  # heads 66 bf16 apart: 132 bytes
+        view = torch.zeros(1, 8, 2, 66, dtype=torch.bfloat16)[..., :64]
+    assert kernel.align_error(view) is not None
+
+
+# The tensor-core kernel's arithmetic, emulated in plain PyTorch (sub-chunks,
+# decays as products, TF32 halves), against the Pallas kernel at K = V = 64:
+# a wrong algorithm shows here before it runs on a card.
+@pytest.mark.parametrize("chunk,decay_scale,dtype", [
+    (16, 0.5, "float32"), (32, 0.5, "float32"), (64, 0.5, "float32"),
+    (16, 1.0, "float32"), (32, 1.0, "float32"), (64, 1.0, "float32"),
+    (32, 0.5, "bfloat16"), (64, 1.0, "bfloat16"),
+])
+def test_split_tf32_emulation_matches_jax_kernel(chunk, decay_scale, dtype):
+    xs = _inputs(1, 128, 2, 64, 64, seed=chunk, decay_scale=decay_scale)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    out = ref.wkv6_split_tf32(*_torch(xs, tdt), chunk=chunk)
+    tol = STRONG_TOL if decay_scale >= 1.0 else F32_TOL
+    _close(out, jax_wkv6(*_jax(xs, jdt), chunk=chunk), tol)
