@@ -35,12 +35,21 @@
    on the tensor-core route);
    then the same prefill with the plain wkv scan, and the smoke config in
    f32 against its plain path.
-7. Print one `kernels` JSON line, the card again, and, as the last line,
+7. Run the simulation engine (no kernel of the port lies on its path): the
+   five controllers' sync trajectories against tests/goldens/quadratic_mc.npz
+   in the legacy threefry mode; then fig2's five cells (adaptive and fixed
+   k = 10, 20, 30, 40) at full width, R=32, n=50, m=2000, d=100, 2000
+   iterations each, graph-replayed, against the same cells run eagerly on
+   the card (bitwise) and run on the CPU (500 iterations); print the
+   launches and ms of an iteration both ways, the device's idle share and
+   top operations, and the peak memory.
+8. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  It does the same when there is no CUDA device or no port beside it.
-There is no CPU path and no fallback to the plain version.
+No kernel has a CPU path and nothing falls back to a plain version; the
+engine phase runs the CPU only as the reference it is held to.
 """
 
 from __future__ import annotations
@@ -509,6 +518,223 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
+# The engine phase.  tests/goldens/quadratic_mc.npz: made by the JAX package
+# with its legacy threefry (tests/goldens/gen_quadratic_goldens.py, whose
+# constants these mirror): data from key 0 (m=60, d=4), 2 replicas split
+# from key 123, n=6 workers, exp(1), eta 0.005, 60 iterations, eval every 25.
+GOLDEN = dict(n=6, m=60, d=4, eta=0.005, iters=60, eval_every=25, replicas=2, data_seed=0, key_seed=123)
+# k exact; time within 1e-6 relative: the port's log1p differs from XLA's by
+# one ulp on some inputs, and 60 iterations of sums carry that to ~1e-7.
+GOLDEN_TIME_RTOL = 1e-6
+# fig2 at full width (R=32, n=50, m=2000, d=100), graph-replayed on the card
+# against the same step run eagerly on the card (bitwise) and against the
+# port on the CPU at the first eval point (500 iterations): k equal, time
+# within 1e-5 and loss within 1e-4 relative (the CPU's and the card's
+# log1p, matmul sums and reductions differ in the last ulps).  A near-zero
+# inner product g_j . g_{j-1} can flip a Pflug sign event and fork that
+# replica's k: at most 2 of the 32 may fork, each reported.
+ENGINE_ITERS, ENGINE_CPU_ITERS = 2000, 500
+ENGINE_TIME_RTOL, ENGINE_LOSS_RTOL, ENGINE_MAX_FORKS = 1e-5, 1e-4, 2
+
+
+def golden_controllers():
+    from repro_torch.core import controller as c
+
+    n = GOLDEN["n"]
+    return {
+        "fixed": c.FixedKController(n_workers=n, k=2),
+        "pflug": c.PflugController(n_workers=n, k0=1, step=1, thresh=3, burnin=5),
+        "sketched_pflug": c.SketchedPflugController(n_workers=n, k0=1, step=1, thresh=3, burnin=5, sketch_dim=8),
+        "schedule": c.ScheduleController(n_workers=n, switch_times=[2.0, 6.0], k0=1, step=2),
+        "variance_ratio": c.VarianceRatioController(n_workers=n, k0=1, step=2, burnin=10),
+    }
+
+
+def engine_goldens() -> None:
+    """The five controllers' sync trajectories on the card against the
+    goldens, in the legacy threefry mode they were made in."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.montecarlo import run_monte_carlo
+    from repro_torch.core.straggler import Exponential
+    from repro_torch.data import make_linreg_data
+    from repro_torch.launch.quickstart import squared_error
+
+    g = GOLDEN
+    gold = np.load(ROOT / "tests" / "goldens" / "quadratic_mc.npz")
+    with prng.threefry_mode(False):
+        data = make_linreg_data(prng.PRNGKey(g["data_seed"]), m=g["m"], d=g["d"], device="cuda")
+        keys = prng.split(prng.PRNGKey(g["key_seed"], device="cuda"), g["replicas"])
+        for name, ctrl in golden_controllers().items():
+            res = run_monte_carlo(squared_error, torch.zeros(g["d"], device="cuda"), data.X, data.y,
+                                  n_workers=g["n"], controller=ctrl, straggler=Exponential(rate=1.0),
+                                  eta=g["eta"], num_iters=g["iters"], keys=keys, eval_every=g["eval_every"],
+                                  device="cuda")
+            k, t, loss = (getattr(res, f).cpu().numpy() for f in ("k", "time", "loss"))
+            want = {f: gold[f"{name}__sync__{f}"] for f in ("k", "time", "loss")}
+            t_gap = float(np.max(np.abs(t - want["time"]) / np.abs(want["time"])))
+            l_gap = float(np.max(np.abs(loss - want["loss"]) / np.abs(want["loss"])))
+            ok = np.array_equal(k, want["k"]) and t_gap <= GOLDEN_TIME_RTOL
+            print(f"  goldens {name}: k equal {np.array_equal(k, want['k'])}, time max rel gap {t_gap:.3e} "
+                  f"(rtol {GOLDEN_TIME_RTOL}), loss max rel gap {l_gap:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"engine on the card disagrees with the goldens for {name}")
+
+
+def sign_event_divergence(eta: float, replica: int, iters: int):
+    """The first iteration at which replica `replica` of fig2's adaptive cell
+    takes a different Pflug sign event on the card than on the CPU (its
+    count of negative inner products differs), from the engine's own step."""
+    import torch
+    from repro_torch.core.gradsource import PerExampleSource
+    from repro_torch.core.montecarlo import initial_carry, make_step
+    from repro_torch.core.straggler import Exponential
+    from repro_torch.launch import quickstart
+
+    cfg = quickstart.SETUPS["fig2"]
+    ctrl = dict(quickstart.cases("fig2"))["adaptive"]
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        data, keys = quickstart.inputs("fig2", device=dev)
+        step, _ = make_step(PerExampleSource(quickstart.squared_error), (data.X, data.y), cfg["n"], ctrl,
+                            Exponential(rate=1.0), None, eta)
+        carry, trace = initial_carry(ctrl, torch.zeros(cfg["d"], device=dev), keys[replica:replica + 1]), []
+        for _ in range(iters):
+            carry, _ = step(carry)
+            trace.append(carry.ctrl_state.count_negative[0])
+        counts[dev] = torch.stack(trace).cpu()
+    diff = (counts["cuda"] != counts["cpu"]).nonzero()
+    return int(diff[0, 0]) + 1 if len(diff) else None
+
+
+def fig2_cell(label: str, device: str, iters: int, capture: bool, eta: float):
+    """One fig2 cell through the port, in a worker process: (time, loss, k)
+    as numpy, and the wall seconds of the run."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch import quickstart
+
+    torch.set_num_threads(1)  # one core for each of the concurrent workers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data, keys = quickstart.inputs("fig2", device=device)
+    t0 = time.perf_counter()
+    res = quickstart.run_case("fig2", label, data, keys, eta, iters, capture)
+    out = tuple(getattr(res, f).cpu().numpy() for f in ("time", "loss", "k"))
+    return out, time.perf_counter() - t0
+
+
+def engine_fig2() -> dict:
+    """Phase 7: fig2's five cells at full width on the card, graph-replayed,
+    against eager on the card and the port on the CPU; returns the numbers.
+    The eager and CPU runs are host-bound, so each cell runs in a worker
+    process of its own, after the graph-replayed run has been timed alone."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+    from repro_torch.core.gradsource import PerExampleSource
+    from repro_torch.core.montecarlo import initial_carry, make_step, program_cache_stats
+    from repro_torch.core.straggler import Exponential
+    from repro_torch.launch import quickstart
+
+    cfg = quickstart.SETUPS["fig2"]
+    phase_t0 = time.perf_counter()
+    print(f"[7] engine, fig2 at full width: R={cfg['replicas']}, n={cfg['n']}, m={cfg['m']}, d={cfg['d']}, "
+          f"exp(1), {ENGINE_ITERS} iterations a cell, eval every {cfg['eval_every']}")
+    engine_goldens()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = program_cache_stats()["traces"]
+    graph = quickstart.run("fig2", iters=ENGINE_ITERS, device="cuda")
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    captures = program_cache_stats()["traces"] - before
+    eta, labels = graph["eta"], list(graph["results"])
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=2 * len(labels), mp_context=multiprocessing.get_context("spawn")) as pool:
+        eager_f = {lb: pool.submit(fig2_cell, lb, "cuda", ENGINE_ITERS, False, eta) for lb in labels}
+        cpu_f = {lb: pool.submit(fig2_cell, lb, "cpu", ENGINE_CPU_ITERS, True, eta) for lb in labels}
+        eager = {lb: f.result() for lb, f in eager_f.items()}
+        cpu = {lb: f.result() for lb, f in cpu_f.items()}
+    workers_s = time.perf_counter() - t0
+    n_iters = ENGINE_ITERS * len(labels)
+    eager_s = max(s for _, s in eager.values())
+    print(f"  graph-replayed: {len(labels)} cells in {graph['wall_s']:.2f} s with {captures} captures "
+          f"({graph['wall_s'] / n_iters * 1e3:.4f} ms an iteration, captures included); eager, a worker process "
+          f"a cell: the slowest cell {eager_s:.2f} s ({eager_s / ENGINE_ITERS * 1e3:.4f} ms an iteration); "
+          f"CPU, {ENGINE_CPU_ITERS} iterations a cell: the slowest {max(s for _, s in cpu.values()):.2f} s; "
+          f"{workers_s:.1f} s for all workers; eta {eta!r}")
+    print(f"  peak memory of the graph-replayed run: {peak_mb:.2f} MB")
+    for label in labels:
+        g = graph["results"][label]
+        gk, gt, gl = (getattr(g, f).cpu().numpy() for f in ("k", "time", "loss"))
+        (et, el, ek), _ = eager[label]
+        (ct, cl, ck), _ = cpu[label]
+        same = np.array_equal(gt, et) and np.array_equal(gl, el) and np.array_equal(gk, ek)
+        gk, gt, gl = gk[:, :1], gt[:, :1], gl[:, :1]
+        forked = np.nonzero((gk != ck).any(axis=1))[0]
+        keep = np.setdiff1d(np.arange(gk.shape[0]), forked)
+        t_gap = float(np.max(np.abs(gt[keep] - ct[keep]) / np.abs(ct[keep])))
+        l_gap = float(np.max(np.abs(gl[keep] - cl[keep]) / np.abs(cl[keep])))
+        s = graph["cases"][label]
+        print(f"  {label}: graph vs eager bitwise equal {same}; card vs CPU at iteration {ENGINE_CPU_ITERS}: "
+              f"{len(forked)} replicas forked in k, time max rel gap {t_gap:.3e}, loss {l_gap:.3e}; at "
+              f"{ENGINE_ITERS}: sim_time {s['time_mean'][-1]:.1f}, excess {s['loss_mean'][-1] - graph['f_star']:.4g}, "
+              f"k {s['k_mean'][-1]:.2f}")
+        for i in forked:
+            at = sign_event_divergence(eta, int(i), ENGINE_CPU_ITERS)
+            print(f"    replica {i}: k card {gk[i].tolist()} CPU {ck[i].tolist()}; first differing sign event at "
+                  f"iteration {at}")
+        if not same:
+            raise AssertionError(f"{label}: graph-replayed and eager runs differ")
+        if len(forked) > (ENGINE_MAX_FORKS if label == "adaptive" else 0):
+            raise AssertionError(f"{label}: {len(forked)} replicas forked in k between the card and the CPU")
+        if not (t_gap <= ENGINE_TIME_RTOL and l_gap <= ENGINE_LOSS_RTOL):
+            raise AssertionError(f"{label}: card and CPU differ beyond time rtol {ENGINE_TIME_RTOL} "
+                                 f"or loss rtol {ENGINE_LOSS_RTOL}")
+        if not (np.isfinite(gt).all() and np.isfinite(gl).all()):
+            raise AssertionError(f"{label}: time or loss not finite")
+
+    # steady state, the adaptive cell alone: ms an iteration both ways
+    data, keys = quickstart.inputs("fig2", device="cuda")
+
+    def cell(iters, capture=True):
+        return quickstart.run_case("fig2", "adaptive", data, keys, eta, iters, capture)
+
+    cell(ENGINE_ITERS)  # the graphs of this configuration were captured above
+    graph_ms = cuda_ms(lambda: cell(ENGINE_ITERS), iters=2, warmup=0) / ENGINE_ITERS
+    eager_ms = cuda_ms(lambda: cell(100, capture=False), iters=2, warmup=1) / 100
+    ctrl = dict(quickstart.cases("fig2"))["adaptive"]
+    step, _ = make_step(PerExampleSource(quickstart.squared_error), (data.X, data.y), cfg["n"], ctrl,
+                        Exponential(rate=1.0), None, eta)
+    carry = initial_carry(ctrl, torch.zeros(cfg["d"], device="cuda"), keys)
+    launches = count_kernels(lambda: step(carry))
+    print(f"  steady state, adaptive cell: graph-replayed {graph_ms:.4f} ms an iteration, eager {eager_ms:.4f} ms; "
+          f"{launches} kernel launches an iteration (eager, torch.profiler)")
+    block = cfg["eval_every"]
+    cell(block)  # captures this program's graphs before they are timed
+    block_ms = cuda_ms(lambda: cell(block), iters=3, warmup=1)
+    device_breakdown(lambda: cell(block), f"{block} iterations graph-replayed", block_ms, top=8)
+    device_breakdown(lambda: step(carry), "one iteration eager", eager_ms, top=8)
+    print(f"  phase 7 took {time.perf_counter() - phase_t0:.1f} s")
+    return {"graph_ms": graph_ms, "eager_ms": eager_ms, "launches": launches, "peak_mb": peak_mb,
+            "fig2_wall_s": graph["wall_s"]}
+
+
+def count_kernels(fn) -> int:
+    """CUDA kernels (and memsets/copies) fn() launches, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+
+
 def main() -> int:
     import torch
 
@@ -665,7 +891,10 @@ def main() -> int:
     # 6. the slice: rwkv6-3b serving at full width
     wkv_launches = serve_rwkv(counters)
 
-    # 7. summary
+    # 7. the simulation engine (no kernel of the port on its path)
+    engine_fig2()
+
+    # 8. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",

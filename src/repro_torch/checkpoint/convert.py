@@ -1,4 +1,5 @@
-"""Parameters of the port: JAX weights carried across, or drawn on the card.
+"""Parameters of the port: JAX weights carried across, or drawn on the card,
+and the simulation engine's inputs carried across (`engine_inputs`).
 
 The tree is the JAX package's (`repro/models/model.py::build_model().init`):
   {"embed" (Vpad,D), "lm_head" (D,Vpad) unless tied,
@@ -18,8 +19,10 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch import resolve_device
+from repro_torch.core import prng
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, transformer
 
@@ -59,3 +62,14 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
         "layers": transformer.init_layer_stack(generator, cfg, cfg.n_layers, dev),
         "final_norm": layers.rmsnorm_init(cfg, dev),
     }
+
+
+def engine_inputs(keys, params0, X, y, device="cuda"):
+    """The simulation engine's inputs carried across from the JAX package:
+    replica keys (numpy uint32 (R, 2), e.g. `np.asarray(jax.random.split(...))`),
+    a `params0` pytree and the data `(X, y)` as numpy arrays.  Returns
+    `(keys, params0, (X, y))` as the port's tensors on `device`: keys int64
+    holding the same uint32 words, arrays with their bits and dtypes kept."""
+    dev = resolve_device(device)
+    return (prng.as_key(keys, dev), tree_map(lambda a: _tensor(a, dev), params0),
+            (_tensor(X, dev), _tensor(y, dev)))

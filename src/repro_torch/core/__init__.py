@@ -1,0 +1,45 @@
+"""Core of the port: the paper's adaptive fastest-k SGD simulation engine.
+
+Modules (each the torch port of the JAX package's module of that name):
+  prng         — threefry-2x32 reproducing the engine's `jax.random` calls
+  straggler    — response-time models, fleets, rate schedules, analytics
+  aggregation  — fastest-k ranks, masks, order statistics, weighted loss
+  gradsource   — the GradSource protocol and PerExampleSource
+  controller   — Pflug (Algorithm 1), sketched Pflug, fixed k, the
+                 Theorem-1 schedule, variance ratio
+  theory       — Lemma-1 bound, Theorem-1 switching times (numpy)
+  montecarlo   — R replicas of synchronous fastest-k SGD (vmap over
+                 replicas; CUDA graphs of `unroll` iterations on the card)
+  simulate     — the R = 1 wrapper
+  async_sim    — event-driven asynchronous SGD (fig3's baseline)
+
+The async execution modes, faults, robust aggregation, the sweep engine and
+the persistent cache are not ported yet (ROADMAP Queue 1).
+"""
+
+from repro_torch.core import (  # noqa: F401
+    aggregation,
+    controller,
+    gradsource,
+    montecarlo,
+    prng,
+    straggler,
+    theory,
+)
+from repro_torch.core.aggregation import CommModel, fastest_k_mask, iteration_time  # noqa: F401
+from repro_torch.core.controller import (  # noqa: F401
+    FixedKController,
+    PflugController,
+    ScheduleController,
+    SketchedPflugController,
+    VarianceRatioController,
+    get_controller,
+)
+from repro_torch.core.gradsource import GradSource, PerExampleSource, SourceFns  # noqa: F401
+from repro_torch.core.montecarlo import (  # noqa: F401
+    MonteCarloResult,
+    run_monte_carlo,
+    run_monte_carlo_source,
+    summarize,
+)
+from repro_torch.core.straggler import RateSchedule, WorkerFleet, get_straggler_model  # noqa: F401

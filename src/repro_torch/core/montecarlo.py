@@ -1,0 +1,554 @@
+"""Monte-Carlo engine for (adaptive) fastest-k SGD over R replicas, in torch.
+
+The port of `repro.core.montecarlo`'s synchronous engine.  One iteration is
+written for one replica exactly as the reference's `one_step`: split the
+carried key, draw the workers' response times, take the eq.-(2) gradient of
+the fastest k, step the parameters, advance the simulated clock, and update
+the controller, with k decided before the step.  `torch.func.vmap` maps it
+over the R replica keys, as `jax.vmap(run_one)` does.  Every `eval_every`
+iterations the mean loss is evaluated and (time, loss, k) recorded.
+
+On a CUDA device (the default) `unroll` consecutive iterations are
+captured once as a CUDA graph over static carry buffers and replayed, with
+the eval loss captured as a graph of its own: the counterpart of
+`jax.jit(lax.scan)`, where the host only replays graphs and copies three
+(R,) records per eval point.  `capture=False` runs the same step eagerly,
+kernel by kernel.  A capture that fails raises; nothing falls back.
+
+Programs are cached in a bounded LRU under the reference's key (source
+token, n_workers, controller, straggler, comm, eta, iteration counts,
+unroll, mode, fault, agg) plus the device, the capture flag and the
+threefry mode.  `program_cache_stats()["traces"]` counts builds: one for
+each program and each new signature of its inputs (the graphs of that
+signature captured once), as `jit` retraces on new shapes.
+
+Only `mode="sync"` with no fault and the mean aggregator is ported; the
+async modes wait for `execmode` (ROADMAP Queue 1 item 9), faults and
+robust aggregation for item 10.
+
+    keys = prng.split(prng.PRNGKey(0), 32)
+    result = run_monte_carlo(loss_fn, w0, X, y, n_workers=50,
+                             controller=PflugController(n_workers=50),
+                             straggler=Exponential(), eta=1e-2,
+                             num_iters=40_000, keys=keys, eval_every=500)
+    stats = summarize(result)
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import math
+import os
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.utils import _pytree
+from torch.utils._pytree import tree_map
+
+from repro_torch import resolve_device
+from repro_torch.core import aggregation, prng
+from repro_torch.core.gradsource import GradSource, PerExampleSource
+from repro_torch.core.straggler import (
+    WorkerFleet,
+    apply_rate_schedule,
+    family_select_masks,
+    pack_params_per_worker,
+    pack_schedule,
+    sample_times_selected,
+)
+
+__all__ = [
+    "MODES",
+    "MonteCarloResult",
+    "make_step",
+    "initial_carry",
+    "run_monte_carlo",
+    "run_monte_carlo_source",
+    "summarize",
+    "program_cache_stats",
+    "clear_program_cache",
+    "set_program_cache_size",
+    "program_cache_size",
+]
+
+_Z95 = 1.959963984540054  # two-sided 95% normal quantile
+
+# The reference's execution modes; only "sync" is ported.
+MODES = ("sync", "kasync", "kbatch")
+
+
+class _Carry(NamedTuple):
+    params: object
+    ctrl_state: object
+    sim_time: torch.Tensor
+    key: torch.Tensor
+
+
+class MonteCarloResult(NamedTuple):
+    """``time``/``loss``/``k``: (R, n_evals) tensors on the run's device;
+    ``iteration``: (n_evals,) numpy, the iteration count at each eval point
+    (multiples of ``eval_every``, and ``num_iters`` last)."""
+
+    time: torch.Tensor
+    loss: torch.Tensor
+    k: torch.Tensor
+    iteration: np.ndarray
+
+
+def _hashable(obj):
+    """Frozen-dataclass configs -> hashable cache-key components (lists as
+    tuples, arrays by content, repr as the last resort)."""
+    if obj is None:
+        return None
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (
+            type(obj).__module__,
+            type(obj).__qualname__,
+            tuple((f.name, _hashable(getattr(obj, f.name))) for f in dataclasses.fields(obj)),
+        )
+    if isinstance(obj, (list, tuple)):
+        return tuple(_hashable(x) for x in obj)
+    if isinstance(obj, np.ndarray):
+        return ("ndarray", obj.shape, str(obj.dtype), obj.tobytes())
+    try:
+        hash(obj)
+        return obj
+    except TypeError:
+        return repr(obj)
+
+
+class _LRUProgramCache:
+    """Bounded least-recently-used program cache; an evicted configuration
+    is rebuilt (and its graphs recaptured) once on re-entry."""
+
+    def __init__(self, maxsize: int = 32):
+        self.maxsize = maxsize
+        self._entries: collections.OrderedDict = collections.OrderedDict()
+
+    def get(self, key):
+        entry = self._entries.get(key)
+        if entry is not None:
+            self._entries.move_to_end(key)
+        return entry
+
+    def __setitem__(self, key, value):
+        self._entries[key] = value
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.maxsize:
+            self._entries.popitem(last=False)
+
+    def __len__(self):
+        return len(self._entries)
+
+    def clear(self):
+        self._entries.clear()
+
+    def resize(self, maxsize: int):
+        if maxsize < 1:
+            raise ValueError(f"program cache maxsize must be >= 1, got {maxsize}")
+        self.maxsize = maxsize
+        while len(self._entries) > self.maxsize:
+            self._entries.popitem(last=False)
+
+
+def _default_program_cache_size() -> int:
+    """``REPRO_PROGRAM_CACHE_SIZE`` if set (read at import), else 32."""
+    raw = os.environ.get("REPRO_PROGRAM_CACHE_SIZE", "")
+    if not raw:
+        return 32
+    try:
+        size = int(raw)
+    except ValueError:
+        raise ValueError(f"REPRO_PROGRAM_CACHE_SIZE={raw!r} is not an integer") from None
+    if size < 1:
+        raise ValueError(f"REPRO_PROGRAM_CACHE_SIZE must be >= 1, got {size}")
+    return size
+
+
+_PROGRAM_CACHE = _LRUProgramCache(maxsize=_default_program_cache_size())
+_N_TRACES = 0
+
+
+def set_program_cache_size(maxsize: int) -> None:
+    """Resize the program cache, evicting least-recently-used entries."""
+    _PROGRAM_CACHE.resize(maxsize)
+
+
+def program_cache_size() -> int:
+    return _PROGRAM_CACHE.maxsize
+
+
+def program_cache_stats() -> dict:
+    return {"programs": len(_PROGRAM_CACHE), "traces": _N_TRACES}
+
+
+def clear_program_cache() -> None:
+    global _N_TRACES
+    _PROGRAM_CACHE.clear()
+    _N_TRACES = 0
+
+
+def _ctrl_k(state) -> torch.Tensor:
+    return state.k if hasattr(state, "k") else state[0]
+
+
+def make_step(source: GradSource, data, n_workers: int, controller, straggler, comm, eta: float,
+              n_active: Optional[torch.Tensor] = None):
+    """The engine's ``(step, evaluate)`` over R replicas.
+
+    ``step(carry) -> (carry, k)`` advances every replica one iteration and
+    returns the k each used; ``evaluate(params) -> (R,)`` is the eval loss
+    (active shards only for a fleet, ``n_active`` a device int32 scalar).
+    Tensors the step needs beyond the carry (a fleet's packed rows and
+    schedule) are made here, on ``data``'s device, so the step itself
+    builds nothing from host data and can be captured.
+    """
+    fns = source.build(data, n_workers)
+    if isinstance(straggler, WorkerFleet):
+        dev = _pytree.tree_leaves(data)[0].device
+        pmat_np, kinds_np, _ = pack_params_per_worker(straggler, n_workers)
+        n_knots = len(straggler.schedule.times) if straggler.schedule else 0
+        pmat = torch.from_numpy(pmat_np).to(dev)
+        masks = family_select_masks(torch.from_numpy(kinds_np).to(dev))
+        sched = tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in pack_schedule(straggler.schedule,
+                                                                                       max(1, n_knots)))
+
+        def draw(sub, sim_time, k):
+            # the full family sampler, as the reference's fleet path
+            times = sample_times_selected(masks, apply_rate_schedule(pmat, *sched, sim_time), sub)
+            mask, t = aggregation.fastest_k_mask_time(times, k)
+            if comm is not None:
+                t = t + comm.time(k)
+            return mask, t
+
+        def mean_loss(params):
+            return fns.eval_loss_active(params, n_active)
+    else:
+
+        def draw(sub, sim_time, k):
+            del sim_time
+            return aggregation.fastest_k_draw(straggler, sub, n_workers, k, comm)
+
+        mean_loss = fns.eval_loss
+
+    def one_step(carry: _Carry):
+        keys = prng.split(carry.key)
+        k = _ctrl_k(carry.ctrl_state)  # decided before the step
+        mask, t_iter = draw(keys[1], carry.sim_time, k)
+        g = fns.grad(carry.params, mask, k)
+        params = tree_map(lambda p, gi: p - eta * gi, carry.params, g)
+        sim_time = carry.sim_time + t_iter
+        ctrl_state, _ = controller.update(carry.ctrl_state, g, sim_time)
+        return _Carry(params, ctrl_state, sim_time, keys[0]), k
+
+    return torch.func.vmap(one_step), torch.func.vmap(mean_loss)
+
+
+def initial_carry(controller, params0, keys: torch.Tensor) -> _Carry:
+    """The carry of R = len(keys) replicas before their first iteration:
+    params0 and the controller's initial state repeated R times, clock 0."""
+    r = keys.shape[0]
+
+    def rep(x):
+        return x.unsqueeze(0).expand((r,) + tuple(x.shape)).clone()
+
+    return _Carry(
+        params=tree_map(rep, params0),
+        ctrl_state=tree_map(rep, controller.init(params0)),
+        sim_time=torch.zeros((r,), dtype=torch.float32, device=keys.device),
+        key=keys.clone(),
+    )
+
+
+def _signature(*trees) -> tuple:
+    return tuple((tuple(x.shape), x.dtype) for x in _pytree.tree_leaves(trees))
+
+
+class _Captured:
+    """Static buffers and CUDA graphs of one input signature: a graph for
+    each block length the run needs (advancing the carry in place) and one
+    for the eval loss."""
+
+    def __init__(self, prog: "_Program", params0, data, keys, n_active, lengths):
+        self.data = tree_map(torch.clone, data)
+        self.n_active = None if n_active is None else n_active.clone()
+        self.carry = initial_carry(prog.controller, params0, keys)
+        self.flat = _pytree.tree_leaves(self.carry)
+        r = keys.shape[0]
+        self.k = torch.zeros((r,), dtype=torch.int32, device=keys.device)
+        self.loss = torch.zeros((r,), dtype=torch.float32, device=keys.device)
+        step, evaluate = make_step(prog.source, self.data, prog.n_workers, prog.controller, prog.straggler,
+                                   prog.comm, prog.eta, self.n_active)
+        # The graphs read the tensors make_step made (a fleet's packed rows) at
+        # their addresses: hold them as long as the graphs, or their memory is
+        # handed to other tensors.
+        self.fns = (step, evaluate)
+
+        def advance(length: int):
+            c, k = self.carry, None
+            for _ in range(length):
+                c, k = step(c)
+            # k first: after one step it is the static controller state's k
+            # itself, which the carry's copy below overwrites
+            self.k.copy_(k)
+            for dst, src in zip(self.flat, _pytree.tree_leaves(c)):
+                dst.copy_(src)
+
+        def run_eval():
+            self.loss.copy_(evaluate(self.carry.params))
+
+        # warm up on a side stream (library handles, workspaces), as capture wants
+        side = torch.cuda.Stream(device=keys.device)
+        side.wait_stream(torch.cuda.current_stream(keys.device))
+        with torch.cuda.stream(side):
+            advance(1)
+            run_eval()
+        torch.cuda.current_stream(keys.device).wait_stream(side)
+        self.graphs = {}
+        for length in sorted(lengths):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                advance(length)
+            self.graphs[length] = g
+        self.eval_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.eval_graph):
+            run_eval()
+
+    def load(self, prog: "_Program", params0, data, keys, n_active) -> None:
+        for dst, src in zip(_pytree.tree_leaves(self.data), _pytree.tree_leaves(data)):
+            dst.copy_(src)
+        if self.n_active is not None:
+            self.n_active.copy_(n_active)
+        fresh = initial_carry(prog.controller, params0, keys)
+        for dst, src in zip(self.flat, _pytree.tree_leaves(fresh)):
+            dst.copy_(src)
+
+
+class _Program:
+    """One configuration of the engine: eager, or CUDA graphs per input
+    signature."""
+
+    def __init__(self, source, n_workers, controller, straggler, comm, eta, num_iters, eval_every, unroll,
+                 capture: bool, partitionable: bool):
+        self.source, self.n_workers, self.controller = source, n_workers, controller
+        self.straggler, self.comm, self.eta = straggler, comm, eta
+        self.unroll, self.capture, self.partitionable = max(1, int(unroll)), capture, partitionable
+        n_full, rem = divmod(num_iters, eval_every)
+        self.blocks = [eval_every] * n_full + ([rem] if rem else [])
+        self._captured: dict = {}
+        self._signatures: set = set()
+
+    def _graph_lengths(self) -> set:
+        lengths = set()
+        for b in set(self.blocks):
+            u = min(self.unroll, b)
+            lengths.add(u)
+            if b % u:
+                lengths.add(b % u)
+        return lengths
+
+    def __call__(self, params0, data, keys, n_active=None):
+        global _N_TRACES
+        sig = _signature(params0, data, keys)
+        with prng.threefry_mode(self.partitionable):
+            if self.capture:
+                cap = self._captured.get(sig)
+                if cap is None:
+                    _N_TRACES += 1
+                    cap = self._captured[sig] = _Captured(self, params0, data, keys, n_active,
+                                                          self._graph_lengths())
+                return self._run_captured(cap, params0, data, keys, n_active)
+            if sig not in self._signatures:
+                _N_TRACES += 1
+                self._signatures.add(sig)
+            return self._run_eager(params0, data, keys, n_active)
+
+    def _records(self, keys):
+        r, n = keys.shape[0], len(self.blocks)
+        dev = keys.device
+        return (torch.empty((r, n), dtype=torch.float32, device=dev),
+                torch.empty((r, n), dtype=torch.float32, device=dev),
+                torch.empty((r, n), dtype=torch.int32, device=dev))
+
+    def _run_eager(self, params0, data, keys, n_active):
+        step, evaluate = make_step(self.source, data, self.n_workers, self.controller, self.straggler,
+                                   self.comm, self.eta, n_active)
+        carry = initial_carry(self.controller, params0, keys)
+        times, losses, ks = self._records(keys)
+        for j, length in enumerate(self.blocks):
+            for _ in range(length):
+                carry, k = step(carry)
+            times[:, j] = carry.sim_time
+            losses[:, j] = evaluate(carry.params)
+            ks[:, j] = k
+        return times, losses, ks
+
+    def _run_captured(self, cap: _Captured, params0, data, keys, n_active):
+        cap.load(self, params0, data, keys, n_active)
+        times, losses, ks = self._records(keys)
+        for j, length in enumerate(self.blocks):
+            u = min(self.unroll, length)
+            for _ in range(length // u):
+                cap.graphs[u].replay()
+            if length % u:
+                cap.graphs[length % u].replay()
+            cap.eval_graph.replay()
+            times[:, j] = cap.carry.sim_time
+            losses[:, j] = cap.loss
+            ks[:, j] = cap.k
+        return times, losses, ks
+
+
+def _to_device(tree, dev: torch.device):
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        return torch.from_numpy(np.array(x)).to(dev)
+
+    return tree_map(one, tree)
+
+
+def run_monte_carlo_source(
+    source: GradSource,
+    params0,
+    data,
+    n_workers: int,
+    controller,
+    straggler,
+    eta: float,
+    num_iters: int,
+    keys=None,
+    key=None,
+    n_replicas: Optional[int] = None,
+    comm: Optional[aggregation.CommModel] = None,
+    eval_every: int = 10,
+    unroll: int = 8,
+    mode: str = "sync",
+    fault=None,
+    agg: str = "mean",
+    agg_param: float = 0.1,
+    device="cuda",
+    capture: bool = True,
+) -> MonteCarloResult:
+    """Run R fastest-k SGD replicas of a ``GradSource`` on ``device``.
+
+    ``params0`` and ``data`` are pytrees of tensors or numpy arrays, moved
+    to ``device``; ``keys`` are R keys ((R, 2), numpy uint32 from JAX or
+    `prng` keys), or pass ``key`` and ``n_replicas`` to split one.
+    ``capture`` (CUDA only) replays CUDA graphs of ``unroll`` iterations;
+    False runs the same step eagerly.  The threefry mode in force
+    (`prng.set_partitionable`) applies to the whole run.
+    """
+    dev = resolve_device(device)
+    if keys is None:
+        if key is None or n_replicas is None:
+            raise ValueError("pass either keys=(R keys) or key= and n_replicas=")
+        keys = prng.split(prng.as_key(key, dev), n_replicas)
+    keys = prng.as_key(keys, dev)
+    params0, data = _to_device(params0, dev), _to_device(data, dev)
+    source.check(data, n_workers)
+    if eval_every <= 0:
+        raise ValueError(f"eval_every must be positive, got {eval_every}")
+    if num_iters <= 0:
+        raise ValueError(f"num_iters must be positive, got {num_iters}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; options {sorted(MODES)}")
+    if agg not in aggregation.AGG_KINDS:
+        raise ValueError(f"unknown aggregator {agg!r}; options {sorted(aggregation.AGG_KINDS)}")
+    if agg != "mean" and mode == "kbatch":
+        raise ValueError(
+            f"robust aggregation ({agg!r}) is not supported in kbatch mode — kbatch arrivals are "
+            "sequential, there is no per-worker row stack to aggregate"
+        )
+    if isinstance(straggler, WorkerFleet):
+        cn = getattr(controller, "n_workers", None)
+        if cn is not None and cn != straggler.n_active:
+            raise ValueError(f"fleet has {straggler.n_active} models but controller.n_workers={cn}")
+    if mode != "sync":
+        raise NotImplementedError(
+            f"mode={mode!r}: the async modes wait for the port of core/execmode.py (ROADMAP Queue 1 item 9)")
+    if fault is not None or agg != "mean":
+        raise NotImplementedError(
+            "faults and robust aggregation wait for the port of core/faults.py and the robust half of "
+            "core/aggregation.py (ROADMAP Queue 1 item 10)")
+
+    capture = bool(capture) and dev.type == "cuda"
+    partitionable = prng.is_partitionable()
+    cache_key = (
+        source.cache_token(), n_workers, _hashable(controller), _hashable(straggler), _hashable(comm),
+        float(eta), int(num_iters), int(eval_every), int(unroll), str(mode), _hashable(fault), str(agg),
+        float(agg_param), str(dev), capture, partitionable,
+    )
+    program = _PROGRAM_CACHE.get(cache_key)
+    if program is None:
+        program = _Program(source, n_workers, controller, straggler, comm, float(eta), int(num_iters),
+                           int(eval_every), unroll, capture, partitionable)
+        _PROGRAM_CACHE[cache_key] = program
+    n_active = None
+    if isinstance(straggler, WorkerFleet):
+        n_active = torch.full((), straggler.n_active, dtype=torch.int32, device=dev)
+    times, losses, ks = program(params0, data, keys, n_active)
+    iteration = np.minimum(np.arange(1, times.shape[1] + 1) * eval_every, num_iters).astype(np.int64)
+    return MonteCarloResult(time=times, loss=losses, k=ks, iteration=iteration)
+
+
+def run_monte_carlo(
+    per_example_loss_fn: Callable,
+    params0,
+    X,
+    y,
+    n_workers: int,
+    controller,
+    straggler,
+    eta: float,
+    num_iters: int,
+    keys=None,
+    key=None,
+    n_replicas: Optional[int] = None,
+    comm: Optional[aggregation.CommModel] = None,
+    eval_every: int = 10,
+    unroll: int = 8,
+    mode: str = "sync",
+    fault=None,
+    agg: str = "mean",
+    agg_param: float = 0.1,
+    device="cuda",
+    capture: bool = True,
+) -> MonteCarloResult:
+    """Run R independent fastest-k SGD replicas (``run_monte_carlo_source``
+    over ``PerExampleSource(per_example_loss_fn)``).
+
+    ``per_example_loss_fn(params, X, y) -> (m,)`` losses, rows worker-major
+    (worker i owns rows [i*s, (i+1)*s)); each replica reproduces the
+    trajectory of the reference's engine for its key.  ``straggler`` may be
+    a ``WorkerFleet`` (per-worker models, an optional rate schedule driven
+    by the carried clock, +inf-padded inactive slots held out of training
+    and of the eval loss).
+    """
+    return run_monte_carlo_source(
+        PerExampleSource(per_example_loss_fn), params0, (X, y), n_workers=n_workers, controller=controller,
+        straggler=straggler, eta=eta, num_iters=num_iters, keys=keys, key=key, n_replicas=n_replicas,
+        comm=comm, eval_every=eval_every, unroll=unroll, mode=mode, fault=fault, agg=agg,
+        agg_param=agg_param, device=device, capture=capture,
+    )
+
+
+def summarize(result: MonteCarloResult) -> dict:
+    """Replica means and 95% CI half-widths (numpy, shape (n_evals,)):
+    ``{'iteration', 'n_replicas', 'time_mean', 'time_ci95', 'loss_mean',
+    'loss_ci95', 'k_mean', 'k_ci95'}``; the CI is ``z s / sqrt(R)``, zero
+    when R < 2."""
+    out = {"iteration": np.asarray(result.iteration)}
+    r = None
+    for name, arr in (("time", result.time), ("loss", result.loss), ("k", result.k)):
+        a = (arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)).astype(np.float64)
+        r = a.shape[0]
+        out[f"{name}_mean"] = a.mean(axis=0)
+        if r > 1:
+            out[f"{name}_ci95"] = _Z95 * a.std(axis=0, ddof=1) / math.sqrt(r)
+        else:
+            out[f"{name}_ci95"] = np.zeros(a.shape[1])
+    out["n_replicas"] = r
+    return out

@@ -1,0 +1,56 @@
+"""Pytrees of tensors, in the JAX package's leaf order.
+
+`torch.utils._pytree` (what `torch.func` uses) keeps a dict's insertion
+order; `jax.tree_util` sorts dict keys.  Where the order of leaves changes
+a result (a sum over leaves) or a leaf's path is hashed (the sketched Pflug
+controller seeds each leaf from `keystr` of its path), the engine uses
+`leaves_with_path`, which flattens dicts, lists, tuples and named tuples as
+JAX does and spells each path as `jax.tree_util.keystr` does.  Where order
+does not matter (mapping over leaves) the port uses `torch.utils._pytree`.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+__all__ = ["leaves_with_path", "tree_leaves", "tree_dot", "first_leaf"]
+
+
+def leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """[(keystr, leaf)] in JAX's flattening order (dict keys sorted)."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in leaves_with_path(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [leaf for f in tree._fields for leaf in leaves_with_path(getattr(tree, f), f"{prefix}.{f}")]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, x in enumerate(tree) for leaf in leaves_with_path(x, f"{prefix}[{i}]")]
+    raise TypeError(f"not a pytree of tensors: {type(tree).__name__}")
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    return [leaf for _, leaf in leaves_with_path(tree)]
+
+
+def tree_dot(a, b) -> torch.Tensor:
+    """sum over leaves of <a_leaf, b_leaf> in float32, leaves in JAX's order
+    (`jax.tree.reduce(jnp.add, jax.tree.map(jnp.vdot, a, b))`)."""
+    total = None
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = torch.dot(x.to(torch.float32).reshape(-1), y.to(torch.float32).reshape(-1))
+        total = d if total is None else total + d
+    if total is None:
+        raise ValueError("tree_dot of an empty pytree")
+    return total
+
+
+def first_leaf(tree) -> torch.Tensor:
+    leaves = tree_leaves(tree)
+    if not leaves:
+        raise ValueError("empty pytree")
+    return leaves[0]

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (flash attention, wkv6) against their plain
-PyTorch versions, on the card.  Flash attention has two routes, by dtype:
+PyTorch versions, and the simulation engine against its CPU run and the
+goldens, on the card.  Flash attention has two routes, by dtype:
 f32 the scalar kernel, bf16 the wgmma + TMA kernel; every attention case
 runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
 tensor-core kernel, every other shape the scalar one; each wkv case asserts
@@ -17,6 +18,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import controller as ctl  # noqa: E402
+from repro_torch.core import montecarlo as mc  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.core import straggler as strag  # noqa: E402
+from repro_torch.data import make_linreg_data  # noqa: E402
 from repro_torch.kernels.attention import ops, ref  # noqa: E402
 from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.wkv import ops as wkv_ops  # noqa: E402
@@ -245,3 +251,87 @@ def test_wkv_sm90_view_that_cp_async_refuses_raises_before_launch(cuda_device, c
     with pytest.raises(ValueError, match=match):
         wkv_ops.wkv6(*xs, chunk=32)
     assert wkv_ops.launches == before
+
+
+# ------------------------------------------------------------------ engine
+
+
+def _sq(w, X, y):
+    return (X @ w - y) ** 2
+
+
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_prng_bits_on_the_card_equal_the_cpu_bits(cuda_device, partitionable):
+    with prng.threefry_mode(partitionable):
+        for dev_key in (prng.PRNGKey(42), prng.split(prng.PRNGKey(3), 4)):
+            card = dev_key.to(cuda_device)
+            for fn in (lambda k: prng.split(k, 3), lambda k: prng.fold_in(k, 7),
+                       lambda k: prng.random_bits(k, (5, 7)), lambda k: prng.uniform(k, (33,)),
+                       lambda k: prng.uniform(k, (9,), -2.0, 3.0), lambda k: prng.randint(k, (4, 6), 1, 101),
+                       lambda k: prng.rademacher(k, (17,))):
+                assert torch.equal(fn(card).cpu(), fn(dev_key))
+            np.testing.assert_allclose(prng.normal(card, (64,)).cpu().numpy(),
+                                       prng.normal(dev_key, (64,)).numpy(), rtol=1e-5, atol=1e-6)
+
+
+GOLDEN_CONTROLLERS = {
+    "fixed": dict(k=2),
+    "pflug": dict(k0=1, step=1, thresh=3, burnin=5),
+    "sketched_pflug": dict(k0=1, step=1, thresh=3, burnin=5, sketch_dim=8),
+    "schedule": dict(switch_times=[2.0, 6.0], k0=1, step=2),
+    "variance_ratio": dict(k0=1, step=2, burnin=10),
+}
+
+
+@pytest.mark.parametrize("name", list(GOLDEN_CONTROLLERS))
+def test_sync_goldens_on_the_card(cuda_device, name):
+    """tests/goldens/quadratic_mc.npz (the JAX package, legacy threefry): k
+    exact, time within 1e-6 (log1p may differ by an ulp)."""
+    from pathlib import Path
+
+    gold = np.load(Path(__file__).parent / "goldens" / "quadratic_mc.npz")
+    n, d = int(gold["n_workers"]), int(gold["d"])
+    with prng.threefry_mode(False):
+        data = make_linreg_data(prng.PRNGKey(int(gold["data_seed"])), m=int(gold["m"]), d=d, device=cuda_device)
+        keys = prng.split(prng.PRNGKey(int(gold["key_seed"]), device=cuda_device), int(gold["n_replicas"]))
+        res = mc.run_monte_carlo(_sq, torch.zeros(d, device=cuda_device), data.X, data.y, n_workers=n,
+                                 controller=ctl.get_controller(name, n, **GOLDEN_CONTROLLERS[name]),
+                                 straggler=strag.Exponential(1.0), eta=float(gold["eta"]),
+                                 num_iters=int(gold["num_iters"]), keys=keys,
+                                 eval_every=int(gold["eval_every"]), device=cuda_device)
+    np.testing.assert_array_equal(res.k.cpu().numpy(), gold[f"{name}__sync__k"])
+    np.testing.assert_allclose(res.time.cpu().numpy(), gold[f"{name}__sync__time"], rtol=1e-6)
+    np.testing.assert_allclose(res.loss.cpu().numpy(), gold[f"{name}__sync__loss"], rtol=1e-4)
+
+
+# 77 iterations in blocks of 20: graphs of 8, 4 and 1 iterations at unroll 8
+@pytest.mark.parametrize("case,unroll", [("pflug", 8), ("pflug", 1), ("sketched_pflug", 8), ("schedule", 8),
+                                         ("fleet", 8), ("fleet", 3)])
+def test_graph_replayed_run_equals_eager_run_bitwise(cuda_device, case, unroll):
+    n, d = 6, 4
+    data = make_linreg_data(prng.PRNGKey(0), m=60, d=d, device=cuda_device)
+    straggler = strag.Exponential(1.0)
+    if case == "fleet":
+        straggler = strag.WorkerFleet([strag.Exponential(1.0), strag.Pareto(1.0, 3.0), strag.Bimodal(1.0, 4.0, 0.3),
+                                       strag.Deterministic(1.5), strag.ShiftedExponential(0.2, 1.0)],
+                                      strag.RateSchedule((2.0, 5.0), (0.5, 2.0), mode="linear"))
+        controller = ctl.PflugController(n_workers=5, k0=1, thresh=2, burnin=3)
+    else:
+        controller = ctl.get_controller(case, n, **GOLDEN_CONTROLLERS[case])
+    runs = [mc.run_monte_carlo(_sq, torch.zeros(d, device=cuda_device), data.X, data.y, n_workers=n,
+                               controller=controller, straggler=straggler, eta=0.005, num_iters=77, eval_every=20,
+                               unroll=unroll, key=prng.PRNGKey(5), n_replicas=3, device=cuda_device,
+                               capture=capture)
+            for capture in (True, False, True)]
+    for f in ("time", "loss", "k"):
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+        assert torch.equal(getattr(runs[0], f), getattr(runs[2], f)), f  # a replay of cached graphs
+
+
+def test_run_monte_carlo_on_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the engine rightly runs on it")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        mc.run_monte_carlo(_sq, torch.zeros(4), torch.ones(12, 4), torch.ones(12), n_workers=3,
+                           controller=ctl.FixedKController(n_workers=3, k=2), straggler=strag.Exponential(1.0),
+                           eta=0.01, num_iters=4, key=prng.PRNGKey(0), n_replicas=2)
