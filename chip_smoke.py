@@ -43,17 +43,28 @@
    the card (bitwise) and run on the CPU (500 iterations); print the
    launches and ms of an iteration both ways, the device's idle share and
    top operations, and the peak memory.
-8. Print one `kernels` JSON line, the card again, and, as the last line,
+8. Run the sweep engine (no kernel of the port on its path either): fig2's
+   five cells as one grid of 160 lanes (2000 iterations) and the
+   ablation's 15 cells (5 controllers x Exponential, Pareto, Bimodal, R=8)
+   as one grid of 120 (500 iterations), each one program; hold each grid
+   graph-replayed against eager on the card (bitwise), each cell against
+   the looped engine on the card (fig2: phase 7's runs) and against the
+   grid on the CPU (500 iterations); repopulate the fig2 grid with other
+   eta and k and require no new capture; print the fig2 grid's ms an
+   iteration both ways, its launches, idle share, top operations and the
+   peak memory of its program.
+9. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  It does the same when there is no CUDA device or no port beside it.
 No kernel has a CPU path and nothing falls back to a plain version; the
-engine phase runs the CPU only as the reference it is held to.
+engine phases run the CPU only as the reference they are held to.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -593,7 +604,7 @@ def sign_event_divergence(eta: float, replica: int, iters: int):
     from repro_torch.launch import quickstart
 
     cfg = quickstart.SETUPS["fig2"]
-    ctrl = dict(quickstart.cases("fig2"))["adaptive"]
+    ctrl = fig2_case("adaptive").controller
     counts = {}
     for dev in ("cuda", "cpu"):
         data, keys = quickstart.inputs("fig2", device=dev)
@@ -608,9 +619,15 @@ def sign_event_divergence(eta: float, replica: int, iters: int):
     return int(diff[0, 0]) + 1 if len(diff) else None
 
 
+def fig2_case(label: str, eta: float = 0.0):
+    from repro_torch.launch import quickstart
+
+    return {c.label: c for c in quickstart.cases("fig2", eta=eta)}[label]
+
+
 def fig2_cell(label: str, device: str, iters: int, capture: bool, eta: float):
-    """One fig2 cell through the port, in a worker process: (time, loss, k)
-    as numpy, and the wall seconds of the run."""
+    """One fig2 cell through the port's looped engine, in a worker process:
+    (time, loss, k) as numpy, and the wall seconds of the run."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.launch import quickstart
@@ -619,7 +636,7 @@ def fig2_cell(label: str, device: str, iters: int, capture: bool, eta: float):
     torch.backends.cuda.matmul.allow_tf32 = False
     data, keys = quickstart.inputs("fig2", device=device)
     t0 = time.perf_counter()
-    res = quickstart.run_case("fig2", label, data, keys, eta, iters, capture)
+    res = quickstart.run_case("fig2", fig2_case(label, eta), data, keys, iters, capture)
     out = tuple(getattr(res, f).cpu().numpy() for f in ("time", "loss", "k"))
     return out, time.perf_counter() - t0
 
@@ -647,7 +664,7 @@ def engine_fig2() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = program_cache_stats()["traces"]
-    graph = quickstart.run("fig2", iters=ENGINE_ITERS, device="cuda")
+    graph = quickstart.run("fig2", iters=ENGINE_ITERS, device="cuda", looped=True)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     captures = program_cache_stats()["traces"] - before
     eta, labels = graph["eta"], list(graph["results"])
@@ -700,12 +717,12 @@ def engine_fig2() -> dict:
     data, keys = quickstart.inputs("fig2", device="cuda")
 
     def cell(iters, capture=True):
-        return quickstart.run_case("fig2", "adaptive", data, keys, eta, iters, capture)
+        return quickstart.run_case("fig2", fig2_case("adaptive", eta), data, keys, iters, capture)
 
     cell(ENGINE_ITERS)  # the graphs of this configuration were captured above
     graph_ms = cuda_ms(lambda: cell(ENGINE_ITERS), iters=2, warmup=0) / ENGINE_ITERS
     eager_ms = cuda_ms(lambda: cell(100, capture=False), iters=2, warmup=1) / 100
-    ctrl = dict(quickstart.cases("fig2"))["adaptive"]
+    ctrl = fig2_case("adaptive").controller
     step, _ = make_step(PerExampleSource(quickstart.squared_error), (data.X, data.y), cfg["n"], ctrl,
                         Exponential(rate=1.0), None, eta)
     carry = initial_carry(ctrl, torch.zeros(cfg["d"], device="cuda"), keys)
@@ -719,7 +736,191 @@ def engine_fig2() -> dict:
     device_breakdown(lambda: step(carry), "one iteration eager", eager_ms, top=8)
     print(f"  phase 7 took {time.perf_counter() - phase_t0:.1f} s")
     return {"graph_ms": graph_ms, "eager_ms": eager_ms, "launches": launches, "peak_mb": peak_mb,
-            "fig2_wall_s": graph["wall_s"]}
+            "fig2_wall_s": graph["wall_s"], "eta": eta, "results": {
+                lb: tuple(getattr(r, f).cpu().numpy() for f in ("time", "loss", "k"))
+                for lb, r in graph["results"].items()}}
+
+
+# The sweep phase.  fig2's grid (5 cells x R=32 = 160 lanes) at phase 7's
+# 2000 iterations (its CPU run at 500); the ablation's grid (5 controllers x
+# 3 families x R=8 = 120 lanes) at 500.  Each cell is held to the looped
+# engine on the card (fig2: phase 7's runs) and to the port's grid on the
+# CPU at ENGINE_TIME_RTOL / ENGINE_LOSS_RTOL, with at most ENGINE_MAX_FORKS
+# forked replicas in a cell whose controller adapts from the gradients
+# (Pflug, variance ratio): the library's products and reductions may round
+# differently at another lane count, and a near-zero test statistic then
+# forks k.  Graph-replayed against eager on the card, bitwise: fig2's grid
+# over one eval block (500 iterations), the ablation's over its run.
+ABLATION_ITERS = 500
+# fig2's grid is profiled over 100 iterations (~78 000 kernels): the
+# profiler's cost grows with the kernels it records.
+PROFILE_ITERS = 100
+
+
+def grid_run(setup: str, grid, device: str, iters: int, capture: bool, looped: bool = False):
+    """The cells ``grid`` of ``setup`` through the port in a worker process,
+    as one grid (`run_sweep`) or (``looped``) a `run_monte_carlo` call each:
+    {label: (time, loss, k) numpy}, and the wall seconds of the run."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch import quickstart
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data, keys = quickstart.inputs(setup, device=device)
+    t0 = time.perf_counter()
+    if looped:
+        res = {c.label: quickstart.run_case(setup, c, data, keys, iters, capture) for c in grid}
+    else:
+        out = quickstart.run_grid(setup, grid, data, keys, iters, capture)
+        res = {lb: out.cell(g) for g, lb in enumerate(out.labels)}
+    arrays = {lb: tuple(getattr(r, f).cpu().numpy() for f in ("time", "loss", "k")) for lb, r in res.items()}
+    return arrays, time.perf_counter() - t0
+
+
+def cells_of(result) -> dict:
+    """{label: (time, loss, k) numpy} of a SweepResult."""
+    return {lb: tuple(getattr(result.cell(g), f).cpu().numpy() for f in ("time", "loss", "k"))
+            for g, lb in enumerate(result.labels)}
+
+
+def hold(what: str, got: dict, want: dict, adaptive: set, cols: int | None = None) -> None:
+    """Hold every cell of ``got`` to ``want`` (the first ``cols`` eval points):
+    bitwise, or k equal but in at most ENGINE_MAX_FORKS replicas of an
+    adaptive cell, time and loss within the engine's tolerances."""
+    import numpy as np
+
+    rows, gaps = [], (0.0, 0.0)
+    for label, g in got.items():
+        gt, gl, gk = (a[:, :cols] for a in g)
+        wt, wl, wk = (a[:, :cols] for a in want[label])
+        same = np.array_equal(gt, wt) and np.array_equal(gl, wl) and np.array_equal(gk, wk)
+        forked = np.nonzero((gk != wk).any(axis=1))[0]
+        keep = np.setdiff1d(np.arange(gk.shape[0]), forked)
+        t_gap = float(np.max(np.abs(gt[keep] - wt[keep]) / np.abs(wt[keep]), initial=0.0))
+        l_gap = float(np.max(np.abs(gl[keep] - wl[keep]) / np.abs(wl[keep]), initial=0.0))
+        gaps = (max(gaps[0], t_gap), max(gaps[1], l_gap))
+        if not same:
+            rows.append(f"{label} {len(forked)} forked, {t_gap:.2e}/{l_gap:.2e}")
+        if len(forked) > (ENGINE_MAX_FORKS if label in adaptive else 0):
+            raise AssertionError(f"{what}: {label}: {len(forked)} replicas forked in k: {forked.tolist()}")
+        if not (t_gap <= ENGINE_TIME_RTOL and l_gap <= ENGINE_LOSS_RTOL):
+            raise AssertionError(f"{what}: {label}: time gap {t_gap:.3e} or loss gap {l_gap:.3e} beyond "
+                                 f"{ENGINE_TIME_RTOL} / {ENGINE_LOSS_RTOL}")
+        if not (np.isfinite(gt).all() and np.isfinite(gl).all()):
+            raise AssertionError(f"{what}: {label}: time or loss not finite")
+    print(f"  {what}: {len(got) - len(rows)}/{len(got)} cells bitwise equal; max rel gap time {gaps[0]:.3e}, "
+          f"loss {gaps[1]:.3e}" + "".join(f"; {r}" for r in rows))
+
+
+def engine_sweep(p7: dict) -> dict:
+    """Phase 8: fig2's and the ablation's grids at full width, each as one
+    program on the card: graph-replayed against eager (bitwise), against
+    the looped engine on the card and against the grid on the CPU; a
+    repopulated grid captures nothing new; fig2's grid timed both ways,
+    with its launches, device time and peak memory."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+    from repro_torch.core import controller
+    from repro_torch.core.sweep import sweep_cache_stats
+    from repro_torch.launch import quickstart
+
+    phase_t0 = time.perf_counter()
+    eta = p7["eta"]
+    data, keys = quickstart.inputs("fig2", device="cuda")
+    fig2 = quickstart.cases("fig2", data, eta)
+    ablation = quickstart.cases("ablation", data, eta)
+    adaptive = {c.label for c in fig2 + ablation if isinstance(
+        c.controller, (controller.PflugController, controller.SketchedPflugController,
+                       controller.VarianceRatioController))}
+    abl_keys = quickstart.inputs("ablation", device="cuda")[1]
+    cfg = quickstart.SETUPS["fig2"]
+    block = cfg["eval_every"]
+    print(f"[8] sweep: fig2's grid ({len(fig2)} cells x R={cfg['replicas']} = {len(fig2) * cfg['replicas']} lanes, "
+          f"{ENGINE_ITERS} iterations) and the ablation's ({len(ablation)} cells x R="
+          f"{quickstart.SETUPS['ablation']['replicas']} = {len(ablation) * quickstart.SETUPS['ablation']['replicas']} "
+          f"lanes, {ABLATION_ITERS} iterations), each one program")
+
+    torch.cuda.synchronize()
+    base_mb = torch.cuda.memory_allocated() / 1e6
+    torch.cuda.reset_peak_memory_stats()
+    before = sweep_cache_stats()["traces"]
+    t0 = time.perf_counter()
+    fig2_graph = cells_of(quickstart.run_grid("fig2", fig2, data, keys, ENGINE_ITERS))
+    first_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6 - base_mb
+    abl_graph = cells_of(quickstart.run_grid("ablation", ablation, data, abl_keys, ABLATION_ITERS))
+    captures = sweep_cache_stats()["traces"] - before
+    # the fig2 grid repopulated: other eta and k, the same signature and shapes
+    other = [dataclasses.replace(c, eta=eta * 0.8, controller=dataclasses.replace(
+        c.controller, **({"k": c.controller.k - 5} if hasattr(c.controller, "k") else {"k0": 5})))
+        for c in fig2]
+    before = sweep_cache_stats()["traces"]
+    t0 = time.perf_counter()
+    repop = cells_of(quickstart.run_grid("fig2", other, data, keys, ENGINE_ITERS))
+    repop_s = time.perf_counter() - t0
+    new_captures = sweep_cache_stats()["traces"] - before
+    print(f"  first fig2 grid run {first_s:.2f} s (capture included), {captures} captures for both grids; "
+          f"repopulated with other eta and k: {repop_s:.2f} s, {new_captures} new captures; peak memory of the "
+          f"fig2 grid's program {peak_mb:.2f} MB (above the {base_mb:.2f} MB held before it)")
+    if captures != 2 or new_captures != 0:
+        raise AssertionError(f"expected 2 captures and none on repopulation, got {captures} and {new_captures}")
+    if all(np.array_equal(repop[c.label][1], fig2_graph[c.label][1]) for c in fig2):
+        raise AssertionError("the repopulated grid returned the first grid's losses")
+
+    # steady state of the fig2 grid: ms an iteration both ways, launches, device time
+    lanes = len(fig2) * cfg["replicas"]
+
+    def grid(iters, capture=True):  # one eval point at the end when iters <= 500
+        return quickstart.run_grid("fig2", fig2, data, keys, iters, capture)
+
+    graph_ms = cuda_ms(lambda: grid(ENGINE_ITERS), iters=2, warmup=0) / ENGINE_ITERS
+    eager_ms = cuda_ms(lambda: grid(100, capture=False), iters=2, warmup=1) / 100
+    launches = (count_kernels(lambda: grid(3, False)) - count_kernels(lambda: grid(1, False))) / 2
+    looped_ms = p7["graph_ms"]
+    print(f"  fig2 grid, {lanes} lanes: graph-replayed {graph_ms:.4f} ms an iteration, eager {eager_ms:.4f} ms; "
+          f"{launches:.1f} kernel launches an iteration (eager, torch.profiler); phase 7's looped adaptive cell "
+          f"{looped_ms:.4f} ms an iteration for 32 lanes, x{len(fig2)} cells = {looped_ms * len(fig2):.4f} ms")
+    fig2_block = cells_of(grid(block))  # one eval block, held to the eager run below
+    grid(PROFILE_ITERS)  # captures this program's graphs before they are timed
+    prof_ms = cuda_ms(lambda: grid(PROFILE_ITERS), iters=3, warmup=1)
+    device_breakdown(lambda: grid(PROFILE_ITERS), f"fig2 grid, {PROFILE_ITERS} iterations graph-replayed", prof_ms,
+                     top=8)
+    device_breakdown(lambda: grid(1, False), "fig2 grid, one iteration and one eval eager",
+                     cuda_ms(lambda: grid(1, False), iters=2, warmup=1), top=8)
+
+    # the controls, each in a worker process: eager on the card, looped on the card, the grid on the CPU
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=5, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {
+            "fig2 eager": pool.submit(grid_run, "fig2", fig2, "cuda", block, False),
+            "fig2 CPU": pool.submit(grid_run, "fig2", fig2, "cpu", ENGINE_CPU_ITERS, True),
+            "ablation eager": pool.submit(grid_run, "ablation", ablation, "cuda", ABLATION_ITERS, False),
+            "ablation looped": pool.submit(grid_run, "ablation", ablation, "cuda", ABLATION_ITERS, True, True),
+            "ablation CPU": pool.submit(grid_run, "ablation", ablation, "cpu", ABLATION_ITERS, True),
+        }
+        runs = {name: f.result() for name, f in jobs.items()}
+    print(f"  controls in worker processes: {time.perf_counter() - t0:.1f} s for all; "
+          + ", ".join(f"{name} {s:.1f} s" for name, (_, s) in runs.items()))
+    for name, got in (("fig2", fig2_block), ("ablation", abl_graph)):
+        eager = runs[f"{name} eager"][0]
+        diff = [lb for lb in got if not all(np.array_equal(a, b) for a, b in zip(got[lb], eager[lb]))]
+        print(f"  {name} grid: graph-replayed vs eager bitwise equal in {len(got) - len(diff)}/{len(got)} cells")
+        if diff:
+            raise AssertionError(f"{name} grid: graph-replayed and eager runs differ in {diff}")
+    hold("fig2 grid vs looped on the card (phase 7)", fig2_graph, p7["results"], adaptive)
+    hold("ablation grid vs looped on the card", abl_graph, runs["ablation looped"][0], adaptive)
+    hold(f"fig2 grid vs the CPU at iteration {ENGINE_CPU_ITERS}", fig2_graph, runs["fig2 CPU"][0], adaptive,
+         cols=ENGINE_CPU_ITERS // cfg["eval_every"])
+    hold(f"ablation grid vs the CPU at iteration {ABLATION_ITERS}", abl_graph, runs["ablation CPU"][0], adaptive)
+    for name, got in (("fig2", fig2_graph), ("ablation", abl_graph)):
+        finals = ", ".join(f"{lb} k {got[lb][2][:, -1].mean():.1f}" for lb in list(got)[:5])
+        print(f"  {name} grid at its last eval point: {finals}")
+    print(f"  phase 8 took {time.perf_counter() - phase_t0:.1f} s")
+    return {"graph_ms": graph_ms, "eager_ms": eager_ms, "launches": launches, "peak_mb": peak_mb}
 
 
 def count_kernels(fn) -> int:
@@ -892,9 +1093,12 @@ def main() -> int:
     wkv_launches = serve_rwkv(counters)
 
     # 7. the simulation engine (no kernel of the port on its path)
-    engine_fig2()
+    p7 = engine_fig2()
 
-    # 8. summary
+    # 8. the sweep engine: two grids, each one program (no kernel of the port on its path)
+    engine_sweep(p7)
+
+    # 9. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",

@@ -10,10 +10,12 @@ Modules (each the torch port of the JAX package's module of that name):
   theory       — Lemma-1 bound, Theorem-1 switching times (numpy)
   montecarlo   — R replicas of synchronous fastest-k SGD (vmap over
                  replicas; CUDA graphs of `unroll` iterations on the card)
+  sweep        — a G-cell x R-replica grid of synchronous cells as one
+                 program (vmap over G·R lanes, through montecarlo's program)
   simulate     — the R = 1 wrapper
   async_sim    — event-driven asynchronous SGD (fig3's baseline)
 
-The async execution modes, faults, robust aggregation, the sweep engine and
+The async execution modes, faults, robust aggregation, the sweep's mesh and
 the persistent cache are not ported yet (ROADMAP Queue 1).
 """
 
@@ -24,6 +26,7 @@ from repro_torch.core import (  # noqa: F401
     montecarlo,
     prng,
     straggler,
+    sweep,
     theory,
 )
 from repro_torch.core.aggregation import CommModel, fastest_k_mask, iteration_time  # noqa: F401
@@ -43,3 +46,15 @@ from repro_torch.core.montecarlo import (  # noqa: F401
     summarize,
 )
 from repro_torch.core.straggler import RateSchedule, WorkerFleet, get_straggler_model  # noqa: F401
+from repro_torch.core.sweep import (  # noqa: F401
+    GridSignature,
+    SweepCase,
+    SweepResult,
+    clear_sweep_cache,
+    grid_signature,
+    product_cases,
+    run_sweep,
+    run_sweep_source,
+    summarize_cells,
+    sweep_cache_stats,
+)

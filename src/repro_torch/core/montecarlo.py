@@ -9,11 +9,15 @@ over the R replica keys, as `jax.vmap(run_one)` does.  Every `eval_every`
 iterations the mean loss is evaluated and (time, loss, k) recorded.
 
 On a CUDA device (the default) `unroll` consecutive iterations are
-captured once as a CUDA graph over static carry buffers and replayed, with
-the eval loss captured as a graph of its own: the counterpart of
-`jax.jit(lax.scan)`, where the host only replays graphs and copies three
-(R,) records per eval point.  `capture=False` runs the same step eagerly,
-kernel by kernel.  A capture that fails raises; nothing falls back.
+captured once as a CUDA graph over static buffers (the carry, and a copy of
+the inputs the step reads) and replayed, with the eval loss captured as a
+graph of its own: the counterpart of `jax.jit(lax.scan)`, where the host
+only replays graphs and copies three (R,) records per eval point.  Another
+run with inputs of the same shapes copies them into the buffers and replays
+the same graphs.  `capture=False` runs the same step eagerly, kernel by
+kernel.  A capture that fails raises; nothing falls back.  `_Program` runs
+any engine that gives it `build` and `initial`: this one (`_Engine`) and
+the sweep's grid (`sweep._GridEngine`).
 
 Programs are cached in a bounded LRU under the reference's key (source
 token, n_workers, controller, straggler, comm, eta, iteration counts,
@@ -262,26 +266,65 @@ def initial_carry(controller, params0, keys: torch.Tensor) -> _Carry:
     )
 
 
-def _signature(*trees) -> tuple:
-    return tuple((tuple(x.shape), x.dtype) for x in _pytree.tree_leaves(trees))
+def _signature(tree) -> tuple:
+    return tuple((tuple(x.shape), x.dtype) for x in _pytree.tree_leaves(tree) if isinstance(x, torch.Tensor))
+
+
+def _clone(tree):
+    return tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _copy_into(dst_tree, src_tree) -> None:
+    for dst, src in zip(_pytree.tree_leaves(dst_tree), _pytree.tree_leaves(src_tree)):
+        if isinstance(dst, torch.Tensor):
+            dst.copy_(src)
+
+
+class _Inputs(NamedTuple):
+    """What one run of the engine reads besides its configuration."""
+
+    params0: object
+    data: object
+    keys: torch.Tensor
+    n_active: Optional[torch.Tensor]  # a fleet's active slots, device int32; None otherwise
+
+
+@dataclasses.dataclass(frozen=True)
+class _Engine:
+    """The looped engine's configuration: ``build(inputs) -> (step,
+    evaluate)`` and ``initial(inputs) -> carry``, what `_Program` runs."""
+
+    source: GradSource
+    n_workers: int
+    controller: object
+    straggler: object
+    comm: Optional[aggregation.CommModel]
+    eta: float
+
+    def build(self, inputs: _Inputs):
+        return make_step(self.source, inputs.data, self.n_workers, self.controller, self.straggler, self.comm,
+                         self.eta, inputs.n_active)
+
+    def initial(self, inputs: _Inputs) -> _Carry:
+        return initial_carry(self.controller, inputs.params0, inputs.keys)
 
 
 class _Captured:
-    """Static buffers and CUDA graphs of one input signature: a graph for
-    each block length the run needs (advancing the carry in place) and one
-    for the eval loss."""
+    """Static buffers and CUDA graphs of one input signature: a copy of the
+    inputs that the graphs read, a graph for each block length the run
+    needs (advancing the carry in place) and one for the eval loss.
+    ``load`` copies another run's inputs of the same signature into the
+    buffers, so the graphs serve it without a new capture."""
 
-    def __init__(self, prog: "_Program", params0, data, keys, n_active, lengths):
-        self.data = tree_map(torch.clone, data)
-        self.n_active = None if n_active is None else n_active.clone()
-        self.carry = initial_carry(prog.controller, params0, keys)
+    def __init__(self, engine, inputs, lengths):
+        self.inputs = _clone(inputs)
+        self.carry = engine.initial(self.inputs)
         self.flat = _pytree.tree_leaves(self.carry)
-        r = keys.shape[0]
-        self.k = torch.zeros((r,), dtype=torch.int32, device=keys.device)
-        self.loss = torch.zeros((r,), dtype=torch.float32, device=keys.device)
-        step, evaluate = make_step(prog.source, self.data, prog.n_workers, prog.controller, prog.straggler,
-                                   prog.comm, prog.eta, self.n_active)
-        # The graphs read the tensors make_step made (a fleet's packed rows) at
+        lanes, dev = self.carry.sim_time.shape[0], self.carry.sim_time.device
+        self.k = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+        self.loss = torch.zeros((lanes,), dtype=torch.float32, device=dev)
+        step, evaluate = engine.build(self.inputs)
+        # The graphs read the tensors build made (a fleet's packed rows) at
         # their addresses: hold them as long as the graphs, or their memory is
         # handed to other tensors.
         self.fns = (step, evaluate)
@@ -300,12 +343,12 @@ class _Captured:
             self.loss.copy_(evaluate(self.carry.params))
 
         # warm up on a side stream (library handles, workspaces), as capture wants
-        side = torch.cuda.Stream(device=keys.device)
-        side.wait_stream(torch.cuda.current_stream(keys.device))
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             advance(1)
             run_eval()
-        torch.cuda.current_stream(keys.device).wait_stream(side)
+        torch.cuda.current_stream(dev).wait_stream(side)
         self.graphs = {}
         for length in sorted(lengths):
             g = torch.cuda.CUDAGraph()
@@ -316,24 +359,19 @@ class _Captured:
         with torch.cuda.graph(self.eval_graph):
             run_eval()
 
-    def load(self, prog: "_Program", params0, data, keys, n_active) -> None:
-        for dst, src in zip(_pytree.tree_leaves(self.data), _pytree.tree_leaves(data)):
-            dst.copy_(src)
-        if self.n_active is not None:
-            self.n_active.copy_(n_active)
-        fresh = initial_carry(prog.controller, params0, keys)
-        for dst, src in zip(self.flat, _pytree.tree_leaves(fresh)):
-            dst.copy_(src)
+    def load(self, engine, inputs) -> None:
+        _copy_into(self.inputs, inputs)
+        _copy_into(self.flat, engine.initial(self.inputs))
 
 
 class _Program:
-    """One configuration of the engine: eager, or CUDA graphs per input
-    signature."""
+    """One configuration of an engine (`_Engine`, or the sweep's grid
+    engine): eager, or CUDA graphs per input signature.  ``on_build`` is
+    called once for each signature it builds, the owner's trace count."""
 
-    def __init__(self, source, n_workers, controller, straggler, comm, eta, num_iters, eval_every, unroll,
-                 capture: bool, partitionable: bool):
-        self.source, self.n_workers, self.controller = source, n_workers, controller
-        self.straggler, self.comm, self.eta = straggler, comm, eta
+    def __init__(self, engine, num_iters: int, eval_every: int, unroll: int, capture: bool, partitionable: bool,
+                 on_build: Callable[[], None]):
+        self.engine, self.on_build = engine, on_build
         self.unroll, self.capture, self.partitionable = max(1, int(unroll)), capture, partitionable
         n_full, rem = divmod(num_iters, eval_every)
         self.blocks = [eval_every] * n_full + ([rem] if rem else [])
@@ -349,34 +387,32 @@ class _Program:
                 lengths.add(b % u)
         return lengths
 
-    def __call__(self, params0, data, keys, n_active=None):
-        global _N_TRACES
-        sig = _signature(params0, data, keys)
+    def __call__(self, inputs):
+        """Run every block from the engine's initial carry; (time, loss, k)
+        records, each (lanes, n_evals)."""
+        sig = _signature(inputs)
         with prng.threefry_mode(self.partitionable):
             if self.capture:
                 cap = self._captured.get(sig)
                 if cap is None:
-                    _N_TRACES += 1
-                    cap = self._captured[sig] = _Captured(self, params0, data, keys, n_active,
-                                                          self._graph_lengths())
-                return self._run_captured(cap, params0, data, keys, n_active)
+                    self.on_build()
+                    cap = self._captured[sig] = _Captured(self.engine, inputs, self._graph_lengths())
+                return self._run_captured(cap, inputs)
             if sig not in self._signatures:
-                _N_TRACES += 1
+                self.on_build()
                 self._signatures.add(sig)
-            return self._run_eager(params0, data, keys, n_active)
+            return self._run_eager(inputs)
 
-    def _records(self, keys):
-        r, n = keys.shape[0], len(self.blocks)
-        dev = keys.device
-        return (torch.empty((r, n), dtype=torch.float32, device=dev),
-                torch.empty((r, n), dtype=torch.float32, device=dev),
-                torch.empty((r, n), dtype=torch.int32, device=dev))
+    def _records(self, lanes: int, dev):
+        n = len(self.blocks)
+        return (torch.empty((lanes, n), dtype=torch.float32, device=dev),
+                torch.empty((lanes, n), dtype=torch.float32, device=dev),
+                torch.empty((lanes, n), dtype=torch.int32, device=dev))
 
-    def _run_eager(self, params0, data, keys, n_active):
-        step, evaluate = make_step(self.source, data, self.n_workers, self.controller, self.straggler,
-                                   self.comm, self.eta, n_active)
-        carry = initial_carry(self.controller, params0, keys)
-        times, losses, ks = self._records(keys)
+    def _run_eager(self, inputs):
+        step, evaluate = self.engine.build(inputs)
+        carry = self.engine.initial(inputs)
+        times, losses, ks = self._records(carry.sim_time.shape[0], carry.sim_time.device)
         for j, length in enumerate(self.blocks):
             for _ in range(length):
                 carry, k = step(carry)
@@ -385,9 +421,9 @@ class _Program:
             ks[:, j] = k
         return times, losses, ks
 
-    def _run_captured(self, cap: _Captured, params0, data, keys, n_active):
-        cap.load(self, params0, data, keys, n_active)
-        times, losses, ks = self._records(keys)
+    def _run_captured(self, cap: _Captured, inputs):
+        cap.load(self.engine, inputs)
+        times, losses, ks = self._records(cap.k.shape[0], cap.k.device)
         for j, length in enumerate(self.blocks):
             u = min(self.unroll, length)
             for _ in range(length // u):
@@ -399,6 +435,11 @@ class _Program:
             losses[:, j] = cap.loss
             ks[:, j] = cap.k
         return times, losses, ks
+
+
+def _count_build() -> None:
+    global _N_TRACES
+    _N_TRACES += 1
 
 
 def _to_device(tree, dev: torch.device):
@@ -483,13 +524,13 @@ def run_monte_carlo_source(
     )
     program = _PROGRAM_CACHE.get(cache_key)
     if program is None:
-        program = _Program(source, n_workers, controller, straggler, comm, float(eta), int(num_iters),
-                           int(eval_every), unroll, capture, partitionable)
+        engine = _Engine(source, n_workers, controller, straggler, comm, float(eta))
+        program = _Program(engine, int(num_iters), int(eval_every), unroll, capture, partitionable, _count_build)
         _PROGRAM_CACHE[cache_key] = program
     n_active = None
     if isinstance(straggler, WorkerFleet):
         n_active = torch.full((), straggler.n_active, dtype=torch.int32, device=dev)
-    times, losses, ks = program(params0, data, keys, n_active)
+    times, losses, ks = program(_Inputs(params0, data, keys, n_active))
     iteration = np.minimum(np.arange(1, times.shape[1] + 1) * eval_every, num_iters).astype(np.int64)
     return MonteCarloResult(time=times, loss=losses, k=ks, iteration=iteration)
 

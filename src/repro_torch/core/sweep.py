@@ -1,0 +1,842 @@
+"""Single-dispatch sweep engine, in torch: a G-cell x R-replica grid as one program.
+
+The port of `repro.core.sweep` for synchronous cells.  The paper's
+artifacts (Figs. 2-3, the ablation) are grids — controller x straggler
+model x (n, k-policy) — of many-seed error-against-wall-clock curves.
+`run_monte_carlo` runs one cell per program; this module runs the whole
+grid as ONE program by stacking every cell's configuration as tensor leaves
+(`_CellParams`) and mapping one step over a flat lane axis of G·R lanes,
+cell-major (lane g·R + r is cell g, replica r):
+
+  * straggler parameters are per-worker packed rows
+    (`straggler.pack_params_per_worker`), realized by every family's
+    transform of one shared base draw and selected per slot
+    (`straggler.sample_times_selected`); a `WorkerFleet` may carry a
+    `RateSchedule` that drifts a column with the carried simulated time;
+  * ``n`` is a grid axis: every cell is padded to the grid's ``n_workers``
+    slots, and slots past the cell's ``n_active`` draw +inf, rank last and
+    are held out of the gradient and the eval loss;
+  * controller hyperparameters, the comm model's (alpha, beta) and eta are
+    leaves, read by one unified controller update over the superset of
+    every controller's state (`_CtrlState`).
+
+What a program is built for is the grid's branch signature
+(`GridSignature`): the sets of controller kinds and modes and the schedule
+and comm flags present.  By default (``specialize=True``) a kind the
+signature excludes is never computed, and a lone kind's selects fold away
+in Python; ``specialize=False`` builds the program of every kind.
+
+On a CUDA device (the default) the grid runs through `montecarlo`'s
+program: ``unroll`` iterations of all G·R lanes captured once as a CUDA
+graph over static buffers (the carry, and the cell leaves, keys, params0
+and data the graphs read) and replayed, the eval loss a graph of its own.
+A grid with the same signature and shapes loads its leaves into those
+buffers and replays the same graphs: repopulating never captures again,
+the counterpart of the reference's "never retraces".  ``capture=False``
+runs the same step eagerly.  A capture that fails raises; nothing falls
+back.
+
+Every cell of a sweep is the looped engine's run of that cell with the same
+keys (`run_monte_carlo`), computed over G·R lanes instead of R: the per-lane
+arithmetic is the looped step's, op for op.  Time and k agree bit for bit
+(measured on the CPU and on an H100); the eval loss may differ in the last
+ulps, because the reduction of vmap's lane-minor per-example losses rounds
+differently for another lane count (PERF.md §6).
+
+Only synchronous, fault-free, mean-aggregation cells on one device are
+ported: the async modes wait for ROADMAP Queue 1 item 9, faults and robust
+aggregation for item 10, and the mesh (with the inert zero-row cell padding
+and buffer donation it needs) for item 13.
+
+    cases = [SweepCase(PflugController(n_workers=50, k0=10, step=10, thresh=10),
+                       Exponential(rate=1.0), eta=1e-2, label="adaptive"),
+             SweepCase(FixedKController(n_workers=50, k=40), Exponential(rate=1.0),
+                       eta=1e-2, label="fixed_k40")]
+    result = run_sweep(loss_fn, w0, X, y, n_workers=50, cases=cases,
+                       num_iters=40_000, keys=keys, eval_every=500)
+    stats = summarize_cells(result)  # {label: summarize(cell)}
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+from typing import Any, Callable, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.utils._pytree import tree_map
+
+from repro_torch import resolve_device
+from repro_torch.core import aggregation, prng
+from repro_torch.core.controller import (
+    FixedKController,
+    PflugController,
+    ScheduleController,
+    SketchedPflugController,
+    VarianceRatioController,
+    _sign_event,
+)
+from repro_torch.core.gradsource import GradSource, PerExampleSource
+from repro_torch.core.montecarlo import (
+    MODES,
+    MonteCarloResult,
+    _LRUProgramCache,
+    _Program,
+    _default_program_cache_size,
+    _to_device,
+    summarize,
+)
+from repro_torch.core.straggler import (
+    StragglerModel,
+    WorkerFleet,
+    apply_rate_schedule,
+    family_select_masks,
+    pack_params_per_worker,
+    pack_schedule,
+    sample_times_selected,
+)
+from repro_torch.core.tree import leaves_with_path, tree_dot, tree_leaves
+
+__all__ = [
+    "GridSignature",
+    "SweepCase",
+    "SweepResult",
+    "grid_signature",
+    "run_sweep",
+    "run_sweep_source",
+    "summarize_cells",
+    "product_cases",
+    "sweep_cache_stats",
+    "clear_sweep_cache",
+]
+
+# Controller kinds, the reference's branch indices.
+_FIXED, _PFLUG, _SCHEDULE, _VARIANCE_RATIO, _SKETCHED_PFLUG = range(5)
+
+_CTRL_KINDS = {
+    FixedKController: _FIXED,
+    PflugController: _PFLUG,
+    ScheduleController: _SCHEDULE,
+    VarianceRatioController: _VARIANCE_RATIO,
+    SketchedPflugController: _SKETCHED_PFLUG,
+}
+_N_CTRL_KINDS = len(_CTRL_KINDS)
+
+# The reference's execution-mode indices (`execmode.MODES`) and mean aggregator.
+_MODE_INDEX = {m: i for i, m in enumerate(MODES)}
+_MODE_SYNC = _MODE_INDEX["sync"]
+_AGG_MEAN = aggregation.AGG_KINDS["mean"]
+
+
+class GridSignature(NamedTuple):
+    """The static shape of the work a grid asks of a program.
+
+    Sorted tuples of branch indices plus feature flags, as the reference's:
+
+    * ``ctrl_kinds`` — controller kinds present,
+    * ``modes`` — execution-mode indices present (``"sync"`` is 0),
+    * ``with_schedule`` — any cell carries a live ``RateSchedule``,
+    * ``with_comm`` — any cell carries a non-zero ``CommModel``,
+    * ``fault_kinds`` — fault families any cell can activate (``()``: the
+      port has no faults yet, ROADMAP Queue 1 item 10),
+    * ``agg_kinds`` — aggregator kinds present (``(0,)``, the mean, for an
+      all-mean grid).
+
+    Two grids with the same signature and shapes share one program.  The
+    straggler family set is deliberately not part of it: every cell runs the
+    full family sampler, so the sampler is the same in every program.
+    """
+
+    ctrl_kinds: tuple
+    modes: tuple
+    with_schedule: bool
+    with_comm: bool
+    fault_kinds: tuple
+    agg_kinds: tuple
+
+
+def _robustness_axes(cases: Sequence["SweepCase"]) -> tuple:
+    """The (fault_kinds, agg_kinds) signature components of a grid."""
+    agg_kinds = set()
+    for c in cases:
+        if c.fault is not None:
+            raise NotImplementedError(
+                f"cell {c.name()!r}: faults wait for the port of core/faults.py (ROADMAP Queue 1 item 10)")
+        ak = aggregation.AGG_KINDS.get(c.agg)
+        if ak is not None:  # unknown aggregators error later, in _cell_of
+            agg_kinds.add(ak)
+    return (), tuple(sorted(agg_kinds)) if agg_kinds else (_AGG_MEAN,)
+
+
+def grid_signature(cases: Sequence["SweepCase"], n_slots: int) -> GridSignature:
+    """The branch signature of a populated grid (see GridSignature)."""
+    del n_slots  # families (which padding would affect) are not in the signature
+    kinds, modes = set(), set()
+    with_schedule = with_comm = False
+    for c in cases:
+        kind = _CTRL_KINDS.get(type(c.controller))
+        if kind is not None:  # unknown controllers error later, in _cell_of
+            kinds.add(kind)
+        if c.mode in _MODE_INDEX:
+            modes.add(_MODE_INDEX[c.mode])
+        if isinstance(c.straggler, WorkerFleet):
+            sched = c.straggler.schedule
+            if sched is not None and len(sched.times):
+                with_schedule = True
+        if c.comm is not None and (c.comm.alpha != 0.0 or c.comm.beta != 0.0):
+            with_comm = True
+    fault_kinds, agg_kinds = _robustness_axes(cases)
+    return GridSignature(ctrl_kinds=tuple(sorted(kinds)), modes=tuple(sorted(modes)), with_schedule=with_schedule,
+                         with_comm=with_comm, fault_kinds=fault_kinds, agg_kinds=agg_kinds)
+
+
+def _full_signature(cases: Sequence["SweepCase"]) -> GridSignature:
+    """``specialize=False``: every controller kind and feature flag, so any
+    same-shape grid repopulates the program; the all-sync split and the
+    fault and aggregator axes still come from the cases, as the reference's."""
+    all_sync = all(c.mode == "sync" for c in cases)
+    fault_kinds, agg_kinds = _robustness_axes(cases)
+    return GridSignature(ctrl_kinds=tuple(range(_N_CTRL_KINDS)),
+                         modes=(_MODE_SYNC,) if all_sync else tuple(sorted(_MODE_INDEX.values())),
+                         with_schedule=True, with_comm=True, fault_kinds=fault_kinds, agg_kinds=agg_kinds)
+
+
+def _static_remap(present: tuple, total: int) -> np.ndarray:
+    """int32 table from global branch indices to pruned-local ones (the
+    mode switch of item 9 indexes its pruned tails with it)."""
+    remap = np.zeros((total,), np.int32)
+    for j, g in enumerate(present):
+        remap[g] = j
+    return remap
+
+
+def _auto_unroll(sig: GridSignature) -> int:
+    """``unroll=None``: the reference's scan unroll for the signature (4 with
+    async modes, faults or robust aggregation; 8 for one controller kind,
+    else 6).  Here it is the iterations one CUDA graph holds; it never
+    changes the arithmetic."""
+    if sig.modes != (_MODE_SYNC,):
+        return 4
+    if sig.fault_kinds or sig.agg_kinds != (_AGG_MEAN,):
+        return 4
+    return 8 if len(sig.ctrl_kinds) == 1 else 6
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepCase:
+    """One grid cell: a controller/straggler/step-size/comm configuration.
+
+    ``straggler`` may be a ``WorkerFleet``.  The cell's active worker count
+    is ``controller.n_workers``; slots past it, up to the grid's
+    ``n_workers``, are inactive.  ``mode``, ``fault``, ``agg`` and
+    ``agg_param`` are the reference's fields; only ``mode="sync"``,
+    ``fault=None`` and ``agg="mean"`` run in the port (ROADMAP Queue 1
+    items 9 and 10).
+    """
+
+    controller: Any
+    straggler: StragglerModel | WorkerFleet
+    eta: float
+    comm: aggregation.CommModel | None = None
+    label: str = ""
+    mode: str = "sync"
+    fault: Any = None
+    agg: str = "mean"
+    agg_param: float = 0.1
+
+    def name(self) -> str:
+        if self.label:
+            return self.label
+        return f"{type(self.controller).__name__}/{type(self.straggler).__name__}"
+
+
+def product_cases(controllers: dict, stragglers: dict, eta: float,
+                  comm: aggregation.CommModel | None = None) -> list:
+    """The full controller x straggler grid, labeled ``"<ctrl>|<strag>"``."""
+    return [
+        SweepCase(ctrl, strag, eta=eta, comm=comm, label=f"{cname}|{sname}")
+        for sname, strag in stragglers.items()
+        for cname, ctrl in controllers.items()
+    ]
+
+
+class _CellParams(NamedTuple):
+    """One grid cell as leaves ((G, ...) or (G·R, ...) when stacked)."""
+
+    ctrl_kind: Any  # int32: controller kind
+    mode: Any  # int32: execution-mode index
+    k0: Any  # int32
+    step: Any  # int32
+    thresh: Any  # int32
+    burnin: Any  # int32
+    k_max: Any  # int32: k cap (n_active when the controller left it None)
+    decay: Any  # f32: variance-ratio EMA decay d
+    one_minus_decay: Any  # f32: f32(1 - d), rounded as the controller rounds it
+    ratio_thresh: Any  # f32
+    switch_times: Any  # f32 (S,): schedule times, +inf padded
+    n_active: Any  # int32: active worker slots
+    strag_kinds: Any  # int32 (n_slots,): per-slot family indices
+    strag_p: Any  # f32 (n_slots, 3): per-worker parameters
+    sched_mode: Any  # int32: straggler.SCHEDULE_MODES
+    sched_leaf: Any  # int32: the parameter column that drifts
+    sched_times: Any  # f32 (K,): rate-schedule knots, +inf padded
+    sched_scales: Any  # f32 (K,): knot multipliers, last-value padded
+    sketch_signs: Any  # tuple of params-shaped f32 leaves (JAX leaf order): the sketch's signs
+    comm_alpha: Any  # f32
+    comm_beta: Any  # f32
+    eta: Any  # f32
+
+
+class _CtrlState(NamedTuple):
+    """Superset of every controller's state (a policy-agnostic carry)."""
+
+    k: torch.Tensor
+    count_negative: torch.Tensor
+    count_iter: torch.Tensor
+    prev_grad: Any  # params-shaped: Pflug's g_{j-1}
+    prev_sketch: torch.Tensor  # (sketch_dim,): sketched Pflug's z_{j-1}
+    ema_mean: Any  # params-shaped: variance ratio's EMA(g)
+    ema_sq: torch.Tensor
+    have_prev: torch.Tensor
+    n_switches: torch.Tensor
+
+
+class SweepResult(NamedTuple):
+    """The grid's eval-point trajectories: ``time``/``loss``/``k`` are (G, R,
+    E) tensors on the run's device; ``iteration`` (E,) numpy."""
+
+    time: torch.Tensor
+    loss: torch.Tensor
+    k: torch.Tensor
+    iteration: np.ndarray
+    labels: tuple
+
+    def cell(self, g: int) -> MonteCarloResult:
+        """Cell g's trajectories as a MonteCarloResult (R, E)."""
+        return MonteCarloResult(time=self.time[g], loss=self.loss[g], k=self.k[g], iteration=self.iteration)
+
+
+def summarize_cells(result: SweepResult) -> dict:
+    """``{label: summarize(cell)}`` for every grid cell."""
+    return {label: summarize(result.cell(g)) for g, label in enumerate(result.labels)}
+
+
+def _sketch_signs_of(params_like, seed: int) -> tuple:
+    """The Rademacher signs `SketchedPflugController._sketch` draws, made
+    once on the host: per leaf, in JAX's leaf order, the key of seed +
+    crc32(keystr(path)) mod 2^30, as f32 numpy."""
+    out = []
+    for path, g in leaves_with_path(params_like):
+        leaf_seed = seed + (zlib.crc32(path.encode("utf-8")) % (2**30))
+        key = torch.tensor([0, leaf_seed & prng.MASK], dtype=torch.int64)
+        out.append(prng.rademacher(key, tuple(g.shape)).numpy())
+    return tuple(out)
+
+
+def _zero_signs_of(params_like) -> tuple:
+    return tuple(np.zeros(tuple(g.shape), np.float32) for g in tree_leaves(params_like))
+
+
+def _cell_of(case: SweepCase, n_slots: int, n_switch_slots: int, n_sched_slots: int, sketch_dim: int,
+             params_like) -> _CellParams:
+    """A cell's leaves as numpy, after the reference's checks; an async,
+    faulty or robust-aggregation cell raises NotImplementedError."""
+    c = case.controller
+    kind = _CTRL_KINDS.get(type(c))
+    if kind is None:
+        raise ValueError(f"{type(c).__name__} is not sweepable; supported: {[t.__name__ for t in _CTRL_KINDS]}")
+    i32, f32 = np.int32, np.float32
+    n_active = int(c.n_workers)
+    if n_active > n_slots:
+        raise ValueError(f"cell {case.name()!r}: controller n_workers={n_active} exceeds the grid's "
+                         f"n_slots={n_slots}")
+    if isinstance(case.straggler, WorkerFleet) and case.straggler.n_active != n_active:
+        raise ValueError(f"cell {case.name()!r}: fleet has {case.straggler.n_active} models but "
+                         f"controller.n_workers={n_active}")
+    if case.mode not in _MODE_INDEX:
+        raise ValueError(f"cell {case.name()!r}: unknown mode {case.mode!r}; options {sorted(_MODE_INDEX)}")
+    if case.agg not in aggregation.AGG_KINDS:
+        raise ValueError(f"cell {case.name()!r}: unknown aggregator {case.agg!r}; options "
+                         f"{sorted(aggregation.AGG_KINDS)}")
+    if case.agg != "mean" and case.mode == "kbatch":
+        raise ValueError(f"cell {case.name()!r}: robust aggregation ({case.agg!r}) is not supported in kbatch "
+                         "mode — kbatch arrivals are sequential, there is no per-worker row stack to aggregate")
+    if case.mode != "sync":
+        raise NotImplementedError(f"cell {case.name()!r}: mode={case.mode!r}: the async modes wait for the port "
+                                  "of core/execmode.py (ROADMAP Queue 1 item 9)")
+    if case.fault is not None or case.agg != "mean":
+        raise NotImplementedError(f"cell {case.name()!r}: faults and robust aggregation wait for the port of "
+                                  "core/faults.py and the robust half of core/aggregation.py (ROADMAP Queue 1 "
+                                  "item 10)")
+    k0, step, thresh, burnin = 1, 0, 0, 0
+    k_max = n_active
+    decay = ratio_thresh = 0.0
+    times = np.full((n_switch_slots,), np.inf, f32)
+    signs = _zero_signs_of(params_like)
+    if kind == _FIXED:
+        k0 = c.k
+    elif kind in (_PFLUG, _SKETCHED_PFLUG):
+        k0, step, thresh, burnin = c.k0, c.step, c.thresh, c.burnin
+        k_max = c.k_max if c.k_max is not None else n_active
+        if kind == _SKETCHED_PFLUG:
+            if c.sketch_dim != sketch_dim:
+                raise ValueError(f"cell {case.name()!r}: sketch_dim={c.sketch_dim} but the grid's static sketch "
+                                 f"layout is {sketch_dim} (every sketched cell in one sweep must share sketch_dim)")
+            signs = _sketch_signs_of(params_like, c.seed)
+    elif kind == _SCHEDULE:
+        k0, step = c.k0, c.step
+        st = np.asarray(list(c.switch_times), f32)
+        if st.size > n_switch_slots:
+            raise ValueError(f"{st.size} switch times > {n_switch_slots} slots")
+        times[: st.size] = st
+    elif kind == _VARIANCE_RATIO:
+        k0, step, burnin = c.k0, c.step, c.burnin
+        k_max = c.k_max if c.k_max is not None else n_active
+        decay, ratio_thresh = c.decay, c.ratio_thresh
+    pmat, kinds, _ = pack_params_per_worker(case.straggler, n_slots, n_active=n_active)
+    sched = case.straggler.schedule if isinstance(case.straggler, WorkerFleet) else None
+    sched_mode, sched_leaf, sched_times, sched_scales = pack_schedule(sched, n_sched_slots)
+    comm = case.comm or aggregation.CommModel()
+    return _CellParams(
+        ctrl_kind=i32(kind), mode=i32(_MODE_INDEX[case.mode]), k0=i32(k0), step=i32(step), thresh=i32(thresh),
+        burnin=i32(burnin), k_max=i32(k_max), decay=f32(decay),
+        # the controller computes (1 - d) in Python float64 and rounds it to
+        # f32 where it multiplies; rounding here the same way keeps the bits
+        one_minus_decay=f32(1.0 - decay), ratio_thresh=f32(ratio_thresh), switch_times=times,
+        n_active=i32(n_active), strag_kinds=kinds, strag_p=pmat, sched_mode=sched_mode, sched_leaf=sched_leaf,
+        sched_times=sched_times, sched_scales=sched_scales, sketch_signs=signs, comm_alpha=f32(comm.alpha),
+        comm_beta=f32(comm.beta), eta=f32(case.eta),
+    )
+
+
+def _stack_cells(cells: Sequence[_CellParams], dev: torch.device) -> _CellParams:
+    """The cells' leaves stacked to (G, ...) tensors on ``dev``."""
+    def stack(*xs):
+        return torch.from_numpy(np.stack([np.asarray(x) for x in xs])).to(dev)
+
+    fields = {}
+    for name in _CellParams._fields:
+        vals = [getattr(c, name) for c in cells]
+        fields[name] = tuple(map(stack, *vals)) if name == "sketch_signs" else stack(*vals)
+    return _CellParams(**fields)
+
+
+# ------------------------------------------------- unified controller update
+
+
+def _ctrl_init(cells: _CellParams, params0, sketch_dim: int) -> _CtrlState:
+    """The controller state of every lane before its first iteration (cells
+    (L, ...)): k0; Pflug counts iterations from 1, variance ratio from 0."""
+    lanes, dev = cells.k0.shape[0], cells.k0.device
+
+    def zeros_f32(x):
+        return torch.zeros((lanes,) + tuple(x.shape), dtype=torch.float32, device=dev)
+
+    def scalars(dtype):
+        return torch.zeros((lanes,), dtype=dtype, device=dev)
+
+    return _CtrlState(
+        k=cells.k0.clone(),
+        count_negative=scalars(torch.int32),
+        count_iter=torch.where(cells.ctrl_kind == _VARIANCE_RATIO, 0, 1).to(torch.int32),
+        prev_grad=tree_map(zeros_f32, params0),
+        prev_sketch=torch.zeros((lanes, sketch_dim), dtype=torch.float32, device=dev),
+        ema_mean=tree_map(zeros_f32, params0),
+        ema_sq=scalars(torch.float32),
+        have_prev=scalars(torch.bool),
+        n_switches=scalars(torch.int32),
+    )
+
+
+def _sel(pred, a, b):
+    """``torch.where`` that folds away when the predicate is a Python bool."""
+    if pred is True:
+        return a
+    if pred is False:
+        return b
+    return torch.where(pred, a, b)
+
+
+def _sel_tree(pred, a, b):
+    if pred is True:
+        return a
+    if pred is False:
+        return b
+    return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+
+
+def _pred_or(a, b):
+    if a is True or b is True:
+        return True
+    if a is False:
+        return b
+    if b is False:
+        return a
+    return a | b
+
+
+class _CtrlPreds(NamedTuple):
+    """Per-lane controller-kind predicates: a bool tensor, or a Python bool
+    where the signature decides (an absent kind False, a lone kind True),
+    which lets the update fold the select away."""
+
+    is_pflug: Any
+    is_schedule: Any
+    is_vr: Any
+    is_sketched: Any
+
+
+def _ctrl_preds(kind_is: Sequence[torch.Tensor], ctrl_kinds: Optional[tuple]) -> _CtrlPreds:
+    """``kind_is[j]``: the lanes' ``ctrl_kind == j``, made before the step."""
+    kinds = tuple(ctrl_kinds) if ctrl_kinds is not None else tuple(range(_N_CTRL_KINDS))
+
+    def pred(kind):
+        if kind not in kinds:
+            return False
+        if kinds == (kind,):
+            return True
+        return kind_is[kind]
+
+    return _CtrlPreds(is_pflug=pred(_PFLUG), is_schedule=pred(_SCHEDULE), is_vr=pred(_VARIANCE_RATIO),
+                      is_sketched=pred(_SKETCHED_PFLUG))
+
+
+def _apply_sketch(signs, grads, sketch_dim: int) -> torch.Tensor:
+    """Count sketch of the gradient from the cell's signs: the arithmetic of
+    `SketchedPflugController._sketch` (same leaf order, pad, bucket sums and
+    order of accumulation) with its drawn signs replaced by the leaves."""
+    m = sketch_dim
+    z = None
+    for sl, g in zip(signs, tree_leaves(grads)):
+        t = (sl * g.to(torch.float32)).reshape(-1)
+        pad = (-t.numel()) % m
+        if pad:
+            t = torch.cat([t, t.new_zeros(pad)])
+        part = t.reshape(-1, m).sum(dim=0)
+        z = part if z is None else z + part
+    return z
+
+
+def _ctrl_update(cp: _CellParams, state: _CtrlState, grads, sim_time, sketch_dim: int,
+                 ctrl_kinds: Optional[tuple], preds: _CtrlPreds):
+    """The unified controller update for one lane, specialized to the kinds
+    present: each present kind's signal is computed once (the Pflug sign
+    test on the gradient or its sketch, the variance-ratio EMAs, the
+    schedule's time trigger), the shared switch bookkeeping once, and the
+    kinds' leaves merged with two-way selects.  Per lane the arithmetic is
+    the controller class's update, op for op; absent kinds are never
+    computed, and with one kind present every select folds away."""
+    kinds = tuple(ctrl_kinds) if ctrl_kinds is not None else tuple(range(_N_CTRL_KINDS))
+    has_pflug, has_sketched = _PFLUG in kinds, _SKETCHED_PFLUG in kinds
+    has_schedule, has_vr = _SCHEDULE in kinds, _VARIANCE_RATIO in kinds
+    counting = _pred_or(preds.is_pflug, preds.is_sketched)
+    adapting = _pred_or(counting, preds.is_vr)
+    i32 = torch.int32
+    k = state.k
+
+    # counting signal: the sign of consecutive gradients' inner product
+    # (Algorithm 1), on the gradient (Pflug) or on its count sketch
+    dot = z = None
+    if has_pflug:
+        dot = tree_dot(grads, state.prev_grad)
+    if has_sketched:
+        z = _apply_sketch(cp.sketch_signs, grads, sketch_dim)
+        dot_s = torch.dot(z, state.prev_sketch)
+        dot = dot_s if dot is None else _sel(preds.is_sketched, dot_s, dot)
+    if counting is not False:
+        count_neg1 = state.count_negative + _sign_event(dot, state.have_prev)
+
+    # variance-ratio signal: ||EMA(g)||^2 / EMA(||g||^2)
+    if has_vr:
+        d, omd = cp.decay, cp.one_minus_decay
+        ema1 = tree_map(lambda m, g: d * m + omd * g.to(torch.float32), state.ema_mean, grads)
+        ema_sq1 = d * state.ema_sq + omd * tree_dot(grads, grads)
+        ratio = tree_dot(ema1, ema1) / torch.clamp_min(ema_sq1, 1e-30)
+
+    # the shared adaptive bookkeeping: one switch test, one k bump
+    new_k = k
+    do_switch = False
+    if adapting is not False:
+        if has_vr and counting is not False:
+            cond = _sel(preds.is_vr, ratio < cp.ratio_thresh, count_neg1 > cp.thresh)
+        elif has_vr:
+            cond = ratio < cp.ratio_thresh
+        else:
+            cond = count_neg1 > cp.thresh
+        gate = (state.count_iter > cp.burnin) & (k + cp.step <= cp.k_max)
+        do_switch = cond & gate if adapting is True else adapting & cond & gate
+        new_k = torch.where(do_switch, k + cp.step, k)
+        count_iter1 = torch.where(do_switch, 0, state.count_iter) + 1
+
+    # the schedule's time-triggered k, capped at the cell's active workers
+    if has_schedule:
+        n_passed = (sim_time >= cp.switch_times).sum().to(i32)
+        k_sched = torch.minimum(cp.k0 + cp.step * n_passed, cp.n_active)
+        new_k = _sel(preds.is_schedule, k_sched, new_k)
+
+    new_state = _CtrlState(
+        k=new_k,
+        count_negative=(state.count_negative if counting is False
+                        else _sel(counting, torch.where(do_switch, 0, count_neg1), state.count_negative)),
+        count_iter=state.count_iter if adapting is False else _sel(adapting, count_iter1, state.count_iter),
+        prev_grad=(state.prev_grad if not has_pflug
+                   else _sel_tree(preds.is_pflug, tree_map(lambda g: g.to(torch.float32), grads), state.prev_grad)),
+        prev_sketch=state.prev_sketch if not has_sketched else _sel(preds.is_sketched, z, state.prev_sketch),
+        ema_mean=(state.ema_mean if not has_vr
+                  else _sel_tree(preds.is_vr, tree_map(lambda m: torch.where(do_switch, torch.zeros_like(m), m), ema1),
+                                 state.ema_mean)),
+        ema_sq=state.ema_sq if not has_vr else _sel(preds.is_vr, torch.where(do_switch, 0.0, ema_sq1), state.ema_sq),
+        have_prev=(state.have_prev if adapting is False
+                   else _sel(adapting, torch.ones_like(state.have_prev), state.have_prev)),
+        # do_switch already carries the adapting mask: other lanes add 0
+        n_switches=state.n_switches if adapting is False else state.n_switches + do_switch.to(i32),
+    )
+    return new_state, new_k
+
+
+# ---------------------------------------------------------------- the engine
+
+
+class _SweepCarry(NamedTuple):
+    params: Any
+    ctrl_state: _CtrlState
+    sim_time: torch.Tensor
+    key: torch.Tensor
+
+
+class _Lanes(NamedTuple):
+    """The step's per-lane inputs, (L, ...) each: the cell leaves, and their
+    family masks and kind predicates, made once before the step."""
+
+    cells: _CellParams
+    fam_masks: tuple  # straggler.family_select_masks of the cell's slot kinds
+    kind_is: tuple  # kind_is[j]: ctrl_kind == j
+
+
+class _Inputs(NamedTuple):
+    """What one grid run reads: the static buffers of a captured program."""
+
+    params0: Any
+    data: Any
+    keys: torch.Tensor  # (L, 2), cell-major
+    lanes: _Lanes
+
+
+def _lanes_of(cells: _CellParams) -> _Lanes:
+    return _Lanes(cells=cells, fam_masks=family_select_masks(cells.strag_kinds),
+                  kind_is=tuple(cells.ctrl_kind == j for j in range(_N_CTRL_KINDS)))
+
+
+@dataclasses.dataclass(frozen=True)
+class _GridEngine:
+    """The grid's program body for `montecarlo._Program`: ``build(inputs) ->
+    (step, evaluate)`` over every lane, ``initial(inputs) -> carry``."""
+
+    source: GradSource
+    n_workers: int
+    sketch_dim: int
+    sig: GridSignature
+
+    def initial(self, inputs: _Inputs) -> _SweepCarry:
+        lanes = inputs.keys.shape[0]
+
+        def rep(x):
+            return x.unsqueeze(0).expand((lanes,) + tuple(x.shape)).clone()
+
+        return _SweepCarry(
+            params=tree_map(rep, inputs.params0),
+            ctrl_state=_ctrl_init(inputs.lanes.cells, inputs.params0, self.sketch_dim),
+            sim_time=torch.zeros((lanes,), dtype=torch.float32, device=inputs.keys.device),
+            key=inputs.keys.clone(),
+        )
+
+    def build(self, inputs: _Inputs):
+        sig, sketch_dim = self.sig, self.sketch_dim
+        fns = self.source.build(inputs.data, self.n_workers)
+
+        def one_step(carry: _SweepCarry, lane: _Lanes):
+            cp = lane.cells
+            preds = _ctrl_preds(lane.kind_is, sig.ctrl_kinds)
+            keys = prng.split(carry.key)
+            k = carry.ctrl_state.k  # decided before the step
+            # the rate-schedule drift and the comm time are built only when
+            # some cell can use them (each is exact for the cells that don't)
+            pm = (apply_rate_schedule(cp.strag_p, cp.sched_mode, cp.sched_leaf, cp.sched_times, cp.sched_scales,
+                                      carry.sim_time)
+                  if sig.with_schedule else cp.strag_p)
+            times = sample_times_selected(lane.fam_masks, pm, keys[1])
+            mask, t_iter = aggregation.fastest_k_mask_time(times, k)
+            if sig.with_comm:
+                t_iter = t_iter + (cp.comm_alpha + cp.comm_beta * k.to(torch.float32))
+            g = fns.grad(carry.params, mask, k)
+            params = tree_map(lambda p, gi: p - cp.eta * gi, carry.params, g)
+            sim_time = carry.sim_time + t_iter
+            ctrl_state, _ = _ctrl_update(cp, carry.ctrl_state, g, sim_time, sketch_dim, sig.ctrl_kinds, preds)
+            return _SweepCarry(params, ctrl_state, sim_time, keys[0]), k
+
+        vstep = torch.func.vmap(one_step)
+        veval = torch.func.vmap(fns.eval_loss_active)
+
+        def step(carry):
+            return vstep(carry, inputs.lanes)
+
+        def evaluate(params):
+            return veval(params, inputs.lanes.cells.n_active)
+
+        return step, evaluate
+
+
+# (source token, n_workers, num_iters, eval_every, unroll, n_switch_slots,
+#  n_sched_slots, sketch_dim, partition, GridSignature, device, capture,
+#  threefry mode) -> program: the reference's key without the mesh, plus
+# what decides a torch program.  Under each entry the program captures once
+# per shape signature of its inputs (grid size, params and data shapes), as
+# jit retraces on new shapes; a grid of a known signature loads into the
+# captured buffers.
+_PROGRAM_CACHE = _LRUProgramCache(maxsize=_default_program_cache_size())
+_N_TRACES = 0
+
+
+def sweep_cache_stats() -> dict:
+    return {"programs": len(_PROGRAM_CACHE), "traces": _N_TRACES}
+
+
+def clear_sweep_cache() -> None:
+    global _N_TRACES
+    _PROGRAM_CACHE.clear()
+    _N_TRACES = 0
+
+
+def _count_build() -> None:
+    global _N_TRACES
+    _N_TRACES += 1
+
+
+def run_sweep_source(
+    source: GradSource,
+    params0,
+    data,
+    n_workers: int,
+    cases: Sequence[SweepCase],
+    num_iters: int,
+    keys=None,
+    key=None,
+    n_replicas: Optional[int] = None,
+    eval_every: int = 10,
+    unroll: Optional[int] = None,
+    n_switch_slots: Optional[int] = None,
+    n_sched_slots: Optional[int] = None,
+    partition: str = "auto",
+    specialize: bool = True,
+    mesh=None,
+    device="cuda",
+    capture: bool = True,
+) -> SweepResult:
+    """Run a G-cell x R-replica grid of fastest-k SGD as one program on ``device``.
+
+    ``n_workers`` is the grid's slot count; a cell's active workers are its
+    ``controller.n_workers``.  ``keys`` are R keys ((R, 2), numpy uint32 from
+    JAX or `prng` keys), or pass ``key`` and ``n_replicas`` to split one;
+    replica r of every cell uses key r.  ``specialize``, ``unroll`` (None:
+    `_auto_unroll`), ``n_switch_slots`` and ``n_sched_slots`` are the
+    reference's.  ``partition`` takes the reference's values ("auto",
+    "shard_map", "none"); on one device all three run the same program, as
+    the reference's do.  ``mesh`` must be None: distribution is ROADMAP
+    Queue 1 item 13.  ``capture`` (CUDA only) replays CUDA graphs; False
+    runs the same step eagerly.  The threefry mode in force applies to the
+    whole run.  Cell g, replica r is the looped engine's replica r of
+    ``cases[g]`` with the same key.
+    """
+    if not cases:
+        raise ValueError("cases must be non-empty")
+    labels = [c.name() for c in cases]
+    if len(set(labels)) != len(labels):
+        dupes = sorted({lb for lb in labels if labels.count(lb) > 1})
+        raise ValueError(f"duplicate cell labels {dupes}: give identically-typed cases distinct SweepCase.label "
+                         "values (summarize_cells keys on them)")
+    dev = resolve_device(device)
+    if keys is None:
+        if key is None or n_replicas is None:
+            raise ValueError("pass either keys=(R keys) or key= and n_replicas=")
+        keys = prng.split(prng.as_key(key, dev), n_replicas)
+    keys = prng.as_key(keys, dev)
+    params0, data = _to_device(params0, dev), _to_device(data, dev)
+    source.check(data, n_workers)
+    if eval_every <= 0:
+        raise ValueError(f"eval_every must be positive, got {eval_every}")
+    if num_iters <= 0:
+        raise ValueError(f"num_iters must be positive, got {num_iters}")
+    if partition not in ("auto", "shard_map", "none"):
+        raise ValueError(f"unknown partition {partition!r}")
+    if mesh is not None:
+        raise NotImplementedError("a sweep mesh waits for the port of launch/mesh.py and launch/sharding.py "
+                                  "(ROADMAP Queue 1 item 13); the port runs a grid on one device")
+
+    if n_switch_slots is None:
+        n_switch_slots = max([1] + [len(list(c.controller.switch_times)) for c in cases
+                                    if isinstance(c.controller, ScheduleController)])
+    if n_sched_slots is None:
+        n_sched_slots = max([1] + [len(c.straggler.schedule.times) for c in cases
+                                   if isinstance(c.straggler, WorkerFleet) and c.straggler.schedule])
+    # every sketched cell shares one sketch_dim: it is the carry's shape
+    sketch_dims = {c.controller.sketch_dim for c in cases if isinstance(c.controller, SketchedPflugController)}
+    if len(sketch_dims) > 1:
+        raise ValueError(f"sketched cells disagree on sketch_dim ({sorted(sketch_dims)}); one sweep supports a "
+                         "single static sketch layout")
+    sketch_dim = sketch_dims.pop() if sketch_dims else 1
+    cells_np = [_cell_of(c, n_workers, n_switch_slots, n_sched_slots, sketch_dim, params0) for c in cases]
+    sig = grid_signature(cases, n_workers) if specialize else _full_signature(cases)
+    if unroll is None:
+        unroll = _auto_unroll(sig)
+
+    g, r = len(cases), keys.shape[0]
+    cells = _stack_cells(cells_np, dev)
+    cell_idx = torch.arange(g, device=dev).repeat_interleave(r)
+    rep_idx = torch.arange(r, device=dev).repeat(g)
+    flat_cells = tree_map(lambda a: a[cell_idx], cells)
+    inputs = _Inputs(params0=params0, data=data, keys=keys[rep_idx], lanes=_lanes_of(flat_cells))
+
+    capture = bool(capture) and dev.type == "cuda"
+    partitionable = prng.is_partitionable()
+    cache_key = (source.cache_token(), n_workers, int(num_iters), int(eval_every), int(unroll), int(n_switch_slots),
+                 int(n_sched_slots), int(sketch_dim), partition, sig, str(dev), capture, partitionable)
+    program = _PROGRAM_CACHE.get(cache_key)
+    if program is None:
+        program = _Program(_GridEngine(source, n_workers, sketch_dim, sig), int(num_iters), int(eval_every),
+                           int(unroll), capture, partitionable, _count_build)
+        _PROGRAM_CACHE[cache_key] = program
+    times, losses, ks = (a.reshape(g, r, -1) for a in program(inputs))
+    iteration = np.minimum(np.arange(1, times.shape[-1] + 1) * eval_every, num_iters).astype(np.int64)
+    return SweepResult(time=times, loss=losses, k=ks, iteration=iteration, labels=tuple(labels))
+
+
+def run_sweep(
+    per_example_loss_fn: Callable,
+    params0,
+    X,
+    y,
+    n_workers: int,
+    cases: Sequence[SweepCase],
+    num_iters: int,
+    keys=None,
+    key=None,
+    n_replicas: Optional[int] = None,
+    eval_every: int = 10,
+    unroll: Optional[int] = None,
+    n_switch_slots: Optional[int] = None,
+    n_sched_slots: Optional[int] = None,
+    partition: str = "auto",
+    specialize: bool = True,
+    mesh=None,
+    device="cuda",
+    capture: bool = True,
+) -> SweepResult:
+    """The per-example entry point: `run_sweep_source` over
+    ``PerExampleSource(per_example_loss_fn)`` and ``data=(X, y)``."""
+    return run_sweep_source(
+        PerExampleSource(per_example_loss_fn), params0, (X, y), n_workers=n_workers, cases=cases,
+        num_iters=num_iters, keys=keys, key=key, n_replicas=n_replicas, eval_every=eval_every, unroll=unroll,
+        n_switch_slots=n_switch_slots, n_sched_slots=n_sched_slots, partition=partition, specialize=specialize,
+        mesh=mesh, device=device, capture=capture,
+    )

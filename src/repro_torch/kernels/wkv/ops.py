@@ -5,7 +5,10 @@ The port of `repro/kernels/wkv/ops.py::wkv6`: (B, T, H, K) r, k, w and
 out.  The CUDA kernels read the model's layout through strides, so nothing
 is folded or copied.  A CUDA tensor launches the kernel that
 `kernel.route` picks from the shapes (or raises); a CPU tensor, and only a
-CPU tensor, goes to the plain version in `ref.py`.
+CPU tensor, goes to the plain version in `ref.py`, which autograd can
+differentiate.  The kernels are forward-only: on CUDA tensors under grad
+mode with an input that requires grad the wrapper raises
+(`kernels.forbid_autograd`).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import forbid_autograd
 from repro_torch.kernels.wkv import kernel, ref
 
 # Kernel launches since import or since a caller last set them to 0: all of
@@ -48,6 +52,7 @@ def wkv6(
     kernel.check_inputs(r, k, v, w, u, s0, chunk=run)
     if r.device.type == "cpu":
         return ref.wkv6_ref(r, k, v, w, u, s0, chunk=run)
+    forbid_autograd("wkv6", r, k, v, w, u, s0)
     name = kernel.route(r.shape[1], r.shape[-1], v.shape[-1], chunk)
     out = kernel.wkv6_bthk(r, k, v, w, u, s0, chunk=run, kernel=name)
     launches += 1

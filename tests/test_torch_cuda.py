@@ -1,6 +1,7 @@
 """The port's CUDA kernels (flash attention, wkv6) against their plain
-PyTorch versions, and the simulation engine against its CPU run and the
-goldens, on the card.  Flash attention has two routes, by dtype:
+PyTorch versions, the simulation engine against its CPU run and the
+goldens, and the sweep engine against its eager run and the looped engine,
+on the card.  Flash attention has two routes, by dtype:
 f32 the scalar kernel, bf16 the wgmma + TMA kernel; every attention case
 runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
 tensor-core kernel, every other shape the scalar one; each wkv case asserts
@@ -22,6 +23,8 @@ from repro_torch.core import controller as ctl  # noqa: E402
 from repro_torch.core import montecarlo as mc  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import straggler as strag  # noqa: E402
+from repro_torch.core import sweep as sw  # noqa: E402
+from repro_torch.core.aggregation import CommModel  # noqa: E402
 from repro_torch.data import make_linreg_data  # noqa: E402
 from repro_torch.kernels.attention import ops, ref  # noqa: E402
 from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
@@ -326,6 +329,118 @@ def test_graph_replayed_run_equals_eager_run_bitwise(cuda_device, case, unroll):
     for f in ("time", "loss", "k"):
         assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
         assert torch.equal(getattr(runs[0], f), getattr(runs[2], f)), f  # a replay of cached graphs
+
+
+# ------------------------------------------------------------------- sweep
+
+
+def _mixed_grid(eta=0.005, k_fixed=2):
+    """Every controller kind, every family, a comm model and a fleet of 5
+    active workers of 6 slots under a rate schedule."""
+    n = 6
+    fleet = strag.WorkerFleet([strag.Exponential(1.0), strag.Pareto(1.0, 3.0), strag.Bimodal(1.0, 4.0, 0.3),
+                               strag.Deterministic(1.5), strag.ShiftedExponential(0.2, 1.0)],
+                              strag.RateSchedule((2.0, 5.0), (0.5, 2.0), mode="linear"))
+    return [
+        sw.SweepCase(ctl.PflugController(n, k0=1, step=1, thresh=2, burnin=3), strag.Exponential(1.0), eta,
+                     label="pflug"),
+        sw.SweepCase(ctl.FixedKController(n, k=k_fixed), strag.Pareto(1.0, 3.0), eta * 0.8, label="fixed"),
+        sw.SweepCase(ctl.VarianceRatioController(n, k0=1, step=2, burnin=10), strag.Bimodal(1.0, 4.0, 0.3), eta,
+                     label="vr"),
+        sw.SweepCase(ctl.ScheduleController(n, [2.0, 6.0], k0=1, step=2), strag.ShiftedExponential(0.2, 1.0), eta,
+                     comm=CommModel(0.1, 0.05), label="schedule"),
+        sw.SweepCase(ctl.SketchedPflugController(n, k0=1, step=1, thresh=3, burnin=5, sketch_dim=8),
+                     strag.Exponential(0.5), eta, label="sketched"),
+        sw.SweepCase(ctl.PflugController(5, k0=1, thresh=2, burnin=3), fleet, eta, label="fleet"),
+    ]
+
+
+def _sweep(device, cases, **kw):
+    data = make_linreg_data(prng.PRNGKey(0), m=60, d=4, device=device)
+    args = dict(n_workers=6, num_iters=77, eval_every=20, key=prng.PRNGKey(5), n_replicas=3, device=device)
+    args.update(kw)
+    return sw.run_sweep(_sq, torch.zeros(4, device=device), data.X, data.y, cases=cases, **args)
+
+
+# 77 iterations in blocks of 20: graphs of 6, 2 and 1 iterations at unroll None (6), 3 and 2 at unroll 3
+@pytest.mark.parametrize("unroll", [None, 3])
+def test_sweep_graph_replayed_equals_eager_bitwise(cuda_device, unroll):
+    cases = _mixed_grid()
+    runs = [_sweep(cuda_device, cases, unroll=unroll, capture=capture) for capture in (True, False, True)]
+    for f in ("time", "loss", "k"):
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+        assert torch.equal(getattr(runs[0], f), getattr(runs[2], f)), f  # a replay of cached graphs
+    assert bool(torch.isfinite(runs[0].loss).all())
+
+
+def test_sweep_matches_the_looped_engine_on_the_card(cuda_device):
+    """Each cell against `run_monte_carlo` with the same keys: k equal, time
+    within 1e-5 and loss within 1e-4 relative (the library's products and
+    reductions may round differently at 18 lanes than at 3)."""
+    cases = _mixed_grid()
+    res = _sweep(cuda_device, cases)
+    data = make_linreg_data(prng.PRNGKey(0), m=60, d=4, device=cuda_device)
+    keys = prng.split(prng.PRNGKey(5, device=cuda_device), 3)
+    for g, case in enumerate(cases):
+        want = mc.run_monte_carlo(_sq, torch.zeros(4, device=cuda_device), data.X, data.y, n_workers=6,
+                                  controller=case.controller, straggler=case.straggler, eta=case.eta, comm=case.comm,
+                                  num_iters=77, eval_every=20, keys=keys, device=cuda_device)
+        got = res.cell(g)
+        assert torch.equal(got.k, want.k), case.label
+        np.testing.assert_allclose(got.time.cpu().numpy(), want.time.cpu().numpy(), rtol=1e-5, err_msg=case.label)
+        np.testing.assert_allclose(got.loss.cpu().numpy(), want.loss.cpu().numpy(), rtol=1e-4, err_msg=case.label)
+
+
+def test_repopulated_sweep_replays_its_graphs(cuda_device):
+    """A grid of the same signature and shapes with other eta and k loads
+    into the captured buffers: no new capture, and the result of a fresh
+    capture and of an eager run."""
+    sw.clear_sweep_cache()
+    try:
+        _sweep(cuda_device, _mixed_grid())
+        assert sw.sweep_cache_stats() == {"programs": 1, "traces": 1}
+        other = _mixed_grid(eta=0.003, k_fixed=4)
+        got = _sweep(cuda_device, other)
+        assert sw.sweep_cache_stats() == {"programs": 1, "traces": 1}
+        eager = _sweep(cuda_device, other, capture=False)
+        sw.clear_sweep_cache()
+        fresh = _sweep(cuda_device, other)
+        for f in ("time", "loss", "k"):
+            assert torch.equal(getattr(got, f), getattr(fresh, f)), f
+            assert torch.equal(getattr(got, f), getattr(eager, f)), f
+    finally:
+        sw.clear_sweep_cache()
+
+
+# --------------------------------------------------------- autograd guard
+
+
+@pytest.mark.parametrize("kernel_name", ["flash_attention", "wkv6"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_refuse_grad_mode_and_run_without_it(cuda_device, kernel_name, dtype):
+    dt = getattr(torch, dtype)
+    if kernel_name == "flash_attention":
+        xs = [torch.randn(sh, device=cuda_device).to(dt) for sh in ((1, 128, 4, 64), (1, 128, 2, 64), (1, 128, 2, 64))]
+        fn, counter = (lambda *a: ops.flash_attention(*a, causal=True)), ops
+        plain = ref.attention_ref(*xs, causal=True)
+    else:
+        xs = list(_wkv_inputs((1, 64, 2, 64, 64, 32, 0.5), dt, cuda_device))
+        fn, counter = (lambda *a: wkv_ops.wkv6(*a, chunk=32)), wkv_ops
+        plain = wkv_ref.wkv6_ref(*xs, chunk=32)
+    xs[0].requires_grad_(True)
+    before = counter.launches
+    with pytest.raises(RuntimeError, match="item 6"):
+        fn(*xs)
+    assert counter.launches == before
+    with torch.no_grad():
+        out = fn(*xs)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    if kernel_name == "flash_attention":
+        np.testing.assert_allclose(out.float().cpu().numpy(), plain.float().cpu().numpy(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    else:
+        _assert_wkv_close(out, plain, WKV_TOL[0.5])
 
 
 def test_run_monte_carlo_on_cuda_without_a_card_raises():

@@ -432,10 +432,28 @@ def test_quickstart_cells_match_looped_reference():
     np.testing.assert_allclose(out["f_star"], data.f_star, rtol=1e-2)
 
 
+@pytest.mark.parametrize("setup", ["quickstart", "ablation"])
+def test_quickstart_grid_matches_its_looped_path(setup):
+    """One `run_sweep` grid against one `run_monte_carlo` call per case
+    (``--looped``): time and k bitwise, the eval loss within 1e-6 relative
+    (the CPU's reduction of lane-minor losses rounds differently for another
+    lane count; tests/test_torch_sweep.py)."""
+    grid = quickstart.run(setup, iters=60, replicas=2, device="cpu")
+    looped = quickstart.run(setup, iters=60, replicas=2, device="cpu", looped=True)
+    assert list(grid["results"]) == list(looped["results"]) == [c.label for c in quickstart.cases(
+        setup, quickstart.inputs(setup, 2, "cpu")[0], grid["eta"])]
+    for label, got in grid["results"].items():
+        want = looped["results"][label]
+        assert torch.equal(got.time, want.time) and torch.equal(got.k, want.k), label
+        np.testing.assert_allclose(_np(got.loss), _np(want.loss), rtol=1e-6, err_msg=label)
+
+
 def test_quickstart_main_runs_on_the_cpu(capsys):
     quickstart.main(["--device", "cpu", "--iters", "40", "--replicas", "2"])
     text = capsys.readouterr().out
-    assert "adaptive" in text and "fixed_k2" in text and "2 cases" in text
+    assert "adaptive" in text and "fixed_k2" in text and "2 cases (as one grid)" in text
+    quickstart.main(["--device", "cpu", "--iters", "40", "--replicas", "2", "--looped"])
+    assert "2 cases (looped, a program each)" in capsys.readouterr().out
 
 
 def test_engine_inputs_from_jax_arrays(linreg):

@@ -44,7 +44,7 @@ def test_port_files_were_found():
     assert {"ops.py", "kernel.py", "ref.py", "layers.py", "rwkv.py", "linear_scan.py", "serve.py",
             "chip_smoke.py", "prng.py", "straggler.py", "aggregation.py", "controller.py", "theory.py",
             "gradsource.py", "montecarlo.py", "simulate.py", "async_sim.py", "synthetic.py",
-            "quickstart.py"} <= names
+            "quickstart.py", "sweep.py"} <= names
 
 
 def _no_card():
@@ -78,7 +78,7 @@ def _engine_entry_points():
     import numpy as np
 
     from repro_torch.checkpoint import convert
-    from repro_torch.core import async_sim, controller, montecarlo, prng, simulate, straggler
+    from repro_torch.core import async_sim, controller, montecarlo, prng, simulate, straggler, sweep
     from repro_torch.data import make_linreg_data
     from repro_torch.launch import quickstart
 
@@ -95,8 +95,12 @@ def _engine_entry_points():
         "async_sim.simulate_async_sgd": lambda: async_sim.simulate_async_sgd(
             lambda w, i: w, lambda w: w.sum(), w0, n_workers=3, eta=0.01, straggler=strag, total_time=1.0,
             key=prng.PRNGKey(0)),
+        "sweep.run_sweep": lambda: sweep.run_sweep(
+            loss, w0, X, y, n_workers=3, cases=[sweep.SweepCase(ctrl, strag, eta=0.01)], num_iters=4,
+            key=prng.PRNGKey(0), n_replicas=2),
         "make_linreg_data": lambda: make_linreg_data(prng.PRNGKey(0), m=12, d=4),
         "quickstart.main": lambda: quickstart.main(["--iters", "2", "--replicas", "2"]),
+        "quickstart.main[--looped]": lambda: quickstart.main(["--iters", "2", "--replicas", "2", "--looped"]),
         "convert.engine_inputs": lambda: convert.engine_inputs(
             np.zeros((2, 2), np.uint32), np.zeros(4, np.float32), np.ones((12, 4), np.float32),
             np.ones(12, np.float32)),
@@ -108,7 +112,8 @@ def _engine_entry_points():
     ["build_model", "convert.init", "convert.params_from_jax", "serve.random_prompts", "serve.main",
      "build_model[rwkv6-3b]", "convert.init[rwkv6-3b]", "serve.main[rwkv6-3b]",
      "montecarlo.run_monte_carlo", "simulate.simulate_fastest_k", "async_sim.simulate_async_sgd",
-     "make_linreg_data", "quickstart.main", "convert.engine_inputs"],
+     "sweep.run_sweep", "make_linreg_data", "quickstart.main", "quickstart.main[--looped]",
+     "convert.engine_inputs"],
 )
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     _no_card()
