@@ -53,7 +53,19 @@
    eta and k and require no new capture; print the fig2 grid's ms an
    iteration both ways, its launches, idle share, top operations and the
    peak memory of its program.
-9. Print one `kernels` JSON line, the card again, and, as the last line,
+9. Run the async modes (no kernel of the port on their path either):
+   fig_async's grid at its published size (a two-speed fleet of n = 20:
+   14 exp(1) and 6 exp(0.25) workers, m = 400, d = 20, R = 32, five arms
+   over sync, K-async and K-batch-async, 160 lanes) as one program, 200
+   iterations graph-replayed; hold it against eager on the card (bitwise,
+   10 iterations), each arm looped on the card, and the grid on the CPU
+   (100 iterations); repopulate it and require no new capture; print its
+   ms an iteration, capture seconds, memory, launches, idle share and top
+   operations, and a looped cell's ms and launches for each mode.  Then a K = 1 K-async cell on a Deterministic
+   fleet (every clock tied), graph-replayed against eager and against the
+   port's event-driven host loop, and the K = 1 engine's rate of updates
+   beside the host loop's.
+10. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -757,7 +769,7 @@ ABLATION_ITERS = 500
 PROFILE_ITERS = 100
 
 
-def grid_run(setup: str, grid, device: str, iters: int, capture: bool, looped: bool = False):
+def grid_run(setup: str, grid, device: str, iters: int, capture: bool, looped: bool = False, threads: int = 2):
     """The cells ``grid`` of ``setup`` through the port in a worker process,
     as one grid (`run_sweep`) or (``looped``) a `run_monte_carlo` call each:
     {label: (time, loss, k) numpy}, and the wall seconds of the run."""
@@ -765,7 +777,7 @@ def grid_run(setup: str, grid, device: str, iters: int, capture: bool, looped: b
     import torch
     from repro_torch.launch import quickstart
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(threads)
     torch.backends.cuda.matmul.allow_tf32 = False
     data, keys = quickstart.inputs(setup, device=device)
     t0 = time.perf_counter()
@@ -921,6 +933,242 @@ def engine_sweep(p7: dict) -> dict:
         print(f"  {name} grid at its last eval point: {finals}")
     print(f"  phase 8 took {time.perf_counter() - phase_t0:.1f} s")
     return {"graph_ms": graph_ms, "eager_ms": eager_ms, "launches": launches, "peak_mb": peak_mb}
+
+
+# The async phase: fig_async's grid at its published size
+# (benchmarks/fig_async.py:54-62,74-96), 160 lanes, cut to 200 of its 6000
+# iterations graph-replayed, 10 eager (an eager iteration of a grid holding
+# a kbatch cell launches ~1.7 x 10^4 kernels) and 100 on the CPU.  Against eager,
+# bitwise; against the looped arms on the card, time and k bitwise and the
+# loss within ENGINE_LOSS_RTOL (the sync arm's loss differs by 2.2e-6 at 300
+# iterations: the card's products and reductions round differently for 160
+# lanes than for 32); against the CPU, the engine's tolerances, with forks
+# allowed in the Pflug arms only.
+ASYNC_ITERS, ASYNC_EAGER_ITERS, ASYNC_CPU_ITERS = 200, 10, 100
+# The K = 1 cell: fig_async's data, a Deterministic(1) fleet, eta 0.05/L
+# (fully async K = 1 diverges at 0.5/L), 200 updates; the rate twin of
+# benchmarks/sweep_bench.py:120 (async_engine_vs_host): K = 1 on exp(1),
+# R = 32, 500 updates each (the bench's 2000 cut: the host loop takes ~7 ms
+# an update), against the host loop over the same horizon.
+ASYNC_DET_ITERS, ASYNC_RATE_ITERS = 200, 500
+
+
+def host_loop(data, eta: float, straggler, key, total_time: float, eval_every: int):
+    """The port's event-driven async SGD (`async_sim`) on fig_async's data,
+    each worker's gradient the mean loss over its shard; on the card."""
+    import torch
+    from repro_torch.core.async_sim import simulate_async_sgd
+    from repro_torch.launch import quickstart
+
+    n = quickstart.SETUPS["async"]["n"]
+    X, y = data.X, data.y
+    s = X.shape[0] // n
+
+    def grad_fn(w, i):
+        return torch.func.grad(lambda p: quickstart.squared_error(p, X[i * s:(i + 1) * s], y[i * s:(i + 1) * s])
+                               .mean())(w)
+
+    return simulate_async_sgd(grad_fn, lambda w: quickstart.squared_error(w, X, y).mean(),
+                              torch.zeros(X.shape[1], device=X.device), n_workers=n, eta=eta, straggler=straggler,
+                              total_time=total_time, key=key, eval_every=eval_every, device=X.device)
+
+
+def engine_async() -> dict:
+    """Phase 9: fig_async's mixed-mode grid at its published size as one
+    program on the card, against eager, the looped arms and the CPU; a
+    repopulated grid captures nothing new; its time, capture and memory, and
+    each mode's looped time and launches; then the K = 1 Deterministic cell
+    against eager and the host loop, and the K = 1 engine's update rate
+    beside the host loop's."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+    from repro_torch.core import controller
+    from repro_torch.core.montecarlo import run_monte_carlo
+    from repro_torch.core.straggler import Deterministic, Exponential
+    from repro_torch.core.sweep import sweep_cache_stats
+    from repro_torch.launch import quickstart
+
+    phase_t0 = time.perf_counter()
+    cfg = quickstart.SETUPS["async"]
+    data, keys = quickstart.inputs("async", device="cuda")
+    eta = quickstart.step_size(data.X)
+    arms = quickstart.cases("async", data, eta)
+    lanes = len(arms) * cfg["replicas"]
+    adaptive = {c.label for c in arms if isinstance(c.controller, controller.PflugController)}
+    print(f"[9] async modes: fig_async's grid ({len(arms)} arms x R={cfg['replicas']} = {lanes} lanes: "
+          + ", ".join(f"{c.label} ({c.mode})" for c in arms)
+          + f"), n={cfg['n']} ({cfg['n_fast']} exp(1), {cfg['n_slow']} exp({1 / cfg['slow_factor']})), m={cfg['m']}, "
+          f"d={cfg['d']}, eta {eta!r}; {ASYNC_ITERS} of its {cfg['iters']} iterations graph-replayed, "
+          f"{ASYNC_EAGER_ITERS} eager, {ASYNC_CPU_ITERS} on the CPU")
+
+    def grid(iters, capture=True, cases=arms):
+        return quickstart.run_grid("async", cases, data, keys, iters, capture)
+
+    steps, step_t0 = {}, [time.perf_counter()]
+
+    def took(name):  # the seconds of each step, printed at the end
+        now = time.perf_counter()
+        steps[name], step_t0[0] = now - step_t0[0], now
+
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        cpu_f = pool.submit(grid_run, "async", arms, "cpu", ASYNC_CPU_ITERS, True, False, 4)
+
+        # the grid, graph-replayed: its first run captures
+        torch.cuda.synchronize()
+        base_alloc, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        before = sweep_cache_stats()["traces"]
+        t0 = time.perf_counter()
+        graph = cells_of(grid(ASYNC_ITERS))
+        first_s = time.perf_counter() - t0
+        peak_mb = (torch.cuda.max_memory_allocated() - base_alloc) / 1e6
+        pool_mb = (torch.cuda.memory_reserved() - base_reserved) / 1e6
+        captures = sweep_cache_stats()["traces"] - before
+
+        # repopulated: other eta, k and k0, the same signature and shapes; this
+        # replay of the captured graphs is the grid's timed run
+        other = [dataclasses.replace(c, eta=eta * 0.8, controller=dataclasses.replace(
+            c.controller, **({"k": c.controller.k - 1} if hasattr(c.controller, "k") else {"k0": 2})))
+            for c in arms]
+        before = sweep_cache_stats()["traces"]
+        repop = {}
+        t0 = time.perf_counter()
+        graph_ms = cuda_ms(lambda: repop.update(cells_of(grid(ASYNC_ITERS, cases=other))), iters=1,
+                           warmup=0) / ASYNC_ITERS
+        replay_s = time.perf_counter() - t0
+        new_captures = sweep_cache_stats()["traces"] - before
+        print(f"  grid, graph-replayed: {graph_ms:.4f} ms an iteration ({lanes} lanes); first run {first_s:.2f} s, a "
+              f"replayed run (repopulated with other eta and k) {replay_s:.2f} s: {first_s - replay_s:.2f} s to build "
+              f"and capture ({captures} capture, {new_captures} on repopulation); peak memory {peak_mb:.2f} MB above "
+              f"the {base_alloc / 1e6:.2f} MB held before it, reserved memory (the graph pool) grew {pool_mb:.2f} MB")
+        if captures != 1:
+            raise AssertionError(f"expected one capture for the grid, got {captures}")
+        if new_captures != 0:
+            raise AssertionError(f"the repopulated grid captured {new_captures} times")
+        if all(np.array_equal(repop[c.label][1], graph[c.label][1]) for c in arms):
+            raise AssertionError("the repopulated grid returned the first grid's losses")
+        took("grid")
+
+        # each arm looped on the card; a looped cell of each mode timed
+        looped, looped_ms = {}, {}
+        for arm in arms:
+            res = quickstart.run_case("async", arm, data, keys, ASYNC_ITERS)
+            looped[arm.label] = tuple(getattr(res, f).cpu().numpy() for f in ("time", "loss", "k"))
+        for label in ("sync_k16", "kasync_k4", "kbatch_k4"):
+            arm = next(c for c in arms if c.label == label)
+            looped_ms[arm.mode] = cuda_ms(lambda: quickstart.run_case("async", arm, data, keys, ASYNC_ITERS),
+                                          iters=1, warmup=0) / ASYNC_ITERS
+        rows = []
+        for label, (gt, gl, gk) in graph.items():
+            lt, ll, lk = looped[label]
+            l_gap = float(np.max(np.abs(gl - ll) / np.abs(ll)))
+            rows.append(f"{label} time {np.array_equal(gt, lt)}, k {np.array_equal(gk, lk)}, loss {l_gap:.3e}")
+            if not (np.array_equal(gt, lt) and np.array_equal(gk, lk) and l_gap <= ENGINE_LOSS_RTOL):
+                raise AssertionError(f"{label}: the grid and the looped arm differ beyond time and k bitwise, loss "
+                                     f"{ENGINE_LOSS_RTOL}: {rows[-1]}")
+            if not (np.isfinite(gt).all() and np.isfinite(gl).all()):
+                raise AssertionError(f"{label}: time or loss not finite")
+        print("  grid vs each arm looped on the card, equal: " + "; ".join(rows) + f" (loss rtol {ENGINE_LOSS_RTOL})")
+        print(f"  a looped arm (R={cfg['replicas']}), graph-replayed: " + ", ".join(
+            f"{mode} {ms:.4f} ms an iteration" for mode, ms in looped_ms.items()))
+        took("looped")
+
+        # kernels an iteration for the grid and a looped cell of each mode, counted by torch.profiler
+        # in graph-replayed runs of 2 and 1 iterations (an eager run's host-side events cost the
+        # profiler several times more); each graph also copies the carry back into its buffers
+        def graph_launches(run):
+            run(1), run(2)  # capture both programs before they are counted
+            return count_kernels(lambda: run(2)) - count_kernels(lambda: run(1))
+
+        launches = {"grid": graph_launches(grid)}
+        for label in ("sync_k16", "kasync_k4", "kbatch_k4"):
+            arm = next(c for c in arms if c.label == label)
+            launches[arm.mode] = graph_launches(
+                lambda iters, arm=arm: quickstart.run_case("async", arm, data, keys, iters))
+        print("  kernels an iteration (graph-replayed, torch.profiler): " + ", ".join(
+            f"{k} {v}" for k, v in launches.items()))
+        prof_ms = cuda_ms(lambda: grid(1), iters=2, warmup=0)
+        device_breakdown(lambda: grid(1), "grid, 1 iteration and the eval graph-replayed", prof_ms, top=8)
+        took("launches and profile")
+
+        # graph-replayed against eager, bitwise
+        t0 = time.perf_counter()
+        eager = cells_of(grid(ASYNC_EAGER_ITERS, capture=False))
+        eager_s = time.perf_counter() - t0
+        short = cells_of(grid(ASYNC_EAGER_ITERS))
+        diff = [lb for lb in short if not all(np.array_equal(a, b) for a, b in zip(short[lb], eager[lb]))]
+        print(f"  grid, eager: {eager_s / ASYNC_EAGER_ITERS * 1e3:.1f} ms an iteration (host clock); graph-replayed "
+              f"vs eager at iteration {ASYNC_EAGER_ITERS} bitwise equal in {len(short) - len(diff)}/{len(short)} arms")
+        if diff:
+            raise AssertionError(f"async grid: graph-replayed and eager runs differ in {diff}")
+        took("eager")
+
+        # the K = 1 cell on a Deterministic fleet: every clock tied
+        eta_det = eta / 10  # 0.05 / L
+        det = dict(n_workers=cfg["n"], controller=controller.FixedKController(n_workers=cfg["n"], k=1),
+                   straggler=Deterministic(1.0), eta=eta_det, num_iters=ASYNC_DET_ITERS, keys=keys[:1],
+                   eval_every=10, mode="kasync", device="cuda")
+        w0 = torch.zeros(cfg["d"], device="cuda")
+        det_g = run_monte_carlo(quickstart.squared_error, w0, data.X, data.y, **det)
+        det_e = run_monte_carlo(quickstart.squared_error, w0, data.X, data.y, capture=False, **det)
+        same = all(torch.equal(getattr(det_g, f), getattr(det_e, f)) for f in ("time", "loss", "k"))
+        h = host_loop(data, eta_det, Deterministic(1.0), keys[0], float(det_g.time[0, -1]), 10)
+        ne = min(len(h["time"]), det_g.time.shape[1])
+        t_same = np.array_equal(det_g.time[0, :ne].cpu().numpy(), np.asarray(h["time"][:ne], np.float32))
+        u_same = list(det_g.iteration[:ne]) == list(h["updates"][:ne]) and bool((det_g.k == 1).all())
+        l_gap = float(np.max(np.abs(det_g.loss[0, :ne].cpu().numpy() - np.asarray(h["loss"][:ne]))
+                             / np.abs(np.asarray(h["loss"][:ne]))))
+        print(f"  K = 1, Deterministic fleet, {ASYNC_DET_ITERS} updates: graph vs eager bitwise {same}; vs the host "
+              f"loop over {ne} eval points: update times equal {t_same}, update counts and k equal {u_same}, loss max "
+              f"rel gap {l_gap:.3e}")
+        if not (same and t_same and u_same and ne >= ASYNC_DET_ITERS // 10 - 1 and l_gap <= ENGINE_LOSS_RTOL):
+            raise AssertionError("the K = 1 Deterministic cell disagrees with eager or the host loop")
+        took("K = 1 ties")
+
+        # the K = 1 engine's update rate beside the host loop's (sweep_bench.async_engine_vs_host)
+        rate = dict(n_workers=cfg["n"], controller=controller.FixedKController(n_workers=cfg["n"], k=1),
+                    straggler=Exponential(1.0), eta=eta_det, num_iters=ASYNC_RATE_ITERS, keys=keys,
+                    eval_every=ASYNC_RATE_ITERS // 8, mode="kasync", device="cuda")
+        res = run_monte_carlo(quickstart.squared_error, w0, data.X, data.y, **rate)  # captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_monte_carlo(quickstart.squared_error, w0, data.X, data.y, **rate)
+        float(res.loss[0, -1])
+        engine_s = time.perf_counter() - t0
+        horizon = float(res.time[:, -1].mean())
+        host_loop(data, eta_det, Exponential(1.0), prng_key(3), horizon / 10, ASYNC_RATE_ITERS // 8)  # warm-up
+        t0 = time.perf_counter()
+        h = host_loop(data, eta_det, Exponential(1.0), prng_key(2), horizon, ASYNC_RATE_ITERS // 8)
+        host_s = time.perf_counter() - t0
+        host_updates = int(h["updates"][-1])
+        engine_rate = ASYNC_RATE_ITERS * cfg["replicas"] / engine_s
+        host_rate = host_updates / host_s
+        print(f"  K = 1 on exp(1): the engine {ASYNC_RATE_ITERS} updates x R={cfg['replicas']} in {engine_s:.3f} s "
+              f"({engine_rate:.0f} updates/s), the host loop {host_updates} updates in {host_s:.3f} s "
+              f"({host_rate:.1f} updates/s): {engine_rate / host_rate:.0f}x per update")
+        took("K = 1 rate")
+        cpu, cpu_s = cpu_f.result()
+        took("waiting for the CPU")
+
+    print(f"  the grid on the CPU, {ASYNC_CPU_ITERS} iterations in a worker process: {cpu_s:.1f} s")
+    hold(f"async grid vs the CPU at iteration {ASYNC_CPU_ITERS}", graph, cpu, adaptive,
+         cols=ASYNC_CPU_ITERS // cfg["eval_every"])
+    finals = ", ".join(f"{lb} sim_time {g[0][:, -1].mean():.1f}, k {g[2][:, -1].mean():.1f}" for lb, g in graph.items())
+    print(f"  the grid at iteration {ASYNC_ITERS}: {finals}")
+    print(f"  phase 9 took {time.perf_counter() - phase_t0:.1f} s: " + ", ".join(
+        f"{name} {sec:.1f} s" for name, sec in steps.items()))
+    return {"graph_ms": graph_ms, "looped_ms": looped_ms, "launches": launches, "peak_mb": peak_mb,
+            "capture_s": first_s - replay_s, "engine_rate": engine_rate, "host_rate": host_rate}
+
+
+def prng_key(seed: int):
+    from repro_torch.core import prng
+
+    return prng.PRNGKey(seed, device="cuda")
 
 
 def count_kernels(fn) -> int:
@@ -1098,7 +1346,10 @@ def main() -> int:
     # 8. the sweep engine: two grids, each one program (no kernel of the port on its path)
     engine_sweep(p7)
 
-    # 9. summary
+    # 9. the async modes: fig_async's mixed-mode grid as one program (no kernel of the port on its path)
+    engine_async()
+
+    # 10. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",

@@ -5,23 +5,25 @@ Modules (each the torch port of the JAX package's module of that name):
   straggler    — response-time models, fleets, rate schedules, analytics
   aggregation  — fastest-k ranks, masks, order statistics, weighted loss
   gradsource   — the GradSource protocol and PerExampleSource
+  execmode     — the sync, K-async and K-batch-async modes as one carry
   controller   — Pflug (Algorithm 1), sketched Pflug, fixed k, the
                  Theorem-1 schedule, variance ratio
   theory       — Lemma-1 bound, Theorem-1 switching times (numpy)
-  montecarlo   — R replicas of synchronous fastest-k SGD (vmap over
+  montecarlo   — R replicas of fastest-k SGD in any mode (vmap over
                  replicas; CUDA graphs of `unroll` iterations on the card)
-  sweep        — a G-cell x R-replica grid of synchronous cells as one
-                 program (vmap over G·R lanes, through montecarlo's program)
+  sweep        — a G-cell x R-replica grid as one program (vmap over G·R
+                 lanes, through montecarlo's program), modes mixed
   simulate     — the R = 1 wrapper
   async_sim    — event-driven asynchronous SGD (fig3's baseline)
 
-The async execution modes, faults, robust aggregation, the sweep's mesh and
-the persistent cache are not ported yet (ROADMAP Queue 1).
+Faults, robust aggregation, the sweep's mesh and the persistent cache are
+not ported yet (ROADMAP Queue 1).
 """
 
 from repro_torch.core import (  # noqa: F401
     aggregation,
     controller,
+    execmode,
     gradsource,
     montecarlo,
     prng,

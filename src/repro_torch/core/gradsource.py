@@ -1,18 +1,18 @@
 """Pluggable gradient sources: the engine's loss abstraction, in torch.
 
-The port of `repro.core.gradsource` for the synchronous engine.  A source
-hands the engine the closures it consumes:
+The port of `repro.core.gradsource`.  A source hands the engines the
+closures they consume:
 
     source.check(data, n_workers)        # host-side validation
     fns = source.build(data, n_workers)  # -> SourceFns
     fns.grad(params, mask, k)            # eq.-(2) masked aggregate gradient
     fns.eval_loss(params)                # mean loss over all shards
     fns.eval_loss_active(params, n_active)   # inactive shards held out
+    stale_grad, shard_grad_at = source.build_stale(data, n_workers)  # async modes
     source.cache_token()                 # hashable program-cache key part
 
-`build` closes over `data` and launches nothing itself; the closures are
-written for one replica and mapped over R by the engine.  The async modes'
-`build_stale` waits for the port of `execmode` (ROADMAP Queue 1 item 9).
+`build` and `build_stale` close over `data`; the closures are written for
+one replica and mapped over R by the engine.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Any, Callable, Hashable, NamedTuple, Protocol, Tuple, runtime
 
 import torch
 
-from repro_torch.core import aggregation
+from repro_torch.core import aggregation, execmode
 
 __all__ = ["SourceFns", "GradSource", "PerExampleSource"]
 
@@ -49,7 +49,8 @@ class GradSource(Protocol):
         """Closures over ``data``.  Launches nothing."""
 
     def build_stale(self, data: Any, n_workers: int) -> Tuple[Callable, Callable]:
-        """Closures of the async modes."""
+        """``(stale_grad, shard_grad_at)`` of the async modes
+        (`execmode.make_stale_grad_fns`)."""
 
     def cache_token(self) -> Hashable:
         """Equal tokens must build identical programs."""
@@ -92,10 +93,12 @@ class PerExampleSource:
                          eval_loss_active=eval_loss_active)
 
     def build_stale(self, data, n_workers: int):
-        raise NotImplementedError(
-            "stale per-worker gradients serve the async modes, which wait for the port of "
-            "core/execmode.py (ROADMAP Queue 1 item 9)"
-        )
+        X, y = data
+        s = X.shape[0] // n_workers
+        Xw = X.reshape((n_workers, s) + tuple(X.shape[1:]))
+        yw = y.reshape((n_workers, s) + tuple(y.shape[1:]))
+        return execmode.make_stale_grad_fns(self.per_example_loss_fn, Xw, yw, n_workers,
+                                            stale_weighted_loss=self.stale_weighted_loss)
 
     def cache_token(self) -> Hashable:
         return ("per_example", self.per_example_loss_fn)

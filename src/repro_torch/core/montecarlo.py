@@ -1,12 +1,19 @@
 """Monte-Carlo engine for (adaptive) fastest-k SGD over R replicas, in torch.
 
-The port of `repro.core.montecarlo`'s synchronous engine.  One iteration is
-written for one replica exactly as the reference's `one_step`: split the
-carried key, draw the workers' response times, take the eq.-(2) gradient of
-the fastest k, step the parameters, advance the simulated clock, and update
-the controller, with k decided before the step.  `torch.func.vmap` maps it
+The port of `repro.core.montecarlo`.  One iteration is written for one
+replica exactly as the reference's `one_step`: split the carried key, draw
+the workers' response times, take the eq.-(2) gradient of the fastest k,
+step the parameters, advance the simulated clock, and update the
+controller, with k decided before the step.  `torch.func.vmap` maps it
 over the R replica keys, as `jax.vmap(run_one)` does.  Every `eval_every`
 iterations the mean loss is evaluated and (time, loss, k) recorded.
+
+``mode`` selects the execution mode (`execmode`): ``"sync"`` runs the lean
+step above; ``"kasync"`` and ``"kbatch"`` run `execmode.make_mode_steps`
+over the renewal carry (`execmode.ExecCarry`), where the controller's k is
+K (arrivals an update), its update gets the arrivals' staleness
+(`execmode.ExecStats`), and an iteration is one master update.  The sweep
+builds its lanes from the same tails, so its cells are this engine's runs.
 
 On a CUDA device (the default) `unroll` consecutive iterations are
 captured once as a CUDA graph over static buffers (the carry, and a copy of
@@ -26,9 +33,7 @@ threefry mode.  `program_cache_stats()["traces"]` counts builds: one for
 each program and each new signature of its inputs (the graphs of that
 signature captured once), as `jit` retraces on new shapes.
 
-Only `mode="sync"` with no fault and the mean aggregator is ported; the
-async modes wait for `execmode` (ROADMAP Queue 1 item 9), faults and
-robust aggregation for item 10.
+Faults and robust aggregation wait for ROADMAP Queue 1 item 10.
 
     keys = prng.split(prng.PRNGKey(0), 32)
     result = run_monte_carlo(loss_fn, w0, X, y, n_workers=50,
@@ -42,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import inspect
 import math
 import os
 from typing import Callable, NamedTuple, Optional
@@ -52,7 +58,8 @@ from torch.utils import _pytree
 from torch.utils._pytree import tree_map
 
 from repro_torch import resolve_device
-from repro_torch.core import aggregation, prng
+from repro_torch.core import aggregation, execmode, prng
+from repro_torch.core.execmode import MODES
 from repro_torch.core.gradsource import GradSource, PerExampleSource
 from repro_torch.core.straggler import (
     WorkerFleet,
@@ -70,6 +77,7 @@ __all__ = [
     "initial_carry",
     "run_monte_carlo",
     "run_monte_carlo_source",
+    "default_unroll",
     "summarize",
     "program_cache_stats",
     "clear_program_cache",
@@ -78,9 +86,6 @@ __all__ = [
 ]
 
 _Z95 = 1.959963984540054  # two-sided 95% normal quantile
-
-# The reference's execution modes; only "sync" is ported.
-MODES = ("sync", "kasync", "kbatch")
 
 
 class _Carry(NamedTuple):
@@ -194,80 +199,142 @@ def clear_program_cache() -> None:
     _N_TRACES = 0
 
 
+def default_unroll(mode: str) -> int:
+    """Iterations one CUDA graph holds when the caller gives none: the
+    reference's scan unroll of 8, but 1 for kbatch, whose iteration alone
+    launches ~10^4 kernels (n_slots draws and shard gradients): a graph of
+    one iteration captures in a tenth of the time and replays as fast
+    (PERF.md §6).  It never changes the arithmetic."""
+    return 1 if mode == "kbatch" else 8
+
+
 def _ctrl_k(state) -> torch.Tensor:
     return state.k if hasattr(state, "k") else state[0]
 
 
+def _sampler(straggler, n_workers: int, dev: torch.device) -> Callable:
+    """``sample(sub, sim_time) -> (n_workers,)`` response times: a fleet's
+    packed rows through its rate schedule and the full family sampler (as
+    the reference's fleet path), or the model's own sampler.  A fleet's
+    tensors are made here, on ``dev``, so the step builds nothing from host
+    data and can be captured."""
+    if not isinstance(straggler, WorkerFleet):
+
+        def sample(sub, sim_time):
+            del sim_time
+            return straggler.sample(sub, n_workers)
+
+        return sample
+    pmat_np, kinds_np, _ = pack_params_per_worker(straggler, n_workers)
+    n_knots = len(straggler.schedule.times) if straggler.schedule else 0
+    pmat = torch.from_numpy(pmat_np).to(dev)
+    masks = family_select_masks(torch.from_numpy(kinds_np).to(dev))
+    if not n_knots:
+        # no schedule: its multiplier is exactly 1.0, so the rows are as packed
+        return lambda sub, sim_time: sample_times_selected(masks, pmat, sub)
+    sched = tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in pack_schedule(straggler.schedule, n_knots))
+
+    def sample(sub, sim_time):
+        return sample_times_selected(masks, apply_rate_schedule(pmat, *sched, sim_time), sub)
+
+    return sample
+
+
+def _mean_loss(fns, straggler, n_active) -> Callable:
+    """The eval loss: a fleet's active shards only (``n_active`` a device
+    int32 scalar), else every shard."""
+    if isinstance(straggler, WorkerFleet):
+        return lambda params: fns.eval_loss_active(params, n_active)
+    return fns.eval_loss
+
+
 def make_step(source: GradSource, data, n_workers: int, controller, straggler, comm, eta: float,
               n_active: Optional[torch.Tensor] = None):
-    """The engine's ``(step, evaluate)`` over R replicas.
+    """The sync engine's ``(step, evaluate)`` over R replicas.
 
     ``step(carry) -> (carry, k)`` advances every replica one iteration and
     returns the k each used; ``evaluate(params) -> (R,)`` is the eval loss
     (active shards only for a fleet, ``n_active`` a device int32 scalar).
-    Tensors the step needs beyond the carry (a fleet's packed rows and
-    schedule) are made here, on ``data``'s device, so the step itself
-    builds nothing from host data and can be captured.
     """
     fns = source.build(data, n_workers)
-    if isinstance(straggler, WorkerFleet):
-        dev = _pytree.tree_leaves(data)[0].device
-        pmat_np, kinds_np, _ = pack_params_per_worker(straggler, n_workers)
-        n_knots = len(straggler.schedule.times) if straggler.schedule else 0
-        pmat = torch.from_numpy(pmat_np).to(dev)
-        masks = family_select_masks(torch.from_numpy(kinds_np).to(dev))
-        sched = tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in pack_schedule(straggler.schedule,
-                                                                                       max(1, n_knots)))
-
-        def draw(sub, sim_time, k):
-            # the full family sampler, as the reference's fleet path
-            times = sample_times_selected(masks, apply_rate_schedule(pmat, *sched, sim_time), sub)
-            mask, t = aggregation.fastest_k_mask_time(times, k)
-            if comm is not None:
-                t = t + comm.time(k)
-            return mask, t
-
-        def mean_loss(params):
-            return fns.eval_loss_active(params, n_active)
-    else:
-
-        def draw(sub, sim_time, k):
-            del sim_time
-            return aggregation.fastest_k_draw(straggler, sub, n_workers, k, comm)
-
-        mean_loss = fns.eval_loss
+    sample = _sampler(straggler, n_workers, _pytree.tree_leaves(data)[0].device)
 
     def one_step(carry: _Carry):
         keys = prng.split(carry.key)
         k = _ctrl_k(carry.ctrl_state)  # decided before the step
-        mask, t_iter = draw(keys[1], carry.sim_time, k)
+        mask, t_iter = aggregation.fastest_k_mask_time(sample(keys[1], carry.sim_time), k)
+        if comm is not None:
+            t_iter = t_iter + comm.time(k)
         g = fns.grad(carry.params, mask, k)
         params = tree_map(lambda p, gi: p - eta * gi, carry.params, g)
         sim_time = carry.sim_time + t_iter
         ctrl_state, _ = controller.update(carry.ctrl_state, g, sim_time)
         return _Carry(params, ctrl_state, sim_time, keys[0]), k
 
-    return torch.func.vmap(one_step), torch.func.vmap(mean_loss)
+    return torch.func.vmap(one_step), torch.func.vmap(_mean_loss(fns, straggler, n_active))
+
+
+def make_mode_step(source: GradSource, data, n_workers: int, controller, straggler, comm, eta: float, mode: str,
+                   n_active: Optional[torch.Tensor] = None):
+    """`make_step` for any mode: ``mode``'s step from `execmode.make_mode_steps`
+    over the `execmode.ExecCarry` of R replicas.  The controller's update
+    gets the `execmode.ExecStats` of each update; a user controller whose
+    ``update`` takes three arguments is called without them, as the
+    reference tolerates."""
+    stale_grad, shard_grad_at = source.build_stale(data, n_workers)
+    fns = source.build(data, n_workers)
+    try:
+        accepts_stats = len(inspect.signature(controller.update).parameters) >= 4
+    except (TypeError, ValueError):  # builtins and other callables without a signature
+        accepts_stats = True
+
+    def ctrl_update(state, g, sim_time, stats):
+        if accepts_stats:
+            return controller.update(state, g, sim_time, stats)
+        return controller.update(state, g, sim_time)
+
+    steps = execmode.make_mode_steps(
+        n_slots=n_workers, draw=_sampler(straggler, n_workers, _pytree.tree_leaves(data)[0].device),
+        sync_grad=fns.grad, stale_grad=stale_grad, shard_grad_at=shard_grad_at,
+        comm_time=comm.time if comm is not None else None, eta=eta, ctrl_update=ctrl_update, ctrl_k=_ctrl_k,
+    )
+    dims = execmode.CARRY_DIMS
+    step = torch.func.vmap(steps[MODES[mode]], in_dims=(dims,), out_dims=(dims, 0))
+    return step, torch.func.vmap(_mean_loss(fns, straggler, n_active))
+
+
+def _replicate(carry, keys: torch.Tensor):
+    """``carry`` of one replica as R = len(keys) replicas: every field but
+    the key repeated (a copy each), the key replaced by ``keys``."""
+    r = keys.shape[0]
+
+    def rep(x):
+        return x if x is None else x.unsqueeze(0).expand((r,) + tuple(x.shape)).clone()
+
+    fields = {f: tree_map(rep, getattr(carry, f)) for f in carry._fields if f != "key"}
+    return carry._replace(key=keys.clone(), **fields)
 
 
 def initial_carry(controller, params0, keys: torch.Tensor) -> _Carry:
     """The carry of R = len(keys) replicas before their first iteration:
     params0 and the controller's initial state repeated R times, clock 0."""
-    r = keys.shape[0]
+    sim_time = torch.zeros((), dtype=torch.float32, device=keys.device)
+    return _replicate(_Carry(params0, controller.init(params0), sim_time, keys[0]), keys)
 
-    def rep(x):
-        return x.unsqueeze(0).expand((r,) + tuple(x.shape)).clone()
 
-    return _Carry(
-        params=tree_map(rep, params0),
-        ctrl_state=tree_map(rep, controller.init(params0)),
-        sim_time=torch.zeros((r,), dtype=torch.float32, device=keys.device),
-        key=keys.clone(),
-    )
+def initial_exec_carry(controller, params0, n_slots: int, keys: torch.Tensor) -> execmode.ExecCarry:
+    """The async modes' `initial_carry`: `execmode.init_exec_carry` repeated
+    over R = len(keys) replicas."""
+    return _replicate(execmode.init_exec_carry(params0, n_slots, controller.init(params0), keys[0]), keys)
+
+
+def _tensors(tree) -> list:
+    """The tensor leaves of ``tree`` (an ExecCarry's opt_state is None)."""
+    return [x for x in _pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
 
 
 def _signature(tree) -> tuple:
-    return tuple((tuple(x.shape), x.dtype) for x in _pytree.tree_leaves(tree) if isinstance(x, torch.Tensor))
+    return tuple((tuple(x.shape), x.dtype) for x in _tensors(tree))
 
 
 def _clone(tree):
@@ -275,9 +342,8 @@ def _clone(tree):
 
 
 def _copy_into(dst_tree, src_tree) -> None:
-    for dst, src in zip(_pytree.tree_leaves(dst_tree), _pytree.tree_leaves(src_tree)):
-        if isinstance(dst, torch.Tensor):
-            dst.copy_(src)
+    for dst, src in zip(_tensors(dst_tree), _tensors(src_tree)):
+        dst.copy_(src)
 
 
 class _Inputs(NamedTuple):
@@ -300,13 +366,18 @@ class _Engine:
     straggler: object
     comm: Optional[aggregation.CommModel]
     eta: float
+    mode: str = "sync"
 
     def build(self, inputs: _Inputs):
-        return make_step(self.source, inputs.data, self.n_workers, self.controller, self.straggler, self.comm,
-                         self.eta, inputs.n_active)
+        args = (self.source, inputs.data, self.n_workers, self.controller, self.straggler, self.comm, self.eta)
+        if self.mode == "sync":
+            return make_step(*args, n_active=inputs.n_active)
+        return make_mode_step(*args, self.mode, n_active=inputs.n_active)
 
-    def initial(self, inputs: _Inputs) -> _Carry:
-        return initial_carry(self.controller, inputs.params0, inputs.keys)
+    def initial(self, inputs: _Inputs):
+        if self.mode == "sync":
+            return initial_carry(self.controller, inputs.params0, inputs.keys)
+        return initial_exec_carry(self.controller, inputs.params0, self.n_workers, inputs.keys)
 
 
 class _Captured:
@@ -319,7 +390,7 @@ class _Captured:
     def __init__(self, engine, inputs, lengths):
         self.inputs = _clone(inputs)
         self.carry = engine.initial(self.inputs)
-        self.flat = _pytree.tree_leaves(self.carry)
+        self.flat = _tensors(self.carry)
         lanes, dev = self.carry.sim_time.shape[0], self.carry.sim_time.device
         self.k = torch.zeros((lanes,), dtype=torch.int32, device=dev)
         self.loss = torch.zeros((lanes,), dtype=torch.float32, device=dev)
@@ -336,7 +407,7 @@ class _Captured:
             # k first: after one step it is the static controller state's k
             # itself, which the carry's copy below overwrites
             self.k.copy_(k)
-            for dst, src in zip(self.flat, _pytree.tree_leaves(c)):
+            for dst, src in zip(self.flat, _tensors(c)):
                 dst.copy_(src)
 
         def run_eval():
@@ -465,7 +536,7 @@ def run_monte_carlo_source(
     n_replicas: Optional[int] = None,
     comm: Optional[aggregation.CommModel] = None,
     eval_every: int = 10,
-    unroll: int = 8,
+    unroll: Optional[int] = None,
     mode: str = "sync",
     fault=None,
     agg: str = "mean",
@@ -478,8 +549,8 @@ def run_monte_carlo_source(
     ``params0`` and ``data`` are pytrees of tensors or numpy arrays, moved
     to ``device``; ``keys`` are R keys ((R, 2), numpy uint32 from JAX or
     `prng` keys), or pass ``key`` and ``n_replicas`` to split one.
-    ``capture`` (CUDA only) replays CUDA graphs of ``unroll`` iterations;
-    False runs the same step eagerly.  The threefry mode in force
+    ``capture`` (CUDA only) replays CUDA graphs of ``unroll`` iterations
+    (None: `default_unroll` of the mode); False runs the same step eagerly.  The threefry mode in force
     (`prng.set_partitionable`) applies to the whole run.
     """
     dev = resolve_device(device)
@@ -507,14 +578,13 @@ def run_monte_carlo_source(
         cn = getattr(controller, "n_workers", None)
         if cn is not None and cn != straggler.n_active:
             raise ValueError(f"fleet has {straggler.n_active} models but controller.n_workers={cn}")
-    if mode != "sync":
-        raise NotImplementedError(
-            f"mode={mode!r}: the async modes wait for the port of core/execmode.py (ROADMAP Queue 1 item 9)")
     if fault is not None or agg != "mean":
         raise NotImplementedError(
             "faults and robust aggregation wait for the port of core/faults.py and the robust half of "
             "core/aggregation.py (ROADMAP Queue 1 item 10)")
 
+    if unroll is None:
+        unroll = default_unroll(mode)
     capture = bool(capture) and dev.type == "cuda"
     partitionable = prng.is_partitionable()
     cache_key = (
@@ -524,7 +594,7 @@ def run_monte_carlo_source(
     )
     program = _PROGRAM_CACHE.get(cache_key)
     if program is None:
-        engine = _Engine(source, n_workers, controller, straggler, comm, float(eta))
+        engine = _Engine(source, n_workers, controller, straggler, comm, float(eta), str(mode))
         program = _Program(engine, int(num_iters), int(eval_every), unroll, capture, partitionable, _count_build)
         _PROGRAM_CACHE[cache_key] = program
     n_active = None
@@ -550,7 +620,7 @@ def run_monte_carlo(
     n_replicas: Optional[int] = None,
     comm: Optional[aggregation.CommModel] = None,
     eval_every: int = 10,
-    unroll: int = 8,
+    unroll: Optional[int] = None,
     mode: str = "sync",
     fault=None,
     agg: str = "mean",

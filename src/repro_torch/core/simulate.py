@@ -32,7 +32,8 @@ def simulate_fastest_k(
     device="cuda",
 ) -> Dict[str, List[float]]:
     """Run adaptive/fixed fastest-k SGD for one key (a (2,) key, numpy
-    uint32 from JAX or a `prng` key); returns {'time', 'loss', 'k'}."""
+    uint32 from JAX or a `prng` key) in ``mode`` ("sync", "kasync" or
+    "kbatch"); returns {'time', 'loss', 'k'}."""
     result = run_monte_carlo(
         per_example_loss_fn, params0, X, y, n_workers=n_workers, controller=controller,
         straggler=straggler, eta=eta, num_iters=num_iters, keys=prng.as_key(key)[None], comm=comm,

@@ -1,8 +1,8 @@
 """Worker response-time (straggler) models, in torch.
 
-The port of `repro.core.straggler` (all of it but the async modes' renewal
-rule): the five families as inverse-CDF transforms of one shared base draw,
-the per-worker packed-parameter protocol (`WorkerFleet`, `RateSchedule`),
+The port of `repro.core.straggler`: the five families as inverse-CDF
+transforms of one shared base draw, the per-worker packed-parameter
+protocol (`WorkerFleet`, `RateSchedule`), the async modes' renewal rule,
 and the numpy host analytics (quantiles, CDFs, order-statistic moments).
 
 Samplers take keys of `repro_torch.core.prng` ((..., 2), or one (2,) key
@@ -54,6 +54,7 @@ __all__ = [
     "schedule_multiplier",
     "apply_rate_schedule",
     "onset_mask",
+    "renewal_remaining",
 ]
 
 N_STRAGGLER_PARAMS = 3
@@ -535,3 +536,11 @@ def sample_times_selected(masks, pmat, key) -> torch.Tensor:
     for j in range(len(classes) - 2, -1, -1):
         out = torch.where(masks[j], classes[j]._from_base(base, pmat), out)
     return out
+
+
+def renewal_remaining(fresh: torch.Tensor, pending: torch.Tensor, remaining: torch.Tensor) -> torch.Tensor:
+    """The async modes' residual clocks: a slot with ``pending`` set keeps its
+    clock, every other slot takes the ``fresh`` draw (its task's whole
+    duration, drawn once at dispatch).  Carried clocks are exact for every
+    family; an inactive (+inf) slot draws +inf and is never dispatched."""
+    return torch.where(pending, remaining, fresh)

@@ -1,6 +1,6 @@
 """Single-dispatch sweep engine, in torch: a G-cell x R-replica grid as one program.
 
-The port of `repro.core.sweep` for synchronous cells.  The paper's
+The port of `repro.core.sweep`.  The paper's
 artifacts (Figs. 2-3, the ablation) are grids — controller x straggler
 model x (n, k-policy) — of many-seed error-against-wall-clock curves.
 `run_monte_carlo` runs one cell per program; this module runs the whole
@@ -20,11 +20,19 @@ cell-major (lane g·R + r is cell g, replica r):
     leaves, read by one unified controller update over the superset of
     every controller's state (`_CtrlState`).
 
+The execution mode is a leaf too.  An all-sync grid runs the lean step
+over `_SweepCarry`; a grid with an async cell runs the renewal carry
+(`execmode.ExecCarry`): the shared prelude once, then the tail of every
+mode the grid holds, and each lane's selected with `torch.where` over the
+whole carry, as the reference's vmapped `lax.switch` selects.  Every lane
+pays for every tail present (a kbatch tail costs n_slots draws and shard
+gradients an iteration).
+
 What a program is built for is the grid's branch signature
 (`GridSignature`): the sets of controller kinds and modes and the schedule
-and comm flags present.  By default (``specialize=True``) a kind the
-signature excludes is never computed, and a lone kind's selects fold away
-in Python; ``specialize=False`` builds the program of every kind.
+and comm flags present.  By default (``specialize=True``) a kind or mode
+the signature excludes is never computed, and a lone kind's selects fold
+away in Python; ``specialize=False`` builds the program of every kind.
 
 On a CUDA device (the default) the grid runs through `montecarlo`'s
 program: ``unroll`` iterations of all G·R lanes captured once as a CUDA
@@ -43,10 +51,9 @@ arithmetic is the looped step's, op for op.  Time and k agree bit for bit
 ulps, because the reduction of vmap's lane-minor per-example losses rounds
 differently for another lane count (PERF.md §6).
 
-Only synchronous, fault-free, mean-aggregation cells on one device are
-ported: the async modes wait for ROADMAP Queue 1 item 9, faults and robust
-aggregation for item 10, and the mesh (with the inert zero-row cell padding
-and buffer donation it needs) for item 13.
+Only fault-free, mean-aggregation cells on one device are ported: faults
+and robust aggregation wait for ROADMAP Queue 1 item 10, and the mesh (with
+the inert zero-row cell padding and buffer donation it needs) for item 13.
 
     cases = [SweepCase(PflugController(n_workers=50, k0=10, step=10, thresh=10),
                        Exponential(rate=1.0), eta=1e-2, label="adaptive"),
@@ -68,7 +75,7 @@ import torch
 from torch.utils._pytree import tree_map
 
 from repro_torch import resolve_device
-from repro_torch.core import aggregation, prng
+from repro_torch.core import aggregation, execmode, prng
 from repro_torch.core.controller import (
     FixedKController,
     PflugController,
@@ -77,13 +84,14 @@ from repro_torch.core.controller import (
     VarianceRatioController,
     _sign_event,
 )
+from repro_torch.core.execmode import MODE_KBATCH, MODE_SYNC, MODES, ExecCarry
 from repro_torch.core.gradsource import GradSource, PerExampleSource
 from repro_torch.core.montecarlo import (
-    MODES,
     MonteCarloResult,
     _LRUProgramCache,
     _Program,
     _default_program_cache_size,
+    _replicate,
     _to_device,
     summarize,
 )
@@ -123,9 +131,6 @@ _CTRL_KINDS = {
 }
 _N_CTRL_KINDS = len(_CTRL_KINDS)
 
-# The reference's execution-mode indices (`execmode.MODES`) and mean aggregator.
-_MODE_INDEX = {m: i for i, m in enumerate(MODES)}
-_MODE_SYNC = _MODE_INDEX["sync"]
 _AGG_MEAN = aggregation.AGG_KINDS["mean"]
 
 
@@ -178,8 +183,8 @@ def grid_signature(cases: Sequence["SweepCase"], n_slots: int) -> GridSignature:
         kind = _CTRL_KINDS.get(type(c.controller))
         if kind is not None:  # unknown controllers error later, in _cell_of
             kinds.add(kind)
-        if c.mode in _MODE_INDEX:
-            modes.add(_MODE_INDEX[c.mode])
+        if c.mode in MODES:
+            modes.add(MODES[c.mode])
         if isinstance(c.straggler, WorkerFleet):
             sched = c.straggler.schedule
             if sched is not None and len(sched.times):
@@ -198,13 +203,13 @@ def _full_signature(cases: Sequence["SweepCase"]) -> GridSignature:
     all_sync = all(c.mode == "sync" for c in cases)
     fault_kinds, agg_kinds = _robustness_axes(cases)
     return GridSignature(ctrl_kinds=tuple(range(_N_CTRL_KINDS)),
-                         modes=(_MODE_SYNC,) if all_sync else tuple(sorted(_MODE_INDEX.values())),
+                         modes=(MODE_SYNC,) if all_sync else tuple(sorted(MODES.values())),
                          with_schedule=True, with_comm=True, fault_kinds=fault_kinds, agg_kinds=agg_kinds)
 
 
 def _static_remap(present: tuple, total: int) -> np.ndarray:
-    """int32 table from global branch indices to pruned-local ones (the
-    mode switch of item 9 indexes its pruned tails with it)."""
+    """int32 table from global branch indices to pruned-local ones (a lane's
+    mode leaf through it picks its tail among the signature's)."""
     remap = np.zeros((total,), np.int32)
     for j, g in enumerate(present):
         remap[g] = j
@@ -214,9 +219,13 @@ def _static_remap(present: tuple, total: int) -> np.ndarray:
 def _auto_unroll(sig: GridSignature) -> int:
     """``unroll=None``: the reference's scan unroll for the signature (4 with
     async modes, faults or robust aggregation; 8 for one controller kind,
-    else 6).  Here it is the iterations one CUDA graph holds; it never
-    changes the arithmetic."""
-    if sig.modes != (_MODE_SYNC,):
+    else 6), but 1 with kbatch.  Here it is the iterations one CUDA graph
+    holds, which never changes the arithmetic, and a grid iteration with a
+    kbatch tail launches ~10^4 kernels: one iteration a graph captures in a
+    fraction of the time and replays as fast (`montecarlo.default_unroll`)."""
+    if MODE_KBATCH in sig.modes:
+        return 1
+    if sig.modes != (MODE_SYNC,):
         return 4
     if sig.fault_kinds or sig.agg_kinds != (_AGG_MEAN,):
         return 4
@@ -230,9 +239,8 @@ class SweepCase:
     ``straggler`` may be a ``WorkerFleet``.  The cell's active worker count
     is ``controller.n_workers``; slots past it, up to the grid's
     ``n_workers``, are inactive.  ``mode``, ``fault``, ``agg`` and
-    ``agg_param`` are the reference's fields; only ``mode="sync"``,
-    ``fault=None`` and ``agg="mean"`` run in the port (ROADMAP Queue 1
-    items 9 and 10).
+    ``agg_param`` are the reference's fields; only ``fault=None`` and
+    ``agg="mean"`` run in the port (ROADMAP Queue 1 item 10).
     """
 
     controller: Any
@@ -340,8 +348,8 @@ def _zero_signs_of(params_like) -> tuple:
 
 def _cell_of(case: SweepCase, n_slots: int, n_switch_slots: int, n_sched_slots: int, sketch_dim: int,
              params_like) -> _CellParams:
-    """A cell's leaves as numpy, after the reference's checks; an async,
-    faulty or robust-aggregation cell raises NotImplementedError."""
+    """A cell's leaves as numpy, after the reference's checks; a faulty or
+    robust-aggregation cell raises NotImplementedError."""
     c = case.controller
     kind = _CTRL_KINDS.get(type(c))
     if kind is None:
@@ -354,17 +362,14 @@ def _cell_of(case: SweepCase, n_slots: int, n_switch_slots: int, n_sched_slots: 
     if isinstance(case.straggler, WorkerFleet) and case.straggler.n_active != n_active:
         raise ValueError(f"cell {case.name()!r}: fleet has {case.straggler.n_active} models but "
                          f"controller.n_workers={n_active}")
-    if case.mode not in _MODE_INDEX:
-        raise ValueError(f"cell {case.name()!r}: unknown mode {case.mode!r}; options {sorted(_MODE_INDEX)}")
+    if case.mode not in MODES:
+        raise ValueError(f"cell {case.name()!r}: unknown mode {case.mode!r}; options {sorted(MODES)}")
     if case.agg not in aggregation.AGG_KINDS:
         raise ValueError(f"cell {case.name()!r}: unknown aggregator {case.agg!r}; options "
                          f"{sorted(aggregation.AGG_KINDS)}")
     if case.agg != "mean" and case.mode == "kbatch":
         raise ValueError(f"cell {case.name()!r}: robust aggregation ({case.agg!r}) is not supported in kbatch "
                          "mode — kbatch arrivals are sequential, there is no per-worker row stack to aggregate")
-    if case.mode != "sync":
-        raise NotImplementedError(f"cell {case.name()!r}: mode={case.mode!r}: the async modes wait for the port "
-                                  "of core/execmode.py (ROADMAP Queue 1 item 9)")
     if case.fault is not None or case.agg != "mean":
         raise NotImplementedError(f"cell {case.name()!r}: faults and robust aggregation wait for the port of "
                                   "core/faults.py and the robust half of core/aggregation.py (ROADMAP Queue 1 "
@@ -399,7 +404,7 @@ def _cell_of(case: SweepCase, n_slots: int, n_switch_slots: int, n_sched_slots: 
     sched_mode, sched_leaf, sched_times, sched_scales = pack_schedule(sched, n_sched_slots)
     comm = case.comm or aggregation.CommModel()
     return _CellParams(
-        ctrl_kind=i32(kind), mode=i32(_MODE_INDEX[case.mode]), k0=i32(k0), step=i32(step), thresh=i32(thresh),
+        ctrl_kind=i32(kind), mode=i32(MODES[case.mode]), k0=i32(k0), step=i32(step), thresh=i32(thresh),
         burnin=i32(burnin), k_max=i32(k_max), decay=f32(decay),
         # the controller computes (1 - d) in Python float64 and rounds it to
         # f32 where it multiplies; rounding here the same way keeps the bits
@@ -463,7 +468,7 @@ def _sel_tree(pred, a, b):
         return a
     if pred is False:
         return b
-    return tree_map(lambda x, y: torch.where(pred, x, y), a, b)
+    return tree_map(lambda x, y: x if x is None else torch.where(pred, x, y), a, b)
 
 
 def _pred_or(a, b):
@@ -607,11 +612,12 @@ class _SweepCarry(NamedTuple):
 
 class _Lanes(NamedTuple):
     """The step's per-lane inputs, (L, ...) each: the cell leaves, and their
-    family masks and kind predicates, made once before the step."""
+    family masks and kind and mode predicates, made once before the step."""
 
     cells: _CellParams
     fam_masks: tuple  # straggler.family_select_masks of the cell's slot kinds
     kind_is: tuple  # kind_is[j]: ctrl_kind == j
+    mode_is: tuple  # mode_is[j]: the lane runs the signature's j-th mode (empty for one mode)
 
 
 class _Inputs(NamedTuple):
@@ -623,68 +629,122 @@ class _Inputs(NamedTuple):
     lanes: _Lanes
 
 
-def _lanes_of(cells: _CellParams) -> _Lanes:
+def _lanes_of(cells: _CellParams, modes: tuple = (MODE_SYNC,)) -> _Lanes:
+    """``modes``: the signature's mode indices, which the lanes' mode leaves
+    map to local ones through `_static_remap`."""
+    mode_is = ()
+    if len(modes) > 1:
+        remap = torch.from_numpy(_static_remap(modes, len(MODES))).to(cells.mode.device)
+        local = remap[cells.mode]
+        mode_is = tuple(local == j for j in range(len(modes)))
     return _Lanes(cells=cells, fam_masks=family_select_masks(cells.strag_kinds),
-                  kind_is=tuple(cells.ctrl_kind == j for j in range(_N_CTRL_KINDS)))
+                  kind_is=tuple(cells.ctrl_kind == j for j in range(_N_CTRL_KINDS)), mode_is=mode_is)
 
 
 @dataclasses.dataclass(frozen=True)
 class _GridEngine:
     """The grid's program body for `montecarlo._Program`: ``build(inputs) ->
-    (step, evaluate)`` over every lane, ``initial(inputs) -> carry``."""
+    (step, evaluate)`` over every lane, ``initial(inputs) -> carry``.  An
+    all-sync signature builds the lean step over `_SweepCarry`; one with an
+    async mode builds the moded step over `execmode.ExecCarry`."""
 
     source: GradSource
     n_workers: int
     sketch_dim: int
     sig: GridSignature
 
-    def initial(self, inputs: _Inputs) -> _SweepCarry:
-        lanes = inputs.keys.shape[0]
+    @property
+    def moded(self) -> bool:
+        return self.sig.modes != (MODE_SYNC,)
 
-        def rep(x):
-            return x.unsqueeze(0).expand((lanes,) + tuple(x.shape)).clone()
-
-        return _SweepCarry(
-            params=tree_map(rep, inputs.params0),
-            ctrl_state=_ctrl_init(inputs.lanes.cells, inputs.params0, self.sketch_dim),
-            sim_time=torch.zeros((lanes,), dtype=torch.float32, device=inputs.keys.device),
-            key=inputs.keys.clone(),
-        )
+    def initial(self, inputs: _Inputs):
+        keys, cells = inputs.keys, inputs.lanes.cells
+        sim_time = torch.zeros((), dtype=torch.float32, device=keys.device)
+        if self.moded:
+            one = execmode.init_exec_carry(inputs.params0, self.n_workers, None, keys[0])
+        else:
+            one = _SweepCarry(params=inputs.params0, ctrl_state=None, sim_time=sim_time, key=keys[0])
+        return _replicate(one, keys)._replace(ctrl_state=_ctrl_init(cells, inputs.params0, self.sketch_dim))
 
     def build(self, inputs: _Inputs):
         sig, sketch_dim = self.sig, self.sketch_dim
         fns = self.source.build(inputs.data, self.n_workers)
-
-        def one_step(carry: _SweepCarry, lane: _Lanes):
-            cp = lane.cells
-            preds = _ctrl_preds(lane.kind_is, sig.ctrl_kinds)
-            keys = prng.split(carry.key)
-            k = carry.ctrl_state.k  # decided before the step
-            # the rate-schedule drift and the comm time are built only when
-            # some cell can use them (each is exact for the cells that don't)
-            pm = (apply_rate_schedule(cp.strag_p, cp.sched_mode, cp.sched_leaf, cp.sched_times, cp.sched_scales,
-                                      carry.sim_time)
-                  if sig.with_schedule else cp.strag_p)
-            times = sample_times_selected(lane.fam_masks, pm, keys[1])
-            mask, t_iter = aggregation.fastest_k_mask_time(times, k)
-            if sig.with_comm:
-                t_iter = t_iter + (cp.comm_alpha + cp.comm_beta * k.to(torch.float32))
-            g = fns.grad(carry.params, mask, k)
-            params = tree_map(lambda p, gi: p - cp.eta * gi, carry.params, g)
-            sim_time = carry.sim_time + t_iter
-            ctrl_state, _ = _ctrl_update(cp, carry.ctrl_state, g, sim_time, sketch_dim, sig.ctrl_kinds, preds)
-            return _SweepCarry(params, ctrl_state, sim_time, keys[0]), k
-
-        vstep = torch.func.vmap(one_step)
         veval = torch.func.vmap(fns.eval_loss_active)
-
-        def step(carry):
-            return vstep(carry, inputs.lanes)
 
         def evaluate(params):
             return veval(params, inputs.lanes.cells.n_active)
 
+        if self.moded:
+            vstep = self._moded_step(inputs, fns)
+        else:
+
+            def one_step(carry: _SweepCarry, lane: _Lanes):
+                cp = lane.cells
+                preds = _ctrl_preds(lane.kind_is, sig.ctrl_kinds)
+                keys = prng.split(carry.key)
+                k = carry.ctrl_state.k  # decided before the step
+                times = sample_times_selected(lane.fam_masks, _lane_pmat(cp, carry.sim_time, sig), keys[1])
+                mask, t_iter = aggregation.fastest_k_mask_time(times, k)
+                if sig.with_comm:
+                    t_iter = t_iter + _lane_comm_time(cp, k)
+                g = fns.grad(carry.params, mask, k)
+                params = tree_map(lambda p, gi: p - cp.eta * gi, carry.params, g)
+                sim_time = carry.sim_time + t_iter
+                ctrl_state, _ = _ctrl_update(cp, carry.ctrl_state, g, sim_time, sketch_dim, sig.ctrl_kinds, preds)
+                return _SweepCarry(params, ctrl_state, sim_time, keys[0]), k
+
+            vstep = torch.func.vmap(one_step)
+
+        def step(carry):
+            return vstep(carry, inputs.lanes)
+
         return step, evaluate
+
+    def _moded_step(self, inputs: _Inputs, fns):
+        """The reference's `_make_run_one_moded` step: the shared prelude once,
+        then every tail the signature holds (kbatch's inner loop only when
+        kbatch is in it), and the lane's tail selected with `torch.where`
+        over the whole carry, as vmap's `lax.switch` selects.  Each tail is
+        the looped engine's step of that mode, op for op."""
+        sig, sketch_dim, n = self.sig, self.sketch_dim, self.n_workers
+        stale_grad, shard_grad_at = self.source.build_stale(inputs.data, n)
+        modes = sig.modes
+
+        def one_step(carry: ExecCarry, lane: _Lanes):
+            cp = lane.cells
+            preds = _ctrl_preds(lane.kind_is, sig.ctrl_kinds)
+
+            def ctrl_update(state, g, sim_time, stats):
+                del stats  # no controller kind reads it yet
+                return _ctrl_update(cp, state, g, sim_time, sketch_dim, sig.ctrl_kinds, preds)
+
+            prelude, tails = execmode.make_mode_prelude_and_tails(
+                n_slots=n, draw=lambda sub, t: sample_times_selected(lane.fam_masks, _lane_pmat(cp, t, sig), sub),
+                sync_grad=fns.grad, stale_grad=stale_grad, shard_grad_at=shard_grad_at,
+                comm_time=(lambda k: _lane_comm_time(cp, k)) if sig.with_comm else None, eta=cp.eta,
+                ctrl_update=ctrl_update,
+            )
+            p = prelude(carry, modes != (MODE_KBATCH,))
+            outs = [tails[m](carry, p)[0] for m in modes]
+            new = outs[-1]
+            for j in range(len(modes) - 2, -1, -1):
+                new = _sel_tree(lane.mode_is[j], outs[j], new)
+            return new, p.k
+
+        dims = execmode.CARRY_DIMS
+        return torch.func.vmap(one_step, in_dims=(dims, 0), out_dims=(dims, 0))
+
+
+def _lane_pmat(cp: _CellParams, sim_time, sig: GridSignature):
+    """The lane's per-worker straggler rows; the rate-schedule drift is built
+    only when some cell of the signature has one (exact for those without)."""
+    if not sig.with_schedule:
+        return cp.strag_p
+    return apply_rate_schedule(cp.strag_p, cp.sched_mode, cp.sched_leaf, cp.sched_times, cp.sched_scales, sim_time)
+
+
+def _lane_comm_time(cp: _CellParams, k):
+    return cp.comm_alpha + cp.comm_beta * k.to(torch.float32)
 
 
 # (source token, n_workers, num_iters, eval_every, unroll, n_switch_slots,
@@ -795,7 +855,7 @@ def run_sweep_source(
     cell_idx = torch.arange(g, device=dev).repeat_interleave(r)
     rep_idx = torch.arange(r, device=dev).repeat(g)
     flat_cells = tree_map(lambda a: a[cell_idx], cells)
-    inputs = _Inputs(params0=params0, data=data, keys=keys[rep_idx], lanes=_lanes_of(flat_cells))
+    inputs = _Inputs(params0=params0, data=data, keys=keys[rep_idx], lanes=_lanes_of(flat_cells, sig.modes))
 
     capture = bool(capture) and dev.type == "cuda"
     partitionable = prng.is_partitionable()

@@ -4,6 +4,7 @@ as replica means with 95% CIs: the port of `examples/quickstart.py`.
     PYTHONPATH=src python -m repro_torch.launch.quickstart [--device cpu]
     PYTHONPATH=src python -m repro_torch.launch.quickstart --setup fig2 --iters 40000 --replicas 32
     PYTHONPATH=src python -m repro_torch.launch.quickstart --setup ablation [--looped]
+    PYTHONPATH=src python -m repro_torch.launch.quickstart --setup async [--looped]
 
 ``quickstart`` (the default): n = 20 workers, m = 400, d = 20, R = 16,
 Algorithm 1's Pflug test (k0 = 2, step 4, thresh 10, burn-in 40) against
@@ -14,7 +15,14 @@ eta = 0.5/L, the loss evaluated every 500 iterations.  ``ablation``
 (`benchmarks/ablation.py`): Pflug, the Theorem-1 schedule (its switch
 times estimated from the data), variance ratio, fixed k = 10 and 40, each
 under Exponential(1), Pareto(0.5, 1.5) and Bimodal(0.5, 10, 0.1), at
-fig2's m, d and n, R = 8, 30 000 iterations.
+fig2's m, d and n, R = 8, 30 000 iterations.  ``async``
+(`benchmarks/fig_async.py`): a two-speed fleet of n = 20 workers (14
+Exponential(1), 6 Exponential(0.25)), m = 400, d = 20, R = 32, eta =
+0.5/L, 6000 iterations, five arms: adaptive (Pflug sync, k0 = 4, step 4,
+thresh 10, burn-in 40, k_max 16), fixed k = 16 sync, K-async and
+K-batch-async at K = 4, and Pflug under K-async; the loss evaluated every
+100 iterations.  Every setup prints each case's simulated time to reach
+1e-3 of the initial excess loss (fig_async's target), its own f* subtracted.
 
 A setup runs as one `run_sweep` call, every case a cell of one grid, as
 the reference's example does; ``--looped`` runs each case as a
@@ -38,7 +46,7 @@ from repro_torch.core.controller import (
     VarianceRatioController,
 )
 from repro_torch.core.montecarlo import run_monte_carlo, summarize
-from repro_torch.core.straggler import Bimodal, Exponential, Pareto
+from repro_torch.core.straggler import Bimodal, Exponential, Pareto, WorkerFleet
 from repro_torch.core.sweep import SweepCase, run_sweep
 from repro_torch.core.theory import SGDSystem, switching_times
 from repro_torch.data import make_linreg_data
@@ -49,6 +57,8 @@ SETUPS = {
     "fig2": dict(m=2000, d=100, n=50, replicas=32, iters=40_000, eval_every=500,
                  adaptive=dict(k0=10, step=10, thresh=10, burnin=200, k_max=40), fixed=(10, 20, 30, 40)),
     "ablation": dict(m=2000, d=100, n=50, replicas=8, iters=30_000, eval_every=500),
+    "async": dict(m=400, d=20, n=20, replicas=32, iters=6000, eval_every=100, n_fast=14, n_slow=6, slow_factor=4.0,
+                  adaptive=dict(k0=4, step=4, thresh=10, burnin=40, k_max=16), k_async=4),
 }
 ABLATION_STRAGGLERS = {
     "exp": Exponential(rate=1.0),
@@ -87,6 +97,20 @@ def cases(setup: str, data=None, eta: float = 0.0) -> list:
     schedules are estimated from ``data`` (a `LinRegData`)."""
     cfg = SETUPS[setup]
     n = cfg["n"]
+    if setup == "async":
+        fleet = WorkerFleet([Exponential(rate=1.0)] * cfg["n_fast"]
+                            + [Exponential(rate=1.0 / cfg["slow_factor"])] * cfg["n_slow"])
+        k_cap, k_async = cfg["adaptive"]["k_max"], cfg["k_async"]
+        return [
+            SweepCase(PflugController(n_workers=n, **cfg["adaptive"]), fleet, eta=eta, label="adaptive"),
+            SweepCase(FixedKController(n_workers=n, k=k_cap), fleet, eta=eta, label=f"sync_k{k_cap}"),
+            SweepCase(FixedKController(n_workers=n, k=k_async), fleet, eta=eta, label=f"kasync_k{k_async}",
+                      mode="kasync"),
+            SweepCase(FixedKController(n_workers=n, k=k_async), fleet, eta=eta, label=f"kbatch_k{k_async}",
+                      mode="kbatch"),
+            SweepCase(PflugController(n_workers=n, **cfg["adaptive"]), fleet, eta=eta, label="kasync_adaptive",
+                      mode="kasync"),
+        ]
     if setup != "ablation":
         straggler = Exponential(rate=1.0)
         return [SweepCase(PflugController(n_workers=n, **cfg["adaptive"]), straggler, eta=eta, label="adaptive")] + [
@@ -114,7 +138,7 @@ def run_case(setup: str, case: SweepCase, data, keys, iters: int | None = None, 
     return run_monte_carlo(squared_error, torch.zeros(cfg["d"], device=dev), data.X, data.y, n_workers=cfg["n"],
                            controller=case.controller, straggler=case.straggler, eta=case.eta,
                            num_iters=iters or cfg["iters"], keys=keys, eval_every=cfg["eval_every"], device=dev,
-                           capture=capture)
+                           capture=capture, mode=case.mode)
 
 
 def run_grid(setup: str, grid: list, data, keys, iters: int | None = None, capture: bool = True):
@@ -137,14 +161,15 @@ def inputs(setup: str, replicas: int | None = None, device="cuda"):
 def run(setup: str = "quickstart", iters: int | None = None, replicas: int | None = None, device="cuda",
         capture: bool = True, eta: float | None = None, looped: bool = False) -> dict:
     """Run every case of ``setup``, as one grid or (``looped``) case by case;
-    returns {"f_star", "eta", "wall_s", "cases": {label: summarize(result)},
-    "results": {label: result}}.  ``eta`` overrides 0.5/L (the parity tests
-    pass one float to both packages, whose eigensolvers differ in the last
-    ulps)."""
+    returns {"f_star", "f0_excess" (the loss at w = 0 less f*), "eta",
+    "wall_s", "cases": {label: summarize(result)}, "results": {label:
+    result}}.  ``eta`` overrides 0.5/L (the parity tests pass one float to
+    both packages, whose eigensolvers differ in the last ulps)."""
     data, keys = inputs(setup, replicas, device)
     eta = step_size(data.X) if eta is None else eta
     grid = cases(setup, data, eta)
-    out = {"f_star": data.f_star, "eta": eta, "cases": {}, "results": {}}
+    f0 = float(squared_error(torch.zeros(data.X.shape[1], device=data.X.device), data.X, data.y).mean())
+    out = {"f_star": data.f_star, "f0_excess": f0 - data.f_star, "eta": eta, "cases": {}, "results": {}}
     t0 = time.perf_counter()
     if looped:
         results = {c.label: run_case(setup, c, data, keys, iters, capture) for c in grid}
@@ -158,6 +183,16 @@ def run(setup: str = "quickstart", iters: int | None = None, replicas: int | Non
     return out
 
 
+def time_to_target(out: dict, factor: float = 1e-3) -> dict:
+    """{label: the first replica-mean simulated time at which the mean excess
+    loss is at most ``factor`` times the initial excess, or None}: the
+    target of `benchmarks/fig_async.py`."""
+    target = factor * out["f0_excess"]
+    return {label: next((float(t) for t, loss in zip(s["time_mean"], s["loss_mean"])
+                         if loss - out["f_star"] <= target), None)
+            for label, s in out["cases"].items()}
+
+
 def report(out: dict) -> None:
     f_star = out["f_star"]
     for label, s in out["cases"].items():
@@ -165,6 +200,9 @@ def report(out: dict) -> None:
         for i in range(len(s["iteration"])):
             print(f"  iter={s['iteration'][i]:6d}  sim_time={s['time_mean'][i]:10.1f}  "
                   f"excess={s['loss_mean'][i] - f_star:11.5g} +-{s['loss_ci95'][i]:9.2g}  k={s['k_mean'][i]:5.2f}")
+    reached = ", ".join(f"{label} {'not reached' if t is None else f'{t:.1f}'}"
+                        for label, t in time_to_target(out).items())
+    print(f"simulated time to 1e-3 of the initial excess {out['f0_excess']:.6g}: {reached}")
 
 
 def main(argv=None):

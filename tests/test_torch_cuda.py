@@ -1,9 +1,9 @@
 """The port's CUDA kernels (flash attention, wkv6) against their plain
 PyTorch versions, the simulation engine against its CPU run and the
-goldens, and the sweep engine against its eager run and the looped engine,
-on the card.  Flash attention has two routes, by dtype:
-f32 the scalar kernel, bf16 the wgmma + TMA kernel; every attention case
-runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
+goldens, the sweep engine against its eager run and the looped engine, and
+the async modes graph-replayed against eager, on the card.  Flash attention
+has two routes, by dtype: f32 the scalar kernel, bf16 the wgmma + TMA
+kernel; every attention case runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
 tensor-core kernel, every other shape the scalar one; each wkv case asserts
 which ran.
 
@@ -410,6 +410,96 @@ def test_repopulated_sweep_replays_its_graphs(cuda_device):
             assert torch.equal(getattr(got, f), getattr(eager, f)), f
     finally:
         sw.clear_sweep_cache()
+
+
+# ------------------------------------------------------------- async modes
+
+
+def _async_fleet():
+    """5 active workers of 6 slots under a rate schedule: every family."""
+    return strag.WorkerFleet([strag.Exponential(1.0), strag.Pareto(1.0, 3.0), strag.Bimodal(1.0, 4.0, 0.3),
+                              strag.Deterministic(1.5), strag.ShiftedExponential(0.2, 1.0)],
+                             strag.RateSchedule((2.0, 5.0), (0.5, 2.0), mode="linear"))
+
+
+# 37 iterations in blocks of 10: graphs of 4, 2 and 1 iterations at unroll 4, 3 and 1 at unroll 3
+@pytest.mark.parametrize("case", ["exp", "fleet_comm"])
+@pytest.mark.parametrize("unroll", [4, 3])
+@pytest.mark.parametrize("mode", ["kasync", "kbatch"])
+def test_async_graph_replayed_run_equals_eager_run_bitwise(cuda_device, mode, unroll, case):
+    n, d = 6, 4
+    data = make_linreg_data(prng.PRNGKey(0), m=60, d=d, device=cuda_device)
+    kw = dict(controller=ctl.PflugController(n_workers=n, k0=1, thresh=2, burnin=3), straggler=strag.Exponential(1.0))
+    if case == "fleet_comm":
+        kw = dict(controller=ctl.FixedKController(n_workers=5, k=2), straggler=_async_fleet(),
+                  comm=CommModel(0.1, 0.05))
+    runs = [mc.run_monte_carlo(_sq, torch.zeros(d, device=cuda_device), data.X, data.y, n_workers=n, eta=0.005,
+                               num_iters=37, eval_every=10, unroll=unroll, key=prng.PRNGKey(5), n_replicas=3,
+                               mode=mode, device=cuda_device, capture=capture, **kw)
+            for capture in (True, False, True)]
+    for f in ("time", "loss", "k"):
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+        assert torch.equal(getattr(runs[0], f), getattr(runs[2], f)), f  # a replay of cached graphs
+    assert bool(torch.isfinite(runs[0].loss).all()) and bool(torch.isfinite(runs[0].time).all())
+
+
+def _mode_grid(eta=0.005, k_fixed=2):
+    """Sync, kasync and kbatch cells over two controller kinds, a comm model
+    and the fleet."""
+    n = 6
+    return [
+        sw.SweepCase(ctl.PflugController(n, k0=1, step=1, thresh=2, burnin=3), strag.Exponential(1.0), eta,
+                     label="sync"),
+        sw.SweepCase(ctl.FixedKController(n, k=k_fixed), strag.Pareto(1.0, 3.0), eta, label="kasync", mode="kasync"),
+        sw.SweepCase(ctl.PflugController(n, k0=1, step=1, thresh=2, burnin=3), strag.Exponential(1.0), eta,
+                     comm=CommModel(0.1, 0.05), label="kbatch", mode="kbatch"),
+        sw.SweepCase(ctl.FixedKController(5, k=2), _async_fleet(), eta, label="kasync_fleet", mode="kasync"),
+    ]
+
+
+def test_mixed_mode_sweep_graph_replayed_equals_eager_and_looped(cuda_device):
+    """The mixed-mode grid graph-replayed against eager (bitwise), each cell
+    against the looped engine with the same keys (k and time equal, loss
+    within 1e-4 relative), and a repopulated grid with no new capture."""
+    cases = _mode_grid()
+    sw.clear_sweep_cache()
+    try:
+        runs = [_sweep(cuda_device, cases, num_iters=37, eval_every=10, capture=capture)
+                for capture in (True, False, True)]
+        for f in ("time", "loss", "k"):
+            assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+            assert torch.equal(getattr(runs[0], f), getattr(runs[2], f)), f
+        data = make_linreg_data(prng.PRNGKey(0), m=60, d=4, device=cuda_device)
+        keys = prng.split(prng.PRNGKey(5, device=cuda_device), 3)
+        for g, case in enumerate(cases):
+            want = mc.run_monte_carlo(_sq, torch.zeros(4, device=cuda_device), data.X, data.y, n_workers=6,
+                                      controller=case.controller, straggler=case.straggler, eta=case.eta,
+                                      comm=case.comm, num_iters=37, eval_every=10, keys=keys, mode=case.mode,
+                                      device=cuda_device)
+            got = runs[0].cell(g)
+            assert torch.equal(got.k, want.k) and torch.equal(got.time, want.time), case.label
+            np.testing.assert_allclose(got.loss.cpu().numpy(), want.loss.cpu().numpy(), rtol=1e-4, err_msg=case.label)
+        captures = sw.sweep_cache_stats()["traces"]
+        _sweep(cuda_device, _mode_grid(eta=0.003, k_fixed=3), num_iters=37, eval_every=10)
+        assert sw.sweep_cache_stats()["traces"] == captures
+    finally:
+        sw.clear_sweep_cache()
+
+
+@pytest.mark.parametrize("mode", ["kasync", "kbatch"])
+def test_deterministic_ties_on_the_card_follow_the_cpu(cuda_device, mode):
+    """Every clock tied: each event takes the lowest index first, on the
+    card as on the CPU, so the times (sums of 1.0) and k are equal and the
+    loss agrees to the rounding of the card's products."""
+    data = {dev: make_linreg_data(prng.PRNGKey(0), m=60, d=4, device=dev) for dev in (cuda_device, "cpu")}
+    runs = {dev: mc.run_monte_carlo(_sq, torch.zeros(4, device=dev), data[dev].X, data[dev].y, n_workers=6,
+                                    controller=ctl.FixedKController(n_workers=6, k=1 if mode == "kasync" else 3),
+                                    straggler=strag.Deterministic(1.0), eta=0.005, num_iters=40, eval_every=10,
+                                    key=prng.PRNGKey(2), n_replicas=2, mode=mode, device=dev)
+            for dev in (cuda_device, "cpu")}
+    card, cpu = runs[cuda_device], runs["cpu"]
+    assert torch.equal(card.time.cpu(), cpu.time) and torch.equal(card.k.cpu(), cpu.k)
+    np.testing.assert_allclose(card.loss.cpu().numpy(), cpu.loss.numpy(), rtol=1e-5)
 
 
 # --------------------------------------------------------- autograd guard

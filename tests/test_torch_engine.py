@@ -511,8 +511,8 @@ def test_program_cache_hits_and_evicts(linreg):
     (dict(n_workers=7), ValueError, "not divisible"),
     (dict(key=None), ValueError, "keys="),
     (dict(straggler=tstr.WorkerFleet([tstr.Exponential()] * 4)), ValueError, "fleet has 4 models"),
-    (dict(mode="kasync"), NotImplementedError, "item 9"),
-    (dict(mode="kbatch"), NotImplementedError, "item 9"),
+    (dict(mode="kasync", agg="trimmed"), NotImplementedError, "item 10"),
+    (dict(mode="kbatch", fault=object()), NotImplementedError, "item 10"),
     (dict(agg="trimmed"), NotImplementedError, "item 10"),
     (dict(fault=object()), NotImplementedError, "item 10"),
 ])
@@ -523,6 +523,21 @@ def test_validation_errors(linreg, kw, err, match):
 
 
 def test_build_stale_names_the_roadmap_item(linreg):
+    """`build_stale` gives the async modes' closures over the worker-major
+    shards; the mode tails built on them refuse faults, naming ROADMAP
+    Queue 1 item 10."""
+    from repro_torch.core import execmode
+
     _, X, y = linreg
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PerExampleSource(torch_loss).build_stale((X, y), N)
+    stale_grad, shard_grad_at = PerExampleSource(torch_loss).build_stale((X, y), N)
+    s = M // N
+    w = torch.arange(N * D, dtype=torch.float32).reshape(N, D) / 10
+    want = torch.func.grad(lambda p: torch_loss(p, X[2 * s:3 * s], y[2 * s:3 * s]).mean())(w[2])
+    torch.testing.assert_close(shard_grad_at(w, torch.tensor(2)), want)
+    mask = torch.zeros(N)
+    mask[2] = 1.0
+    torch.testing.assert_close(stale_grad(w, mask, torch.tensor(1, dtype=torch.int32)), want)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        execmode.make_mode_steps(n_slots=N, draw=None, sync_grad=None, stale_grad=stale_grad,
+                                 shard_grad_at=shard_grad_at, comm_time=None, eta=0.1, ctrl_update=None,
+                                 faults=object())

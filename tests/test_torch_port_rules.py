@@ -44,7 +44,7 @@ def test_port_files_were_found():
     assert {"ops.py", "kernel.py", "ref.py", "layers.py", "rwkv.py", "linear_scan.py", "serve.py",
             "chip_smoke.py", "prng.py", "straggler.py", "aggregation.py", "controller.py", "theory.py",
             "gradsource.py", "montecarlo.py", "simulate.py", "async_sim.py", "synthetic.py",
-            "quickstart.py", "sweep.py"} <= names
+            "quickstart.py", "sweep.py", "execmode.py"} <= names
 
 
 def _no_card():
@@ -98,6 +98,14 @@ def _engine_entry_points():
         "sweep.run_sweep": lambda: sweep.run_sweep(
             loss, w0, X, y, n_workers=3, cases=[sweep.SweepCase(ctrl, strag, eta=0.01)], num_iters=4,
             key=prng.PRNGKey(0), n_replicas=2),
+        "montecarlo.run_monte_carlo[kbatch]": lambda: montecarlo.run_monte_carlo(
+            loss, w0, X, y, n_workers=3, controller=ctrl, straggler=strag, eta=0.01, num_iters=4,
+            key=prng.PRNGKey(0), n_replicas=2, mode="kbatch"),
+        "sweep.run_sweep[kasync]": lambda: sweep.run_sweep(
+            loss, w0, X, y, n_workers=3, cases=[sweep.SweepCase(ctrl, strag, eta=0.01, mode="kasync")],
+            num_iters=4, key=prng.PRNGKey(0), n_replicas=2),
+        "quickstart.main[--setup async]": lambda: quickstart.main(["--setup", "async", "--iters", "2",
+                                                                   "--replicas", "2"]),
         "make_linreg_data": lambda: make_linreg_data(prng.PRNGKey(0), m=12, d=4),
         "quickstart.main": lambda: quickstart.main(["--iters", "2", "--replicas", "2"]),
         "quickstart.main[--looped]": lambda: quickstart.main(["--iters", "2", "--replicas", "2", "--looped"]),
@@ -113,7 +121,8 @@ def _engine_entry_points():
      "build_model[rwkv6-3b]", "convert.init[rwkv6-3b]", "serve.main[rwkv6-3b]",
      "montecarlo.run_monte_carlo", "simulate.simulate_fastest_k", "async_sim.simulate_async_sgd",
      "sweep.run_sweep", "make_linreg_data", "quickstart.main", "quickstart.main[--looped]",
-     "convert.engine_inputs"],
+     "convert.engine_inputs", "montecarlo.run_monte_carlo[kbatch]", "sweep.run_sweep[kasync]",
+     "quickstart.main[--setup async]"],
 )
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     _no_card()

@@ -320,7 +320,8 @@ def test_grid_signature_matches_the_reference(grid):
         got, want = getattr(tsw, fn)(tcases, *args), getattr(jsw, fn)(jcases, *args)
         assert tuple(got) == tuple(want), fn
         assert got._fields == want._fields
-        assert tsw._auto_unroll(got) == jsw._auto_unroll(want)
+        # the port captures a grid with kbatch one iteration a graph (montecarlo.default_unroll)
+        assert tsw._auto_unroll(got) == (1 if 2 in got.modes else jsw._auto_unroll(want))
         np.testing.assert_array_equal(tsw._static_remap(got.modes, 3), jsw._static_remap(want.modes, 3))
     assert [c.name() for c in tcases] == [c.name() for c in jcases]
 
@@ -372,8 +373,8 @@ def _cells(**kw):
     (dict(num_iters=0), ValueError, "num_iters"),
     (dict(n_workers=7), ValueError, "not divisible"),
     (dict(partition="nope"), ValueError, "unknown partition"),
-    (dict(cases=_cells(mode="kasync")), NotImplementedError, "item 9"),
-    (dict(cases=_cells(mode="kbatch")), NotImplementedError, "item 9"),
+    (dict(cases=_cells(mode="kasync", agg="trimmed")), NotImplementedError, "item 10"),
+    (dict(cases=_cells(mode="kbatch"), mesh=object()), NotImplementedError, "item 13"),
     (dict(cases=_cells(agg="trimmed")), NotImplementedError, "item 10"),
     (dict(cases=_cells(fault=object())), NotImplementedError, "item 10"),
     (dict(mesh=object()), NotImplementedError, "item 13"),
