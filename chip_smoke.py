@@ -65,7 +65,22 @@
    fleet (every clock tied), graph-replayed against eager and against the
    port's event-driven host loop, and the K = 1 engine's rate of updates
    beside the host loop's.
-10. Print one `kernels` JSON line, the card again, and, as the last line,
+10. Run faults and robust aggregation (no kernel of the port on their path
+   either): the reference test's forced grid (seven cells over every fault
+   family, every robust aggregator and the three modes) graph-replayed
+   against eager (bitwise) and each cell against the looped engine on the
+   card; then fig_byzantine's grid at its published size (18 cells: 0, 10
+   and 30% rushing sign-flip workers x the weighted mean and the geometric
+   median x adaptive, k = 4 and k = 16; n = 20, m = 400, d = 20, R = 32,
+   576 lanes) as one program, 200 iterations graph-replayed, against eager
+   (bitwise, 10 iterations), each cell looped on the card and the grid on
+   the CPU (100 iterations); repopulate it and require no new capture (and
+   a random_gauss variant, one capture and none on its repopulation);
+   print its ms an iteration, capture seconds, memory, launches, idle share
+   and top operations, a looped cell's ms and launches for each
+   aggregator; then the whole figure (6000 iterations) with its wall time,
+   the reference's two headline flags and the times to target.
+11. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -1165,6 +1180,336 @@ def engine_async() -> dict:
             "capture_s": first_s - replay_s, "engine_rate": engine_rate, "host_rate": host_rate}
 
 
+# The fault phase.  The reference test's forced grid
+# (tests/test_faults.py:81-129): seven cells over every fault family, every
+# robust aggregator and the three modes, n = 8, m = 160, d = 4, R = 3, 100
+# iterations, eta 0.05/L; graph-replayed against eager (bitwise) and each
+# cell against the looped engine on the card (time and k bitwise, the loss
+# within FORCED_LOSS_RTOL, else within ENGINE_LOSS_RTOL, and the run says
+# which).  Then fig_byzantine's grid at its published size
+# (benchmarks/fig_byzantine.py:62-73,86-112; `quickstart --setup
+# byzantine`): 18 cells x R = 32 = 576 lanes, BYZ_ITERS iterations
+# graph-replayed against eager (BYZ_EAGER_ITERS, bitwise), each cell looped
+# on the card (BYZ_ITERS) and the grid on the CPU (BYZ_CPU_ITERS, in a
+# worker process).  The weighted mean at 30% sign flips diverges by design:
+# a cell's loss (and an adaptive cell's k and clock) is held only while the
+# loss is finite and below the loss the run started from (the loss at
+# w = 0: a cell above it has diverged; the figure's 1e4 bar on the final
+# excess would hold few points of a 100-iteration run, where converging
+# cells are still above it); a fixed cell's time and k always.  Then the
+# whole figure, 6000 iterations, graph-replayed.
+FORCED = dict(n=8, m=160, d=4, replicas=3, iters=100, eval_every=25)
+FORCED_LOSS_RTOL = 1e-6
+BYZ_ITERS, BYZ_EAGER_ITERS, BYZ_CPU_ITERS = 200, 10, 100
+
+
+def forced_cases(eta: float, frac: float = 0.25):
+    from repro_torch.core.controller import FixedKController
+    from repro_torch.core.faults import byzantine_plan
+    from repro_torch.core.straggler import Exponential
+    from repro_torch.core.sweep import SweepCase
+
+    n = FORCED["n"]
+    exp, c = Exponential(rate=1.0), FixedKController(n_workers=n, k=3)
+    return [
+        SweepCase(c, exp, eta, label="clean"),
+        SweepCase(c, exp, eta, label="flip", fault=byzantine_plan(n, frac, "sign_flip")),
+        SweepCase(c, exp, eta, label="gauss_gm", fault=byzantine_plan(n, frac, "random_gauss", param=2.0),
+                  agg="geomedian"),
+        SweepCase(c, exp, eta, label="rescale_trim_ka", fault=byzantine_plan(n, frac, "rescale", param=-4.0),
+                  agg="trimmed", agg_param=0.25, mode="kasync"),
+        SweepCase(c, exp, eta, label="crash_ka", fault=byzantine_plan(n, 2 * frac, "crash", onset=2.0), mode="kasync"),
+        SweepCase(c, exp, eta, label="crash_kb", fault=byzantine_plan(n, 2 * frac, "crash", onset=2.0), mode="kbatch"),
+        SweepCase(c, exp, eta, label="flip_median", fault=byzantine_plan(n, frac, "sign_flip"), agg="median"),
+    ]
+
+
+def hold_byzantine(what: str, got: dict, want: dict, adaptive: set, bar: float, cols: int | None = None,
+                   time_rtol: float = 0.0, loss_rtol: float = 0.0) -> str:
+    """Hold fig_byzantine's cells of ``got`` to ``want`` (the first ``cols``
+    eval points): a fixed cell's time within ``time_rtol`` (0: bitwise) and
+    its k equal over the whole run, its loss within ``loss_rtol`` where
+    ``want``'s loss is finite and below ``bar``; an adaptive cell's k,
+    time and loss there too (its k reads the gradient, and its clock reads
+    k), with up to ENGINE_MAX_FORKS replicas forked in k when
+    ``time_rtol``.  Returns a summary line."""
+    import numpy as np
+
+    gaps, forks, cut = [0.0, 0.0], 0, 0
+    for label, g in got.items():
+        gt, gl, gk = (a[:, :cols] for a in g)
+        wt, wl, wk = (a[:, :cols] for a in want[label])
+        held = np.isfinite(wl) & (wl < bar)
+        cut += int((~held).sum())
+        timed = np.ones_like(held)
+        if label in adaptive:
+            forked = np.nonzero(((gk != wk) & held).any(axis=1))[0]
+            if len(forked) > (ENGINE_MAX_FORKS if time_rtol else 0):
+                raise AssertionError(f"{what}: {label}: {len(forked)} replicas forked in k: {forked.tolist()}")
+            forks += len(forked)
+            held[forked] = False
+            timed = held
+        elif not np.array_equal(gk, wk):
+            raise AssertionError(f"{what}: {label}: k differs")
+        t_gap = float(np.max(np.abs(gt[timed] - wt[timed]) / np.abs(wt[timed]), initial=0.0))
+        l_gap = float(np.max(np.abs(gl[held] - wl[held]) / np.abs(wl[held]), initial=0.0))
+        gaps = [max(gaps[0], t_gap), max(gaps[1], l_gap)]
+        if not (t_gap <= time_rtol and l_gap <= loss_rtol):
+            raise AssertionError(f"{what}: {label}: time gap {t_gap:.3e} or loss gap {l_gap:.3e} beyond "
+                                 f"{time_rtol} / {loss_rtol}")
+        if not np.isfinite(gt).all():
+            raise AssertionError(f"{what}: {label}: time not finite")
+    line = (f"{what}: time max rel gap {gaps[0]:.3e} (rtol {time_rtol}), loss {gaps[1]:.3e} (rtol {loss_rtol}), "
+            f"{forks} adaptive replicas forked; {cut} of {sum(g[1][:, :cols].size for g in got.values())} eval points "
+            f"past the divergence bar not held")
+    print("  " + line)
+    return line
+
+
+def byzantine_run(device: str, iters: int, threads: int):
+    """fig_byzantine's grid on ``device`` in a worker process: {label:
+    (time, loss, k) numpy} and the wall seconds."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch import quickstart
+
+    torch.set_num_threads(threads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data, keys = quickstart.inputs("byzantine", device=device)
+    eta = quickstart.step_size(data.X, quickstart.SETUPS["byzantine"]["edge_fraction"])
+    t0 = time.perf_counter()
+    out = quickstart.run_grid("byzantine", quickstart.cases("byzantine", eta=eta), data, keys, iters)
+    return cells_of(out), time.perf_counter() - t0
+
+
+def engine_faults() -> dict:
+    """Phase 10: the forced fault grid and fig_byzantine's grid at its
+    published size, each one program on the card: against eager, the looped
+    engine and (fig_byzantine) the CPU; repopulation without a capture; the
+    grid's ms an iteration, launches, capture, memory and device time; the
+    whole figure's wall time, its headline flags and times to target."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+    from repro_torch.core import controller, prng
+    from repro_torch.core.montecarlo import run_monte_carlo
+    from repro_torch.core.sweep import run_sweep, sweep_cache_stats
+    from repro_torch.data import make_linreg_data
+    from repro_torch.launch import quickstart
+
+    phase_t0 = time.perf_counter()
+    steps, step_t0 = {}, [time.perf_counter()]
+
+    def took(name):  # the seconds of each step, printed at the end
+        now = time.perf_counter()
+        steps[name], step_t0[0] = now - step_t0[0], now
+
+    cfg = quickstart.SETUPS["byzantine"]
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        cpu_f = pool.submit(byzantine_run, "cpu", BYZ_CPU_ITERS, 6)
+
+        # the forced grid: every family and robust aggregator over the three modes
+        f = FORCED
+        fdata = make_linreg_data(prng.PRNGKey(0), m=f["m"], d=f["d"], device="cuda")
+        lam = float(torch.linalg.eigvalsh(fdata.X.T @ fdata.X / f["m"]).max())
+        feta = 0.05 / (2 * lam)
+        fkeys = prng.split(prng.PRNGKey(5, device="cuda"), f["replicas"])
+        fcases = forced_cases(feta)
+        w0 = torch.zeros(f["d"], device="cuda")
+
+        def forced(cases, capture=True):
+            return run_sweep(quickstart.squared_error, w0, fdata.X, fdata.y, n_workers=f["n"], cases=cases,
+                             num_iters=f["iters"], eval_every=f["eval_every"], keys=fkeys, device="cuda",
+                             capture=capture)
+
+        print(f"[10] faults: the forced grid ({len(fcases)} cells: " + ", ".join(c.label for c in fcases)
+              + f"; n={f['n']}, m={f['m']}, d={f['d']}, R={f['replicas']}, {f['iters']} iterations)")
+        before = sweep_cache_stats()["traces"]
+        fgraph = cells_of(forced(fcases))
+        fcaptures = sweep_cache_stats()["traces"] - before
+        feager = cells_of(forced(fcases, capture=False))
+        diff = [lb for lb in fgraph if not all(np.array_equal(a, b, equal_nan=True)
+                                               for a, b in zip(fgraph[lb], feager[lb]))]
+        print(f"  forced grid: graph-replayed vs eager bitwise equal in {len(fgraph) - len(diff)}/{len(fgraph)} cells")
+        if diff:
+            raise AssertionError(f"forced grid: graph-replayed and eager runs differ in {diff}")
+        rows, worst = [], 0.0
+        for c in fcases:
+            res = run_monte_carlo(quickstart.squared_error, w0, fdata.X, fdata.y, n_workers=f["n"],
+                                  controller=c.controller, straggler=c.straggler, eta=c.eta, num_iters=f["iters"],
+                                  eval_every=f["eval_every"], keys=fkeys, mode=c.mode, fault=c.fault, agg=c.agg,
+                                  agg_param=c.agg_param, device="cuda")
+            lt, ll, lk = (getattr(res, n).cpu().numpy() for n in ("time", "loss", "k"))
+            gt, gl, gk = fgraph[c.label]
+            l_gap = float(np.max(np.abs(gl - ll) / np.abs(ll)))
+            worst = max(worst, l_gap)
+            rows.append(f"{c.label} loss {l_gap:.2e}")
+            if not (np.array_equal(gt, lt) and np.array_equal(gk, lk) and l_gap <= ENGINE_LOSS_RTOL):
+                raise AssertionError(f"forced grid, {c.label}: the grid and the looped cell differ beyond time and "
+                                     f"k bitwise, loss {ENGINE_LOSS_RTOL} ({l_gap:.3e})")
+            if not (np.isfinite(gl).all() and np.isfinite(gt).all()):
+                raise AssertionError(f"forced grid, {c.label}: time or loss not finite")
+        took_tol = FORCED_LOSS_RTOL if worst <= FORCED_LOSS_RTOL else ENGINE_LOSS_RTOL
+        print(f"  forced grid vs each cell looped on the card: time and k bitwise in every cell, loss within "
+              f"{took_tol} (max rel gap {worst:.3e}): " + "; ".join(rows))
+        before = sweep_cache_stats()["traces"]
+        frepop = cells_of(forced(forced_cases(feta * 0.8, frac=0.375)))
+        frepop_captures = sweep_cache_stats()["traces"] - before
+        print(f"  forced grid: {fcaptures} capture; repopulated with other fractions and eta: {frepop_captures}")
+        if (fcaptures, frepop_captures) != (1, 0) or all(np.array_equal(frepop[lb][1], fgraph[lb][1]) for lb in fgraph):
+            raise AssertionError(f"forced grid: expected one capture and none on repopulation, got {fcaptures} and "
+                                 f"{frepop_captures}, or the repopulated grid returned the first grid's losses")
+        took("forced grid")
+
+        # fig_byzantine's grid at its published size
+        data, keys = quickstart.inputs("byzantine", device="cuda")
+        eta = quickstart.step_size(data.X, cfg["edge_fraction"])
+        grid_cases = quickstart.cases("byzantine", eta=eta)
+        lanes = len(grid_cases) * cfg["replicas"]
+        adaptive = {c.label for c in grid_cases if isinstance(c.controller, controller.PflugController)}
+        bar = float(quickstart.squared_error(torch.zeros(cfg["d"], device="cuda"), data.X, data.y).mean())
+        print(f"[10] fig_byzantine's grid ({len(grid_cases)} cells x R={cfg['replicas']} = {lanes} lanes), "
+              f"n={cfg['n']}, m={cfg['m']}, d={cfg['d']}, eta {eta!r} (0.75 x 2/L); {BYZ_ITERS} iterations "
+              f"graph-replayed, {BYZ_EAGER_ITERS} eager, {BYZ_CPU_ITERS} on the CPU")
+
+        def grid(iters, capture=True, cases=grid_cases):
+            return quickstart.run_grid("byzantine", cases, data, keys, iters, capture)
+
+        torch.cuda.synchronize()
+        base_alloc, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        before = sweep_cache_stats()["traces"]
+        t0 = time.perf_counter()
+        graph = cells_of(grid(BYZ_ITERS))
+        first_s = time.perf_counter() - t0
+        peak_mb = (torch.cuda.max_memory_allocated() - base_alloc) / 1e6
+        pool_mb = (torch.cuda.memory_reserved() - base_reserved) / 1e6
+        captures = sweep_cache_stats()["traces"] - before
+
+        # repopulated: other sign-flip fractions and onsets, eta and k (the
+        # same signature and shapes); this replay is the grid's timed run
+        def other_plan(c):
+            if c.fault is None:
+                return None
+            n_bad = sum(m is not None for m in c.fault.models) + 1
+            return dataclasses.replace(c.fault, models=(None,) * (cfg["n"] - n_bad) + (
+                dataclasses.replace(c.fault.models[-1], onset=5.0),) * n_bad)
+
+        other = [dataclasses.replace(c, eta=eta * 0.8, fault=other_plan(c), controller=dataclasses.replace(
+            c.controller, **({"k": c.controller.k + 1} if hasattr(c.controller, "k") else {"k0": 2})))
+            for c in grid_cases]
+        before = sweep_cache_stats()["traces"]
+        repop = {}
+        t0 = time.perf_counter()
+        graph_ms = cuda_ms(lambda: repop.update(cells_of(grid(BYZ_ITERS, cases=other))), iters=1,
+                           warmup=0) / BYZ_ITERS
+        replay_s = time.perf_counter() - t0
+        new_captures = sweep_cache_stats()["traces"] - before
+        print(f"  grid, graph-replayed: {graph_ms:.4f} ms an iteration ({lanes} lanes); first run {first_s:.2f} s, a "
+              f"replayed run (repopulated with other fractions, onsets, eta and k) {replay_s:.2f} s: "
+              f"{first_s - replay_s:.2f} s to build and capture ({captures} capture, {new_captures} on repopulation); "
+              f"peak memory {peak_mb:.2f} MB above the {base_alloc / 1e6:.2f} MB held before it, reserved memory "
+              f"(the graph pool) grew {pool_mb:.2f} MB")
+        if captures != 1 or new_captures != 0:
+            raise AssertionError(f"expected one capture for the grid and none on repopulation, got {captures} and "
+                                 f"{new_captures}")
+        if all(np.array_equal(repop[c.label][1], graph[c.label][1]) for c in grid_cases):
+            raise AssertionError("the repopulated grid returned the first grid's losses")
+
+        # a random_gauss plan is another fault family, so another signature:
+        # one capture for its grid, none for its repopulation with other scales
+        def gauss_cases(scale):
+            return [dataclasses.replace(c, fault=None if c.fault is None else dataclasses.replace(
+                c.fault, models=tuple(None if m is None else dataclasses.replace(
+                    m, family="random_gauss", param=scale) for m in c.fault.models))) for c in grid_cases]
+
+        before = sweep_cache_stats()["traces"]
+        g1 = cells_of(grid(BYZ_EAGER_ITERS, cases=gauss_cases(1.0)))
+        mid = sweep_cache_stats()["traces"]
+        g2 = cells_of(grid(BYZ_EAGER_ITERS, cases=gauss_cases(4.0)))
+        gauss_captures = (mid - before, sweep_cache_stats()["traces"] - mid)
+        print(f"  the grid with random_gauss in place of sign_flip: {gauss_captures[0]} capture; repopulated with "
+              f"another noise scale: {gauss_captures[1]} captures")
+        if gauss_captures != (1, 0) or all(np.array_equal(g1[lb][1], g2[lb][1]) for lb in g1):
+            raise AssertionError(f"gauss grid: expected (1, 0) captures and other losses, got {gauss_captures}")
+        took("grid")
+
+        # graph-replayed against eager, bitwise
+        t0 = time.perf_counter()
+        eager = cells_of(grid(BYZ_EAGER_ITERS, capture=False))
+        eager_s = time.perf_counter() - t0
+        short = cells_of(grid(BYZ_EAGER_ITERS))
+        diff = [lb for lb in short if not all(np.array_equal(a, b, equal_nan=True)
+                                              for a, b in zip(short[lb], eager[lb]))]
+        print(f"  grid, eager: {eager_s / BYZ_EAGER_ITERS * 1e3:.1f} ms an iteration (host clock); graph-replayed vs "
+              f"eager at iteration {BYZ_EAGER_ITERS} bitwise equal in {len(short) - len(diff)}/{len(short)} cells")
+        if diff:
+            raise AssertionError(f"fig_byzantine grid: graph-replayed and eager runs differ in {diff}")
+        took("eager")
+
+        # each cell looped on the card; a looped cell of each aggregator timed
+        looped = {}
+        for c in grid_cases:
+            res = quickstart.run_case("byzantine", c, data, keys, BYZ_ITERS)
+            looped[c.label] = tuple(getattr(res, f).cpu().numpy() for f in ("time", "loss", "k"))
+        hold_byzantine("grid vs each cell looped on the card", graph, looped, adaptive, bar, loss_rtol=ENGINE_LOSS_RTOL)
+        looped_ms = {}
+        for label in ("k16|mean|byz30", "k16|gm|byz30"):
+            c = next(c for c in grid_cases if c.label == label)
+            looped_ms[label] = cuda_ms(lambda: quickstart.run_case("byzantine", c, data, keys, BYZ_ITERS), iters=1,
+                                       warmup=0) / BYZ_ITERS
+        print(f"  a looped cell (R={cfg['replicas']}), graph-replayed: " + ", ".join(
+            f"{lb} {ms:.4f} ms an iteration" for lb, ms in looped_ms.items()))
+        took("looped")
+
+        # kernels an iteration (graph-replayed runs of 2 and 1 iterations), and the device's time
+        def graph_launches(run):
+            run(1), run(2)  # capture both programs before they are counted
+            return count_kernels(lambda: run(2)) - count_kernels(lambda: run(1))
+
+        launches = {"grid": graph_launches(grid)}
+        for label in ("k16|mean|byz30", "k16|gm|byz30"):
+            c = next(c for c in grid_cases if c.label == label)
+            launches[label] = graph_launches(lambda iters, c=c: quickstart.run_case("byzantine", c, data, keys, iters))
+        print("  kernels an iteration (graph-replayed, torch.profiler): " + ", ".join(
+            f"{k} {v}" for k, v in launches.items()))
+        grid(PROFILE_ITERS)  # captures this program's graphs before they are timed
+        prof_ms = cuda_ms(lambda: grid(PROFILE_ITERS), iters=2, warmup=0)
+        device_breakdown(lambda: grid(PROFILE_ITERS), f"grid, {PROFILE_ITERS} iterations graph-replayed", prof_ms,
+                         top=8)
+        took("launches and profile")
+
+        # the whole figure, graph-replayed (its own program: another iteration count)
+        torch.cuda.synchronize()
+        base_alloc = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = quickstart.run("byzantine", device="cuda")
+        fig_peak_mb = (torch.cuda.max_memory_allocated() - base_alloc) / 1e6
+        flags, t_to = quickstart.headline(out), quickstart.time_to_target(out)
+        print(f"  the whole figure ({cfg['iters']} iterations, {len(out['cases'])} cells as one grid): "
+              f"{out['wall_s']:.2f} s, capture included; peak memory {fig_peak_mb:.2f} MB above the "
+              f"{base_alloc / 1e6:.2f} MB held before it")
+        print(f"  headline at k = 16, 30% sign flips: weighted mean final excess {flags['excess_mean_k16_b30']:.6g} "
+              f"(diverged: {flags['mean_diverged_b30']}), geometric median {flags['excess_gm_k16_b30']:.6g} "
+              f"(recovered: {flags['gm_recovered_b30']})")
+        print("  simulated time to 1e-3 of the initial excess: " + ", ".join(
+            f"{lb} {'not reached' if t is None else f'{t:.1f}'}" for lb, t in t_to.items()))
+        took("whole figure")
+        cpu, cpu_s = cpu_f.result()
+        took("waiting for the CPU")
+
+    print(f"  the grid on the CPU, {BYZ_CPU_ITERS} iterations in a worker process: {cpu_s:.1f} s")
+    hold_byzantine(f"grid vs the CPU at iteration {BYZ_CPU_ITERS}", graph, cpu, adaptive, bar,
+                   cols=BYZ_CPU_ITERS // cfg["eval_every"], time_rtol=ENGINE_TIME_RTOL, loss_rtol=ENGINE_LOSS_RTOL)
+    print(f"  phase 10 took {time.perf_counter() - phase_t0:.1f} s: " + ", ".join(
+        f"{name} {sec:.1f} s" for name, sec in steps.items()))
+    return {"graph_ms": graph_ms, "looped_ms": looped_ms, "launches": launches, "peak_mb": peak_mb,
+            "pool_mb": pool_mb, "capture_s": first_s - replay_s, "figure_s": out["wall_s"], "flags": flags}
+
+
 def prng_key(seed: int):
     from repro_torch.core import prng
 
@@ -1349,7 +1694,10 @@ def main() -> int:
     # 9. the async modes: fig_async's mixed-mode grid as one program (no kernel of the port on its path)
     engine_async()
 
-    # 10. summary
+    # 10. faults and robust aggregation: the forced grid and fig_byzantine's grid (no kernel of the port on their path)
+    engine_faults()
+
+    # 11. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",

@@ -3,7 +3,11 @@
 Modules (each the torch port of the JAX package's module of that name):
   prng         — threefry-2x32 reproducing the engine's `jax.random` calls
   straggler    — response-time models, fleets, rate schedules, analytics
-  aggregation  — fastest-k ranks, masks, order statistics, weighted loss
+  aggregation  — fastest-k ranks, masks, order statistics, weighted loss,
+                 and the robust aggregators (trimmed mean, coordinate
+                 median, Weiszfeld geometric median)
+  faults       — per-worker Byzantine and crash faults (FaultPlan) as
+                 transforms on sampled times and gradients
   gradsource   — the GradSource protocol and PerExampleSource
   execmode     — the sync, K-async and K-batch-async modes as one carry
   controller   — Pflug (Algorithm 1), sketched Pflug, fixed k, the
@@ -16,14 +20,15 @@ Modules (each the torch port of the JAX package's module of that name):
   simulate     — the R = 1 wrapper
   async_sim    — event-driven asynchronous SGD (fig3's baseline)
 
-Faults, robust aggregation, the sweep's mesh and the persistent cache are
-not ported yet (ROADMAP Queue 1).
+The sweep's mesh and the persistent cache are not ported yet (ROADMAP
+Queue 1 items 13 and 12).
 """
 
 from repro_torch.core import (  # noqa: F401
     aggregation,
     controller,
     execmode,
+    faults,
     gradsource,
     montecarlo,
     prng,
@@ -40,6 +45,7 @@ from repro_torch.core.controller import (  # noqa: F401
     VarianceRatioController,
     get_controller,
 )
+from repro_torch.core.faults import FaultModel, FaultPlan, byzantine_plan  # noqa: F401
 from repro_torch.core.gradsource import GradSource, PerExampleSource, SourceFns  # noqa: F401
 from repro_torch.core.montecarlo import (  # noqa: F401
     MonteCarloResult,

@@ -1,5 +1,5 @@
-"""Fastest-k gradient aggregation, in torch (the main-path half of
-`repro.core.aggregation`).
+"""Fastest-k gradient aggregation and the robust aggregators, in torch (the
+port of `repro.core.aggregation`).
 
 The paper's update (eq. 2) is  w_{j+1} = w_j - (eta/k) sum_{i in R_j} grad F(S_i, w_j),
 with R_j the k workers that answer first.  It is realized as the gradient of
@@ -12,6 +12,13 @@ Written for one replica (the engine maps it over R with `torch.func.vmap`);
 ranks, masks and order statistics also take leading batch dimensions.  No
 function here synchronises with the host or builds a tensor from host data,
 so each can be captured in a CUDA graph.
+
+The robust aggregators (the Byzantine-fault axis, `faults`) work on the
+per-worker gradient rows instead of their mask-weighted sum: a
+per-coordinate trimmed mean, a per-coordinate median, and the geometric
+median by a fixed number of Weiszfeld iterations.  `make_robust_select`
+makes them a per-cell select over the mean path's gradient, so a mean cell
+in a robust program keeps its gradient bit for bit.
 """
 
 from __future__ import annotations
@@ -20,8 +27,10 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch.core.straggler import StragglerModel
+from repro_torch.core.tree import map_with_index, tree_leaves
 
 __all__ = [
     "CommModel",
@@ -37,11 +46,17 @@ __all__ = [
     "fastest_k_draw",
     "active_worker_mean_loss",
     "AGG_KINDS",
+    "AGG_MEAN",
+    "AGG_TRIMMED",
+    "AGG_MEDIAN",
+    "AGG_GEOMEDIAN",
+    "WEISZFELD_ITERS",
+    "trimmed_mean_rows",
+    "coordinate_median_rows",
+    "geometric_median_rows",
+    "make_robust_select",
+    "fastest_k_iteration",
 ]
-
-# The reference's aggregator kinds; only "mean" is ported (robust
-# aggregation is ROADMAP Queue 1 item 10).
-AGG_KINDS = {"mean": 0, "trimmed": 1, "median": 2, "geomedian": 3}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,3 +182,137 @@ def active_worker_mean_loss(per_example_losses: torch.Tensor, n_active, n_slots:
     masked = torch.dot(shard_sums, active) / (torch.clamp_min(n_active, 1).to(dtype) * s)
     masked = torch.where(n_active == 0, float("inf"), masked)
     return torch.where(n_active == n_slots, full, masked)
+
+
+# --------------------------------------------------------- robust aggregation
+
+# The reference's aggregator kinds, the sweep's select indices.  Append;
+# never reorder.
+AGG_KINDS = {"mean": 0, "trimmed": 1, "median": 2, "geomedian": 3}
+AGG_MEAN, AGG_TRIMMED, AGG_MEDIAN, AGG_GEOMEDIAN = range(4)
+
+# Weiszfeld's iteration count, fixed so that every robust program runs the
+# same ops (the reference's).
+WEISZFELD_ITERS = 8
+_WEISZFELD_EPS = 1e-12
+
+
+def _sorted_masked(mat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Each column of the (n_slots, D) rows sorted ascending, the rows of
+    non-participants first set to +inf: rows 0..k-1 hold the k arrived
+    values.  A stable sort, as `jnp.sort`: -0.0 and 0.0 keep their order."""
+    vals = torch.where(mask[:, None] > 0, mat, float("inf"))
+    return torch.sort(vals, dim=0, stable=True).values
+
+
+def _row_at(svals: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Row ``i`` (a tensor index) of ``svals``, gathered: exact for every
+    value, a -0.0 included, which a one-hot sum would turn into 0.0."""
+    idx = i.to(torch.int64).reshape(1, 1).expand(1, svals.shape[1])
+    return svals.gather(0, idx)[0]
+
+
+def trimmed_mean_rows(mat: torch.Tensor, mask: torch.Tensor, k: torch.Tensor, trim_frac) -> torch.Tensor:
+    """Per coordinate, the mean of the k arrived values without their
+    ``t = floor(trim_frac * k)`` smallest and largest (t at most (k-1)//2,
+    so one value always remains).  ``trim_frac`` is a lane's f32 leaf or a
+    float."""
+    n = mat.shape[0]
+    t = torch.floor(trim_frac * k.to(torch.float32)).to(torch.int32)
+    t = torch.minimum(t, (k - 1) // 2)
+    svals = _sorted_masked(mat, mask)
+    pos = torch.arange(n, dtype=torch.int32, device=mat.device)[:, None]
+    keep = (pos >= t) & (pos <= k - 1 - t)
+    cnt = (k - 2 * t).to(mat.dtype)
+    return torch.where(keep, svals, 0.0).sum(dim=0) / cnt
+
+
+def coordinate_median_rows(mat: torch.Tensor, mask: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Per coordinate, the median of the k arrived values (the middle one
+    for odd k, the mean of the two middle ones for even k)."""
+    svals = _sorted_masked(mat, mask)
+    lo = _row_at(svals, (k - 1) // 2)
+    hi = _row_at(svals, k // 2)
+    return 0.5 * (lo + hi)
+
+
+def geometric_median_rows(mat: torch.Tensor, mask: torch.Tensor, k: torch.Tensor,
+                          n_iter: int = WEISZFELD_ITERS) -> torch.Tensor:
+    """The geometric median of the arrived rows by ``n_iter`` Weiszfeld
+    iterations from their mean: ``y <- sum_i w_i x_i / sum_i w_i`` with
+    ``w_i = mask_i / max(||x_i - y||, eps)``.  The eps clamp makes rows that
+    all coincide a fixed point and keeps a 0/0 out when y lands on a row."""
+    kf = k.to(mat.dtype)
+    y = torch.tensordot(mask, mat, dims=1) / kf
+    for _ in range(n_iter):
+        diff = mat - y[None, :]
+        d = torch.sqrt((diff * diff).sum(dim=1))
+        w = mask / torch.clamp_min(d, _WEISZFELD_EPS)
+        y = torch.tensordot(w, mat, dims=1) / w.sum()
+    return y
+
+
+def _flatten_rows(rows):
+    """A pytree of (n_slots, ...) leaves as ((n_slots, D) f32 rows, its leaves
+    concatenated in JAX's order) and ``unflatten(vec)``, a params-shaped
+    pytree of the vector's pieces."""
+    leaves = tree_leaves(rows)
+    n = leaves[0].shape[0]
+    mat = torch.cat([leaf.reshape(n, -1).to(torch.float32) for leaf in leaves], dim=1)
+    offsets = [0]
+    for leaf in leaves:
+        offsets.append(offsets[-1] + leaf[0].numel())
+
+    def unflatten(vec):
+        return map_with_index(
+            lambda j, leaf: vec[offsets[j]:offsets[j + 1]].reshape(leaf.shape[1:]).to(leaf.dtype), rows)
+
+    return mat, unflatten
+
+
+def make_robust_select(agg_kind, agg_param, present: tuple):
+    """``select(mean_g, rows, mask, k) -> g``, the per-cell aggregator over
+    the per-worker rows, or None when ``present`` (the static set of kinds
+    the program runs) holds only the mean.  Only the robust kinds present
+    are computed; ``agg_kind`` and ``agg_param`` are a lane's leaves or (the
+    looped engine) an int and a float, whose selects fold away here.  A mean
+    cell takes ``mean_g`` through the `torch.where` chain unchanged."""
+    robust = tuple(sorted(set(present) - {AGG_MEAN}))
+    if not robust:
+        return None
+
+    def select(mean_g, rows, mask, k):
+        mat, unflatten = _flatten_rows(rows)
+        g = mean_g
+        for kind in robust:
+            if isinstance(agg_kind, int) and agg_kind != kind:
+                continue
+            if kind == AGG_TRIMMED:
+                val = trimmed_mean_rows(mat, mask, k, agg_param)
+            elif kind == AGG_MEDIAN:
+                val = coordinate_median_rows(mat, mask, k)
+            elif kind == AGG_GEOMEDIAN:
+                val = geometric_median_rows(mat, mask, k)
+            else:
+                raise ValueError(f"unknown aggregator kind {kind}")
+            vg = unflatten(val)
+            if isinstance(agg_kind, int):
+                g = vg
+            else:
+                g = tree_map(lambda a, b, _kind=kind: torch.where(agg_kind == _kind, b, a), g, vg)
+        return g
+
+    return select
+
+
+def fastest_k_iteration(model: StragglerModel, key: torch.Tensor, n_workers: int, k: torch.Tensor,
+                        examples_per_worker: int, comm: Optional[CommModel] = None):
+    """(per-example weights, mask, iteration time) of one draw, ranks shared
+    between the mask and the order statistic: eq. (2)'s reference form
+    (the engines use `fastest_k_draw` and `fastest_k_weighted_loss`)."""
+    times = sample_worker_times(model, key, n_workers)
+    ranks = worker_ranks(times)
+    mask = (ranks < k).to(times.dtype)
+    weights = per_example_weights(mask, k, examples_per_worker)
+    t = _time_from_ranks(ranks, times, k, comm)
+    return weights, mask, t

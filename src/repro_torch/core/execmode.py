@@ -29,9 +29,10 @@ op reads the host and every step can be captured in a CUDA graph.  Both
 engines build their steps from `make_mode_prelude_and_tails`, so a sweep
 cell is the looped engine's run of that cell, op for op.
 
-Faults and robust aggregation (the reference's ``faults=`` and
-``robust_agg=``) are not ported: their hooks pass through here, and any
-other value raises (ROADMAP Queue 1 item 10).
+Faults (`faults.FaultFns`) and robust aggregation
+(`aggregation.make_robust_select`) thread through every mode as the
+reference's ``faults=`` and ``robust_agg=``; without them the tails run
+none of that machinery, op for op the fault-free program.
 """
 
 from __future__ import annotations
@@ -214,30 +215,65 @@ def make_mode_prelude_and_tails(
 
     ``comm_time=None`` leaves out the receive cost (``+ 0.0`` everywhere it
     would appear).  ``apply_update`` defaults to plain SGD, ``p - eta * g``,
-    with ``opt_state`` passed through.  ``faults`` and ``robust_agg`` must
-    be None: the hooks that take them (``corrupted_grad``,
-    ``hold_if_dead``) pass through.
+    with ``opt_state`` passed through.
+
+    ``faults`` (a `faults.FaultFns`) and ``robust_agg`` (a
+    `aggregation.make_robust_select` result) default to None, and then none
+    of their machinery runs.  Fault onsets are judged at the event's start
+    time, in every mode.  Inside a faulty program a healthy cell multiplies
+    by exactly 1.0 and passes `torch.where` selects unchanged:
+
+    * crash: ``faults.time`` sets crashed-past-onset clocks to +inf after
+      the draw and the renewal, so the ranking falls back to the survivors;
+      once fewer than k survive, the event lasts +inf, and once none does,
+      the parameters hold (``hold_if_dead``).  The ``isfinite`` selects keep
+      inf - inf out of the carried clocks.
+    * gradient faults scale the eq.-(2) mask (sign_flip -1, rescale param,
+      random_gauss 0 with its noise added beside, gated per cell on
+      ``faults.any_gauss`` so that a gauss-free cell adds nothing).
+    * ``robust_agg(mean_g, rows, mask, k)`` selects the cell's aggregator
+      over the per-worker shard-gradient rows (sync: at the master's
+      params; kasync: at each worker's snapshot), after the same faults
+      applied row by row.  kbatch has no row stack (its arrivals come one
+      at a time) and ignores it; the engines refuse robust kbatch cells.
     """
-    if faults is not None or robust_agg is not None:
-        raise NotImplementedError(
-            "faults and robust aggregation in the mode tails wait for the port of core/faults.py and the robust "
-            "half of core/aggregation.py (ROADMAP Queue 1 item 10)")
     if apply_update is None:
 
         def apply_update(params, g, opt_state):
             return tree_map(lambda pa, gi: pa - eta * gi, params, g), opt_state
 
+    has_crash = faults is not None and faults.time is not None
+    has_grad_fault = faults is not None and faults.weight is not None
+    has_gauss = faults is not None and faults.noise_rows is not None
+
     def corrupted_grad(mean_grad_fn, rows_wp, arrive_f, k, sub, t0):
-        """The fault transforms and the robust select of item 10; without
-        them, the mode's eq.-(2) gradient ``mean_grad_fn(mask, k)``."""
-        del rows_wp, sub, t0
-        return mean_grad_fn(arrive_f, k)
+        """The mode's eq.-(2) gradient ``mean_grad_fn(mask, k)`` with the
+        fault transforms and the cell's robust select; ``rows_wp`` is the
+        (n_slots,)-stacked params the rows are taken at."""
+        mask_g = arrive_f * faults.weight(t0) if has_grad_fault else arrive_f
+        g = mean_grad_fn(mask_g, k)
+        z = faults.noise_rows(sub, t0) if has_gauss else None
+        if has_gauss:
+            kf = k.to(torch.float32)
+            g = tree_map(lambda gl, zl: torch.where(faults.any_gauss, gl + torch.tensordot(arrive_f, zl, dims=1) / kf,
+                                                    gl), g, z)
+        if robust_agg is not None:
+            # row i: slot i's unweighted shard-mean gradient at its own params,
+            # through the source's shard_grad_at (the robust aggregators' input)
+            slots = torch.arange(n_slots, device=arrive_f.device)
+            rows = torch.func.vmap(lambda i: shard_grad_at(rows_wp, i))(slots)
+            if faults is not None and faults.row_faults is not None:
+                rows = faults.row_faults(rows, z, t0)
+            g = robust_agg(g, rows, arrive_f, k)
+        return g
 
     def hold_if_dead(params, old_params, remaining):
-        """Item 10's crash pin (parameters hold once every clock is +inf);
-        without crashes, the new parameters."""
-        del old_params, remaining
-        return params
+        """The parameters hold once every clock is +inf (the event's time is
+        +inf already, through the order statistic)."""
+        if not has_crash:
+            return params
+        alive = torch.isfinite(remaining).any()
+        return tree_map(lambda a, b: torch.where(alive, a, b), params, old_params)
 
     def prelude(carry: ExecCarry, with_ranking: bool = True) -> ModePrelude:
         keys = prng.split(carry.key)
@@ -245,6 +281,8 @@ def make_mode_prelude_and_tails(
         if not with_ranking:
             return ModePrelude(new_key=keys[0], sub=keys[1], k=k)
         remaining = renewal_remaining(draw(keys[1], carry.sim_time), carry.pending, carry.remaining)
+        if has_crash:
+            remaining = faults.time(remaining, carry.sim_time)
         # the sync primitive over the residual clocks: the arrivals are the K
         # smallest, the event lasts the K-th
         arrive_f, tau = aggregation.fastest_k_mask_time(remaining, k)
@@ -256,7 +294,10 @@ def make_mode_prelude_and_tails(
         # the fresh eq.-(2) gradient at the master's params; the async fields
         # pass through
         k = p.k
-        g = corrupted_grad(lambda m, kk: sync_grad(carry.params, m, kk), None, p.arrive_f, k, p.sub,
+        rows_wp = None
+        if robust_agg is not None:
+            rows_wp = tree_map(lambda q: q.unsqueeze(0).expand((n_slots,) + tuple(q.shape)), carry.params)
+        g = corrupted_grad(lambda m, kk: sync_grad(carry.params, m, kk), rows_wp, p.arrive_f, k, p.sub,
                            carry.sim_time)
         params, opt_state = apply_update(carry.params, g, carry.opt_state)
         params = hold_if_dead(params, carry.params, p.remaining)
@@ -287,8 +328,11 @@ def make_mode_prelude_and_tails(
         staleness = torch.where(arrive, 0, carry.staleness + 1)
         # in-flight tasks run through the receive window too: their clocks
         # tick by the whole event; one ending inside it surfaces next event
-        # (the clamp is a no-op without comm; +inf clocks stay +inf)
+        # (the clamp is a no-op without comm; +inf clocks stay +inf, and with
+        # crashes the select keeps inf - inf out when the event lasts +inf)
         rem_next = torch.clamp_min(remaining - p.t_iter, 0.0)
+        if has_crash:
+            rem_next = torch.where(torch.isfinite(remaining), rem_next, float("inf"))
         return ExecCarry(params=params, worker_params=worker_params, remaining=rem_next, staleness=staleness,
                          pending=~arrive, ctrl_state=ctrl_state, sim_time=sim_time, key=p.new_key,
                          opt_state=opt_state), k
@@ -304,6 +348,14 @@ def make_mode_prelude_and_tails(
         keys = prng.split(p.sub)
         key = keys[0]
         remaining = renewal_remaining(draw(keys[1], carry.sim_time), carry.pending, carry.remaining)
+        if has_crash:
+            remaining = faults.time(remaining, carry.sim_time)
+        # the faults of this event, judged at its start (a completer landing
+        # several gradients reuses its one noise row)
+        t0 = carry.sim_time
+        w_mult = faults.weight(t0) if has_grad_fault else None
+        z_rows = faults.noise_rows(p.sub, t0) if has_gauss else None
+        g_mask = faults.gauss_mask(t0) if has_gauss else None
         gsum = tree_map(lambda a: torch.zeros_like(a, dtype=torch.float32), carry.params)
         zero_i = torch.zeros((), dtype=torch.int32, device=k.device)
         rem, stal, wp, ssum, smax = remaining, carry.staleness, carry.worker_params, zero_i, zero_i
@@ -319,6 +371,14 @@ def make_mode_prelude_and_tails(
             first = hit & (before == 1)
             i_star = (before == 0).sum()
             g_e = shard_grad_at(wp, i_star)
+            if has_grad_fault:
+                # the completer's contribution scaled (a healthy one by 1.0)
+                m_i = _pick_slot(w_mult, first)
+                g_e = tree_map(lambda a: m_i * a, g_e)
+            if has_gauss:
+                # and a gauss completer's replaced by its noise row
+                gz_i = (first & g_mask).any()
+                g_e = tree_map(lambda a, zl: torch.where(gz_i, _pick_slot(zl, first), a), g_e, z_rows)
             w = torch.where(active, 1.0, 0.0)
             gsum = tree_map(lambda a, b: a + w * b, gsum, g_e)
             stal_e = torch.where(active, torch.where(first, stal, 0).sum(dtype=torch.int32), 0)
@@ -329,7 +389,13 @@ def make_mode_prelude_and_tails(
             # a whole (n_slots,) draw of which the completer's entry is kept,
             # as the reference draws it
             redraw = draw(keys[1], carry.sim_time + tau_sum + tau_e)
-            rem_next = torch.where(active, rem - tau_e, rem)
+            rem_minus = rem - tau_e
+            if has_crash:
+                # a crashed worker's redispatch never completes either, and
+                # +inf clocks would tick by inf - inf
+                redraw = faults.time(redraw, carry.sim_time + tau_sum + tau_e)
+                rem_minus = torch.where(torch.isfinite(rem), rem_minus, float("inf"))
+            rem_next = torch.where(active, rem_minus, rem)
             rem = torch.where(first, torch.where(active, redraw, rem), rem_next)
             taken = active & first
             stal = torch.where(taken, 0, stal)

@@ -12,7 +12,11 @@ iterations the mean loss is evaluated and (time, loss, k) recorded.
 step above; ``"kasync"`` and ``"kbatch"`` run `execmode.make_mode_steps`
 over the renewal carry (`execmode.ExecCarry`), where the controller's k is
 K (arrivals an update), its update gets the arrivals' staleness
-(`execmode.ExecStats`), and an iteration is one master update.  The sweep
+(`execmode.ExecStats`), and an iteration is one master update.  ``fault``
+(a `faults.FaultPlan`) and a robust ``agg`` route any mode, sync included,
+through the mode steps, whose tails carry the fault transforms and the
+robust select (`faults.make_fault_fns`, `aggregation.make_robust_select`
+over the packed per-slot rows, tensors the program holds).  The sweep
 builds its lanes from the same tails, so its cells are this engine's runs.
 
 On a CUDA device (the default) `unroll` consecutive iterations are
@@ -32,8 +36,6 @@ unroll, mode, fault, agg) plus the device, the capture flag and the
 threefry mode.  `program_cache_stats()["traces"]` counts builds: one for
 each program and each new signature of its inputs (the graphs of that
 signature captured once), as `jit` retraces on new shapes.
-
-Faults and robust aggregation wait for ROADMAP Queue 1 item 10.
 
     keys = prng.split(prng.PRNGKey(0), 32)
     result = run_monte_carlo(loss_fn, w0, X, y, n_workers=50,
@@ -58,7 +60,7 @@ from torch.utils import _pytree
 from torch.utils._pytree import tree_map
 
 from repro_torch import resolve_device
-from repro_torch.core import aggregation, execmode, prng
+from repro_torch.core import aggregation, execmode, faults, prng
 from repro_torch.core.execmode import MODES
 from repro_torch.core.gradsource import GradSource, PerExampleSource
 from repro_torch.core.straggler import (
@@ -274,15 +276,32 @@ def make_step(source: GradSource, data, n_workers: int, controller, straggler, c
     return torch.func.vmap(one_step), torch.func.vmap(_mean_loss(fns, straggler, n_active))
 
 
+def _robustness_fns(fault, agg: str, agg_param: float, straggler, n_workers: int, params_like, dev: torch.device):
+    """(`faults.FaultFns` or None, robust select or None) of one looped
+    configuration: the plan packed to per-slot tensors on ``dev``, and the
+    aggregator's select over the kinds {mean, ``agg``}."""
+    n_active = straggler.n_active if isinstance(straggler, WorkerFleet) else n_workers
+    packed = (torch.from_numpy(a).to(dev) for a in faults.pack_faults(fault, n_workers, n_active))
+    fault_fns = faults.make_fault_fns(*packed, faults.plan_kinds_present(fault), params_like, n_workers)
+    kind = aggregation.AGG_KINDS[agg]
+    robust = aggregation.make_robust_select(kind, float(agg_param), tuple(sorted({aggregation.AGG_MEAN, kind})))
+    return fault_fns, robust
+
+
 def make_mode_step(source: GradSource, data, n_workers: int, controller, straggler, comm, eta: float, mode: str,
-                   n_active: Optional[torch.Tensor] = None):
+                   n_active: Optional[torch.Tensor] = None, fault=None, agg: str = "mean", agg_param: float = 0.1,
+                   params_like=None):
     """`make_step` for any mode: ``mode``'s step from `execmode.make_mode_steps`
-    over the `execmode.ExecCarry` of R replicas.  The controller's update
-    gets the `execmode.ExecStats` of each update; a user controller whose
+    over the `execmode.ExecCarry` of R replicas, with the faults of
+    ``fault`` and the aggregator ``agg`` (``params_like``: one replica's
+    params, the shapes of the gauss noise).  The controller's update gets
+    the `execmode.ExecStats` of each update; a user controller whose
     ``update`` takes three arguments is called without them, as the
     reference tolerates."""
     stale_grad, shard_grad_at = source.build_stale(data, n_workers)
     fns = source.build(data, n_workers)
+    dev = _pytree.tree_leaves(data)[0].device
+    fault_fns, robust = _robustness_fns(fault, agg, agg_param, straggler, n_workers, params_like, dev)
     try:
         accepts_stats = len(inspect.signature(controller.update).parameters) >= 4
     except (TypeError, ValueError):  # builtins and other callables without a signature
@@ -294,9 +313,10 @@ def make_mode_step(source: GradSource, data, n_workers: int, controller, straggl
         return controller.update(state, g, sim_time)
 
     steps = execmode.make_mode_steps(
-        n_slots=n_workers, draw=_sampler(straggler, n_workers, _pytree.tree_leaves(data)[0].device),
+        n_slots=n_workers, draw=_sampler(straggler, n_workers, dev),
         sync_grad=fns.grad, stale_grad=stale_grad, shard_grad_at=shard_grad_at,
         comm_time=comm.time if comm is not None else None, eta=eta, ctrl_update=ctrl_update, ctrl_k=_ctrl_k,
+        faults=fault_fns, robust_agg=robust,
     )
     dims = execmode.CARRY_DIMS
     step = torch.func.vmap(steps[MODES[mode]], in_dims=(dims,), out_dims=(dims, 0))
@@ -367,15 +387,25 @@ class _Engine:
     comm: Optional[aggregation.CommModel]
     eta: float
     mode: str = "sync"
+    fault: Optional[faults.FaultPlan] = None
+    agg: str = "mean"
+    agg_param: float = 0.1
+
+    @property
+    def moded(self) -> bool:
+        """Whether the step is a mode tail's: any async mode, fault or robust
+        aggregator (the lean sync step runs none of them)."""
+        return self.mode != "sync" or self.fault is not None or self.agg != "mean"
 
     def build(self, inputs: _Inputs):
         args = (self.source, inputs.data, self.n_workers, self.controller, self.straggler, self.comm, self.eta)
-        if self.mode == "sync":
+        if not self.moded:
             return make_step(*args, n_active=inputs.n_active)
-        return make_mode_step(*args, self.mode, n_active=inputs.n_active)
+        return make_mode_step(*args, self.mode, n_active=inputs.n_active, fault=self.fault, agg=self.agg,
+                              agg_param=self.agg_param, params_like=inputs.params0)
 
     def initial(self, inputs: _Inputs):
-        if self.mode == "sync":
+        if not self.moded:
             return initial_carry(self.controller, inputs.params0, inputs.keys)
         return initial_exec_carry(self.controller, inputs.params0, self.n_workers, inputs.keys)
 
@@ -551,7 +581,10 @@ def run_monte_carlo_source(
     `prng` keys), or pass ``key`` and ``n_replicas`` to split one.
     ``capture`` (CUDA only) replays CUDA graphs of ``unroll`` iterations
     (None: `default_unroll` of the mode); False runs the same step eagerly.  The threefry mode in force
-    (`prng.set_partitionable`) applies to the whole run.
+    (`prng.set_partitionable`) applies to the whole run.  ``fault`` is a
+    `faults.FaultPlan` or None, ``agg`` an `aggregation.AGG_KINDS` name
+    (robust ones refused in kbatch mode) with ``agg_param`` the trimmed
+    mean's trim fraction.
     """
     dev = resolve_device(device)
     if keys is None:
@@ -574,14 +607,13 @@ def run_monte_carlo_source(
             f"robust aggregation ({agg!r}) is not supported in kbatch mode — kbatch arrivals are "
             "sequential, there is no per-worker row stack to aggregate"
         )
+    if fault is not None and not isinstance(fault, faults.FaultPlan):
+        raise ValueError(f"fault must be a faults.FaultPlan or None, got {fault!r}")
     if isinstance(straggler, WorkerFleet):
         cn = getattr(controller, "n_workers", None)
         if cn is not None and cn != straggler.n_active:
             raise ValueError(f"fleet has {straggler.n_active} models but controller.n_workers={cn}")
-    if fault is not None or agg != "mean":
-        raise NotImplementedError(
-            "faults and robust aggregation wait for the port of core/faults.py and the robust half of "
-            "core/aggregation.py (ROADMAP Queue 1 item 10)")
+    faults.pack_faults(fault, n_workers, straggler.n_active if isinstance(straggler, WorkerFleet) else n_workers)
 
     if unroll is None:
         unroll = default_unroll(mode)
@@ -594,7 +626,8 @@ def run_monte_carlo_source(
     )
     program = _PROGRAM_CACHE.get(cache_key)
     if program is None:
-        engine = _Engine(source, n_workers, controller, straggler, comm, float(eta), str(mode))
+        engine = _Engine(source, n_workers, controller, straggler, comm, float(eta), str(mode), fault, str(agg),
+                         float(agg_param))
         program = _Program(engine, int(num_iters), int(eval_every), unroll, capture, partitionable, _count_build)
         _PROGRAM_CACHE[cache_key] = program
     n_active = None

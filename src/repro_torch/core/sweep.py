@@ -20,17 +20,19 @@ cell-major (lane g·R + r is cell g, replica r):
     leaves, read by one unified controller update over the superset of
     every controller's state (`_CtrlState`).
 
-The execution mode is a leaf too.  An all-sync grid runs the lean step
-over `_SweepCarry`; a grid with an async cell runs the renewal carry
-(`execmode.ExecCarry`): the shared prelude once, then the tail of every
-mode the grid holds, and each lane's selected with `torch.where` over the
-whole carry, as the reference's vmapped `lax.switch` selects.  Every lane
-pays for every tail present (a kbatch tail costs n_slots draws and shard
-gradients an iteration).
+The execution mode is a leaf too, and so are a cell's faults (its
+`faults.FaultPlan` packed to per-slot rows) and its aggregator.  An
+all-sync, fault-free, mean-only grid runs the lean step over `_SweepCarry`;
+any other runs the renewal carry (`execmode.ExecCarry`): the shared prelude
+once, then the tail of every mode the grid holds, and each lane's selected
+with `torch.where` over the whole carry, as the reference's vmapped
+`lax.switch` selects.  Every lane pays for every tail present (a kbatch
+tail costs n_slots draws and shard gradients an iteration), and, in a
+robust grid, for the row stack and every robust aggregator present.
 
 What a program is built for is the grid's branch signature
-(`GridSignature`): the sets of controller kinds and modes and the schedule
-and comm flags present.  By default (``specialize=True``) a kind or mode
+(`GridSignature`): the sets of controller kinds, modes, fault families and
+aggregators, and the schedule and comm flags present.  By default (``specialize=True``) a kind or mode
 the signature excludes is never computed, and a lone kind's selects fold
 away in Python; ``specialize=False`` builds the program of every kind.
 
@@ -51,9 +53,8 @@ arithmetic is the looped step's, op for op.  Time and k agree bit for bit
 ulps, because the reduction of vmap's lane-minor per-example losses rounds
 differently for another lane count (PERF.md §6).
 
-Only fault-free, mean-aggregation cells on one device are ported: faults
-and robust aggregation wait for ROADMAP Queue 1 item 10, and the mesh (with
-the inert zero-row cell padding and buffer donation it needs) for item 13.
+A grid runs on one device: the mesh (with the inert zero-row cell padding
+and buffer donation it needs) waits for ROADMAP Queue 1 item 13.
 
     cases = [SweepCase(PflugController(n_workers=50, k0=10, step=10, thresh=10),
                        Exponential(rate=1.0), eta=1e-2, label="adaptive"),
@@ -75,7 +76,7 @@ import torch
 from torch.utils._pytree import tree_map
 
 from repro_torch import resolve_device
-from repro_torch.core import aggregation, execmode, prng
+from repro_torch.core import aggregation, execmode, faults, prng
 from repro_torch.core.controller import (
     FixedKController,
     PflugController,
@@ -131,7 +132,7 @@ _CTRL_KINDS = {
 }
 _N_CTRL_KINDS = len(_CTRL_KINDS)
 
-_AGG_MEAN = aggregation.AGG_KINDS["mean"]
+_AGG_MEAN = aggregation.AGG_MEAN
 
 
 class GridSignature(NamedTuple):
@@ -143,10 +144,14 @@ class GridSignature(NamedTuple):
     * ``modes`` — execution-mode indices present (``"sync"`` is 0),
     * ``with_schedule`` — any cell carries a live ``RateSchedule``,
     * ``with_comm`` — any cell carries a non-zero ``CommModel``,
-    * ``fault_kinds`` — fault families any cell can activate (``()``: the
-      port has no faults yet, ROADMAP Queue 1 item 10),
+    * ``fault_kinds`` — fault families any cell's plan can activate
+      (`faults.FAULT_FAMILIES` indices),
     * ``agg_kinds`` — aggregator kinds present (``(0,)``, the mean, for an
       all-mean grid).
+
+    The fault and aggregator axes are taken from the cells under
+    ``specialize=False`` too, as the reference's: a fault-free, mean-only
+    grid then runs no fault or robust code at all.
 
     Two grids with the same signature and shapes share one program.  The
     straggler family set is deliberately not part of it: every cell runs the
@@ -163,15 +168,14 @@ class GridSignature(NamedTuple):
 
 def _robustness_axes(cases: Sequence["SweepCase"]) -> tuple:
     """The (fault_kinds, agg_kinds) signature components of a grid."""
-    agg_kinds = set()
+    fault_kinds, agg_kinds = set(), set()
     for c in cases:
-        if c.fault is not None:
-            raise NotImplementedError(
-                f"cell {c.name()!r}: faults wait for the port of core/faults.py (ROADMAP Queue 1 item 10)")
+        if isinstance(c.fault, faults.FaultPlan):  # other values error later, in _cell_of
+            fault_kinds.update(faults.plan_kinds_present(c.fault))
         ak = aggregation.AGG_KINDS.get(c.agg)
         if ak is not None:  # unknown aggregators error later, in _cell_of
             agg_kinds.add(ak)
-    return (), tuple(sorted(agg_kinds)) if agg_kinds else (_AGG_MEAN,)
+    return tuple(sorted(fault_kinds)), tuple(sorted(agg_kinds)) if agg_kinds else (_AGG_MEAN,)
 
 
 def grid_signature(cases: Sequence["SweepCase"], n_slots: int) -> GridSignature:
@@ -238,9 +242,10 @@ class SweepCase:
 
     ``straggler`` may be a ``WorkerFleet``.  The cell's active worker count
     is ``controller.n_workers``; slots past it, up to the grid's
-    ``n_workers``, are inactive.  ``mode``, ``fault``, ``agg`` and
-    ``agg_param`` are the reference's fields; only ``fault=None`` and
-    ``agg="mean"`` run in the port (ROADMAP Queue 1 item 10).
+    ``n_workers``, are inactive.  ``mode`` is the execution mode,
+    ``fault`` the cell's `faults.FaultPlan` (None: a healthy fleet), ``agg``
+    its aggregator (`aggregation.AGG_KINDS`; a robust one is refused in
+    kbatch mode) and ``agg_param`` the trimmed mean's trim fraction.
     """
 
     controller: Any
@@ -294,6 +299,11 @@ class _CellParams(NamedTuple):
     comm_alpha: Any  # f32
     comm_beta: Any  # f32
     eta: Any  # f32
+    fault_kinds: Any  # int32 (n_slots,): faults.FAULT_FAMILIES per slot
+    fault_onset: Any  # f32 (n_slots,): per-slot fault onset (simulated time)
+    fault_param: Any  # f32 (n_slots,): rescale factor or gauss scale
+    agg_kind: Any  # int32: aggregation.AGG_KINDS select index
+    agg_param: Any  # f32: the trimmed mean's trim fraction
 
 
 class _CtrlState(NamedTuple):
@@ -348,8 +358,7 @@ def _zero_signs_of(params_like) -> tuple:
 
 def _cell_of(case: SweepCase, n_slots: int, n_switch_slots: int, n_sched_slots: int, sketch_dim: int,
              params_like) -> _CellParams:
-    """A cell's leaves as numpy, after the reference's checks; a faulty or
-    robust-aggregation cell raises NotImplementedError."""
+    """A cell's leaves as numpy, after the reference's checks."""
     c = case.controller
     kind = _CTRL_KINDS.get(type(c))
     if kind is None:
@@ -370,10 +379,12 @@ def _cell_of(case: SweepCase, n_slots: int, n_switch_slots: int, n_sched_slots: 
     if case.agg != "mean" and case.mode == "kbatch":
         raise ValueError(f"cell {case.name()!r}: robust aggregation ({case.agg!r}) is not supported in kbatch "
                          "mode — kbatch arrivals are sequential, there is no per-worker row stack to aggregate")
-    if case.fault is not None or case.agg != "mean":
-        raise NotImplementedError(f"cell {case.name()!r}: faults and robust aggregation wait for the port of "
-                                  "core/faults.py and the robust half of core/aggregation.py (ROADMAP Queue 1 "
-                                  "item 10)")
+    if case.fault is not None and not isinstance(case.fault, faults.FaultPlan):
+        raise ValueError(f"cell {case.name()!r}: fault must be a faults.FaultPlan or None, got {case.fault!r}")
+    try:
+        fkinds, fonset, fparam = faults.pack_faults(case.fault, n_slots, n_active)
+    except ValueError as e:
+        raise ValueError(f"cell {case.name()!r}: {e}") from None
     k0, step, thresh, burnin = 1, 0, 0, 0
     k_max = n_active
     decay = ratio_thresh = 0.0
@@ -411,7 +422,8 @@ def _cell_of(case: SweepCase, n_slots: int, n_switch_slots: int, n_sched_slots: 
         one_minus_decay=f32(1.0 - decay), ratio_thresh=f32(ratio_thresh), switch_times=times,
         n_active=i32(n_active), strag_kinds=kinds, strag_p=pmat, sched_mode=sched_mode, sched_leaf=sched_leaf,
         sched_times=sched_times, sched_scales=sched_scales, sketch_signs=signs, comm_alpha=f32(comm.alpha),
-        comm_beta=f32(comm.beta), eta=f32(case.eta),
+        comm_beta=f32(comm.beta), eta=f32(case.eta), fault_kinds=fkinds, fault_onset=fonset, fault_param=fparam,
+        agg_kind=i32(aggregation.AGG_KINDS[case.agg]), agg_param=f32(case.agg_param),
     )
 
 
@@ -645,8 +657,8 @@ def _lanes_of(cells: _CellParams, modes: tuple = (MODE_SYNC,)) -> _Lanes:
 class _GridEngine:
     """The grid's program body for `montecarlo._Program`: ``build(inputs) ->
     (step, evaluate)`` over every lane, ``initial(inputs) -> carry``.  An
-    all-sync signature builds the lean step over `_SweepCarry`; one with an
-    async mode builds the moded step over `execmode.ExecCarry`."""
+    all-sync, fault-free, mean-only signature builds the lean step over
+    `_SweepCarry`; any other builds the moded step over `execmode.ExecCarry`."""
 
     source: GradSource
     n_workers: int
@@ -655,7 +667,8 @@ class _GridEngine:
 
     @property
     def moded(self) -> bool:
-        return self.sig.modes != (MODE_SYNC,)
+        sig = self.sig
+        return sig.modes != (MODE_SYNC,) or bool(sig.fault_kinds) or sig.agg_kinds != (_AGG_MEAN,)
 
     def initial(self, inputs: _Inputs):
         keys, cells = inputs.keys, inputs.lanes.cells
@@ -704,7 +717,9 @@ class _GridEngine:
         """The reference's `_make_run_one_moded` step: the shared prelude once,
         then every tail the signature holds (kbatch's inner loop only when
         kbatch is in it), and the lane's tail selected with `torch.where`
-        over the whole carry, as vmap's `lax.switch` selects.  Each tail is
+        over the whole carry, as vmap's `lax.switch` selects.  The tails
+        carry the lane's faults and aggregator, closures over its leaves
+        built for the signature's families and kinds only.  Each tail is
         the looped engine's step of that mode, op for op."""
         sig, sketch_dim, n = self.sig, self.sketch_dim, self.n_workers
         stale_grad, shard_grad_at = self.source.build_stale(inputs.data, n)
@@ -718,11 +733,14 @@ class _GridEngine:
                 del stats  # no controller kind reads it yet
                 return _ctrl_update(cp, state, g, sim_time, sketch_dim, sig.ctrl_kinds, preds)
 
+            fault_fns = faults.make_fault_fns(cp.fault_kinds, cp.fault_onset, cp.fault_param, sig.fault_kinds,
+                                              inputs.params0, n)
+            robust = aggregation.make_robust_select(cp.agg_kind, cp.agg_param, sig.agg_kinds)
             prelude, tails = execmode.make_mode_prelude_and_tails(
                 n_slots=n, draw=lambda sub, t: sample_times_selected(lane.fam_masks, _lane_pmat(cp, t, sig), sub),
                 sync_grad=fns.grad, stale_grad=stale_grad, shard_grad_at=shard_grad_at,
                 comm_time=(lambda k: _lane_comm_time(cp, k)) if sig.with_comm else None, eta=cp.eta,
-                ctrl_update=ctrl_update,
+                ctrl_update=ctrl_update, faults=fault_fns, robust_agg=robust,
             )
             p = prelude(carry, modes != (MODE_KBATCH,))
             outs = [tails[m](carry, p)[0] for m in modes]

@@ -15,7 +15,7 @@ from typing import List, Tuple
 
 import torch
 
-__all__ = ["leaves_with_path", "tree_leaves", "tree_dot", "first_leaf"]
+__all__ = ["leaves_with_path", "tree_leaves", "tree_dot", "first_leaf", "map_with_index"]
 
 
 def leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
@@ -30,6 +30,25 @@ def leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
         return [leaf for f in tree._fields for leaf in leaves_with_path(getattr(tree, f), f"{prefix}.{f}")]
     if isinstance(tree, (list, tuple)):
         return [leaf for i, x in enumerate(tree) for leaf in leaves_with_path(x, f"{prefix}[{i}]")]
+    raise TypeError(f"not a pytree of tensors: {type(tree).__name__}")
+
+
+def map_with_index(fn, tree, _count=None):
+    """``tree`` with each leaf replaced by ``fn(j, leaf)``, j the leaf's
+    index in JAX's flattening order; dicts keep their own key order."""
+    count = [0] if _count is None else _count
+    if isinstance(tree, torch.Tensor):
+        count[0] += 1
+        return fn(count[0] - 1, tree)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        out = {k: map_with_index(fn, tree[k], count) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_with_index(fn, getattr(tree, f), count) for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_index(fn, x, count) for x in tree)
     raise TypeError(f"not a pytree of tensors: {type(tree).__name__}")
 
 

@@ -5,6 +5,7 @@ as replica means with 95% CIs: the port of `examples/quickstart.py`.
     PYTHONPATH=src python -m repro_torch.launch.quickstart --setup fig2 --iters 40000 --replicas 32
     PYTHONPATH=src python -m repro_torch.launch.quickstart --setup ablation [--looped]
     PYTHONPATH=src python -m repro_torch.launch.quickstart --setup async [--looped]
+    PYTHONPATH=src python -m repro_torch.launch.quickstart --setup byzantine [--looped]
 
 ``quickstart`` (the default): n = 20 workers, m = 400, d = 20, R = 16,
 Algorithm 1's Pflug test (k0 = 2, step 4, thresh 10, burn-in 40) against
@@ -21,8 +22,16 @@ Exponential(1), 6 Exponential(0.25)), m = 400, d = 20, R = 32, eta =
 0.5/L, 6000 iterations, five arms: adaptive (Pflug sync, k0 = 4, step 4,
 thresh 10, burn-in 40, k_max 16), fixed k = 16 sync, K-async and
 K-batch-async at K = 4, and Pflug under K-async; the loss evaluated every
-100 iterations.  Every setup prints each case's simulated time to reach
-1e-3 of the initial excess loss (fig_async's target), its own f* subtracted.
+100 iterations.  ``byzantine`` (`benchmarks/fig_byzantine.py`): a rushing
+Byzantine fleet of n = 20 (the last round(frac n) workers Exponential(2),
+the rest Exponential(1)), m = 400, d = 20, R = 32, eta = 0.75 * 2/L, 6000
+iterations, the loss every 100: sign-flip fractions 0, 0.1, 0.3 x the
+weighted mean and the geometric median x adaptive (Pflug 4 -> 16, step 4,
+thresh 10, burn-in 40), fixed k = 4 and k = 16, 18 cells; it also prints
+the reference's two headline flags (the mean at k = 16 and 30% diverged,
+the geometric median there recovered).  Every setup prints each case's
+simulated time to reach 1e-3 of the initial excess loss (fig_async's
+target), its own f* subtracted.
 
 A setup runs as one `run_sweep` call, every case a cell of one grid, as
 the reference's example does; ``--looped`` runs each case as a
@@ -33,6 +42,7 @@ split from key 1; on the card by default.
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
 import torch
@@ -45,6 +55,7 @@ from repro_torch.core.controller import (
     ScheduleController,
     VarianceRatioController,
 )
+from repro_torch.core.faults import byzantine_plan
 from repro_torch.core.montecarlo import run_monte_carlo, summarize
 from repro_torch.core.straggler import Bimodal, Exponential, Pareto, WorkerFleet
 from repro_torch.core.sweep import SweepCase, run_sweep
@@ -59,7 +70,14 @@ SETUPS = {
     "ablation": dict(m=2000, d=100, n=50, replicas=8, iters=30_000, eval_every=500),
     "async": dict(m=400, d=20, n=20, replicas=32, iters=6000, eval_every=100, n_fast=14, n_slow=6, slow_factor=4.0,
                   adaptive=dict(k0=4, step=4, thresh=10, burnin=40, k_max=16), k_async=4),
+    "byzantine": dict(m=400, d=20, n=20, replicas=32, iters=6000, eval_every=100, byz_fracs=(0.0, 0.1, 0.3),
+                      byz_rate=2.0, edge_fraction=0.75, adaptive=dict(k0=4, step=4, thresh=10, burnin=40, k_max=16),
+                      fixed=(4, 16)),
 }
+# fig_byzantine's headline bars on the final excess loss at k = 16 and 30%
+# sign-flip workers: the weighted mean has diverged above the first (or is
+# not finite), the geometric median has recovered below the second.
+DIVERGED_ABOVE, RECOVERED_BELOW = 1e4, 10.0
 ABLATION_STRAGGLERS = {
     "exp": Exponential(rate=1.0),
     "pareto": Pareto(x_m=0.5, alpha=1.5),
@@ -72,10 +90,11 @@ def squared_error(w, X, y):
     return r * r
 
 
-def step_size(X: torch.Tensor) -> float:
-    """0.5 / L with L = 2 * the largest eigenvalue of X^T X / m (float32)."""
+def step_size(X: torch.Tensor, edge_fraction: float = 0.25) -> float:
+    """``edge_fraction`` of the stability edge 2 / L (0.5 / L by default),
+    with L = 2 * the largest eigenvalue of X^T X / m (float32)."""
     lam = torch.linalg.eigvalsh(X.T @ X / X.shape[0]).max()
-    return 0.5 / (2 * float(lam))
+    return edge_fraction * 2.0 / (2 * float(lam))
 
 
 def estimate_system(data, eta: float, straggler, n: int) -> SGDSystem:
@@ -97,6 +116,8 @@ def cases(setup: str, data=None, eta: float = 0.0) -> list:
     schedules are estimated from ``data`` (a `LinRegData`)."""
     cfg = SETUPS[setup]
     n = cfg["n"]
+    if setup == "byzantine":
+        return byzantine_cases(eta)
     if setup == "async":
         fleet = WorkerFleet([Exponential(rate=1.0)] * cfg["n_fast"]
                             + [Exponential(rate=1.0 / cfg["slow_factor"])] * cfg["n_slow"])
@@ -130,6 +151,41 @@ def cases(setup: str, data=None, eta: float = 0.0) -> list:
     return out
 
 
+def byzantine_cases(eta: float) -> list:
+    """fig_byzantine's 18 cells, labeled ``"<arm>|<mean|gm>|byz<percent>"``:
+    the last round(frac n) workers are the rushing sign-flippers, the same
+    slots in the fleet and in the plan."""
+    cfg = SETUPS["byzantine"]
+    n = cfg["n"]
+    out = []
+    for frac in cfg["byz_fracs"]:
+        b = int(round(frac * n))
+        fleet = WorkerFleet([Exponential(rate=1.0)] * (n - b) + [Exponential(rate=cfg["byz_rate"])] * b)
+        plan = byzantine_plan(n, frac, "sign_flip") if frac > 0 else None
+        tag = f"byz{int(round(frac * 100))}"
+        for agg, atag in (("mean", "mean"), ("geomedian", "gm")):
+            arms = [("adaptive", PflugController(n_workers=n, **cfg["adaptive"]))] + [
+                (f"k{k}", FixedKController(n_workers=n, k=k)) for k in cfg["fixed"]]
+            out += [SweepCase(ctrl, fleet, eta=eta, fault=plan, agg=agg, label=f"{arm}|{atag}|{tag}")
+                    for arm, ctrl in arms]
+    return out
+
+
+def headline(out: dict) -> dict:
+    """fig_byzantine's two flags from the final excess losses at k = 16 and
+    30% sign-flip workers (None when the setup has no such cells)."""
+    def final_excess(label):
+        s = out["cases"].get(label)
+        return None if s is None else float(s["loss_mean"][-1] - out["f_star"])
+
+    mean_b30, gm_b30 = final_excess("k16|mean|byz30"), final_excess("k16|gm|byz30")
+    if mean_b30 is None or gm_b30 is None:
+        return {}
+    return {"excess_mean_k16_b30": mean_b30, "excess_gm_k16_b30": gm_b30,
+            "mean_diverged_b30": not math.isfinite(mean_b30) or mean_b30 > DIVERGED_ABOVE,
+            "gm_recovered_b30": math.isfinite(gm_b30) and gm_b30 < RECOVERED_BELOW}
+
+
 def run_case(setup: str, case: SweepCase, data, keys, iters: int | None = None, capture: bool = True):
     """One cell of ``setup`` as a looped `run_monte_carlo` call on ``data``
     (a `LinRegData`) and replica keys."""
@@ -138,7 +194,7 @@ def run_case(setup: str, case: SweepCase, data, keys, iters: int | None = None, 
     return run_monte_carlo(squared_error, torch.zeros(cfg["d"], device=dev), data.X, data.y, n_workers=cfg["n"],
                            controller=case.controller, straggler=case.straggler, eta=case.eta,
                            num_iters=iters or cfg["iters"], keys=keys, eval_every=cfg["eval_every"], device=dev,
-                           capture=capture, mode=case.mode)
+                           capture=capture, mode=case.mode, fault=case.fault, agg=case.agg, agg_param=case.agg_param)
 
 
 def run_grid(setup: str, grid: list, data, keys, iters: int | None = None, capture: bool = True):
@@ -163,10 +219,11 @@ def run(setup: str = "quickstart", iters: int | None = None, replicas: int | Non
     """Run every case of ``setup``, as one grid or (``looped``) case by case;
     returns {"f_star", "f0_excess" (the loss at w = 0 less f*), "eta",
     "wall_s", "cases": {label: summarize(result)}, "results": {label:
-    result}}.  ``eta`` overrides 0.5/L (the parity tests pass one float to
-    both packages, whose eigensolvers differ in the last ulps)."""
+    result}}.  ``eta`` overrides the setup's step (the parity tests pass
+    one float to both packages, whose eigensolvers differ in the last
+    ulps)."""
     data, keys = inputs(setup, replicas, device)
-    eta = step_size(data.X) if eta is None else eta
+    eta = step_size(data.X, SETUPS[setup].get("edge_fraction", 0.25)) if eta is None else eta
     grid = cases(setup, data, eta)
     f0 = float(squared_error(torch.zeros(data.X.shape[1], device=data.X.device), data.X, data.y).mean())
     out = {"f_star": data.f_star, "f0_excess": f0 - data.f_star, "eta": eta, "cases": {}, "results": {}}
@@ -203,6 +260,12 @@ def report(out: dict) -> None:
     reached = ", ".join(f"{label} {'not reached' if t is None else f'{t:.1f}'}"
                         for label, t in time_to_target(out).items())
     print(f"simulated time to 1e-3 of the initial excess {out['f0_excess']:.6g}: {reached}")
+    flags = headline(out)
+    if flags:
+        print(f"k = 16 at 30% sign-flip workers: the weighted mean's final excess {flags['excess_mean_k16_b30']:.6g} "
+              f"(diverged, above {DIVERGED_ABOVE:g} or not finite: {flags['mean_diverged_b30']}); the geometric "
+              f"median's {flags['excess_gm_k16_b30']:.6g} (recovered, below {RECOVERED_BELOW:g}: "
+              f"{flags['gm_recovered_b30']})")
 
 
 def main(argv=None):

@@ -1,7 +1,9 @@
 """The port's CUDA kernels (flash attention, wkv6) against their plain
 PyTorch versions, the simulation engine against its CPU run and the
-goldens, the sweep engine against its eager run and the looped engine, and
-the async modes graph-replayed against eager, on the card.  Flash attention
+goldens, the sweep engine against its eager run and the looped engine, the
+async modes graph-replayed against eager, and faults and robust aggregation
+(graph-replayed against eager, a forced grid against the looped engine, the
+stable sort's signed zeros), on the card.  Flash attention
 has two routes, by dtype: f32 the scalar kernel, bf16 the wgmma + TMA
 kernel; every attention case runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
 tensor-core kernel, every other shape the scalar one; each wkv case asserts
@@ -20,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import controller as ctl  # noqa: E402
+from repro_torch.core import faults  # noqa: E402
 from repro_torch.core import montecarlo as mc  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import straggler as strag  # noqa: E402
@@ -500,6 +503,115 @@ def test_deterministic_ties_on_the_card_follow_the_cpu(cuda_device, mode):
     card, cpu = runs[cuda_device], runs["cpu"]
     assert torch.equal(card.time.cpu(), cpu.time) and torch.equal(card.k.cpu(), cpu.k)
     np.testing.assert_allclose(card.loss.cpu().numpy(), cpu.loss.numpy(), rtol=1e-5)
+
+
+# ------------------------------------------------- faults and robust aggregation
+
+
+# (mode, plan, aggregator): each family and each robust aggregator the mode takes
+FAULT_CELLS = [
+    ("sync", ("random_gauss", 0.25, 0.0, 2.0), "geomedian"),
+    ("sync", ("sign_flip", 0.25, 0.0, 1.0), "median"),
+    ("kasync", ("rescale", 0.25, 1.0, -4.0), "trimmed"),
+    ("kasync", ("crash", 0.5, 2.0, 1.0), "mean"),
+    ("kbatch", ("crash", 0.5, 2.0, 1.0), "mean"),
+    ("kbatch", ("random_gauss", 0.25, 1.0, 2.0), "mean"),
+]
+
+
+def _fault_plan(n, spec):
+    fam, frac, onset, param = spec
+    return faults.byzantine_plan(n, frac, fam, onset=onset, param=param)
+
+
+@pytest.mark.parametrize("cell", FAULT_CELLS, ids=lambda c: f"{c[0]}-{c[1][0]}-{c[2]}")
+def test_faulty_looped_cell_graph_replayed_equals_eager_bitwise(cuda_device, cell):
+    mode, spec, agg = cell
+    n, d = 8, 4
+    data = make_linreg_data(prng.PRNGKey(0), m=80, d=d, device=cuda_device)
+    runs = [mc.run_monte_carlo(_sq, torch.zeros(d, device=cuda_device), data.X, data.y, n_workers=n,
+                               controller=ctl.FixedKController(n_workers=n, k=3), straggler=strag.Exponential(1.0),
+                               eta=0.005, num_iters=37, eval_every=10, key=prng.PRNGKey(5), n_replicas=3, mode=mode,
+                               fault=_fault_plan(n, spec), agg=agg, agg_param=0.25, device=cuda_device,
+                               capture=capture)
+            for capture in (True, False, True)]
+    for f in ("time", "loss", "k"):
+        assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+        assert torch.equal(getattr(runs[0], f), getattr(runs[2], f)), f  # a replay of cached graphs
+    assert bool(torch.isfinite(runs[0].loss).all())
+
+
+def _forced_fault_grid(eta=0.005, frac=0.25):
+    """Every fault family and robust aggregator, with a clean cell, over
+    the three modes (the reference's forced grid, tests/test_faults.py)."""
+    n, exp, c = 8, strag.Exponential(1.0), ctl.FixedKController(n_workers=8, k=3)
+    plan = faults.byzantine_plan
+    return [
+        sw.SweepCase(c, exp, eta, label="clean"),
+        sw.SweepCase(c, exp, eta, label="flip", fault=plan(n, frac, "sign_flip")),
+        sw.SweepCase(c, exp, eta, label="gauss_gm", fault=plan(n, frac, "random_gauss", param=2.0), agg="geomedian"),
+        sw.SweepCase(c, exp, eta, label="rescale_trim_ka", fault=plan(n, frac, "rescale", param=-4.0), agg="trimmed",
+                     agg_param=0.25, mode="kasync"),
+        sw.SweepCase(c, exp, eta, label="crash_ka", fault=plan(n, 2 * frac, "crash", onset=2.0), mode="kasync"),
+        sw.SweepCase(c, exp, eta, label="crash_kb", fault=plan(n, 2 * frac, "crash", onset=2.0), mode="kbatch"),
+        sw.SweepCase(c, exp, eta, label="flip_median", fault=plan(n, frac, "sign_flip"), agg="median"),
+    ]
+
+
+def test_forced_fault_grid_graph_replayed_equals_eager_and_looped(cuda_device):
+    """The forced grid graph-replayed against eager (bitwise), each cell
+    against the looped engine with the same keys (time and k equal, loss
+    within 1e-4 relative), and a repopulated grid with no new capture."""
+    cases = _forced_fault_grid()
+    data = make_linreg_data(prng.PRNGKey(0), m=80, d=4, device=cuda_device)
+    keys = prng.split(prng.PRNGKey(5, device=cuda_device), 3)
+
+    def grid(cells, capture=True):
+        return sw.run_sweep(_sq, torch.zeros(4, device=cuda_device), data.X, data.y, n_workers=8, cases=cells,
+                            num_iters=37, eval_every=10, keys=keys, device=cuda_device, capture=capture)
+
+    sw.clear_sweep_cache()
+    try:
+        runs = [grid(cases, capture) for capture in (True, False, True)]
+        for f in ("time", "loss", "k"):
+            assert torch.equal(getattr(runs[0], f), getattr(runs[1], f)), f
+            assert torch.equal(getattr(runs[0], f), getattr(runs[2], f)), f
+        for g, case in enumerate(cases):
+            want = mc.run_monte_carlo(_sq, torch.zeros(4, device=cuda_device), data.X, data.y, n_workers=8,
+                                      controller=case.controller, straggler=case.straggler, eta=case.eta,
+                                      num_iters=37, eval_every=10, keys=keys, mode=case.mode, fault=case.fault,
+                                      agg=case.agg, agg_param=case.agg_param, device=cuda_device)
+            got = runs[0].cell(g)
+            assert torch.equal(got.k, want.k) and torch.equal(got.time, want.time), case.label
+            np.testing.assert_allclose(got.loss.cpu().numpy(), want.loss.cpu().numpy(), rtol=1e-4, err_msg=case.label)
+        captures = sw.sweep_cache_stats()["traces"]
+        grid(_forced_fault_grid(eta=0.003, frac=0.375))
+        assert sw.sweep_cache_stats()["traces"] == captures
+    finally:
+        sw.clear_sweep_cache()
+
+
+def test_stable_sort_keeps_signed_zeros_on_the_card(cuda_device):
+    """The coordinate median and the trimmed mean on the card equal the
+    CPU's bit for bit, the sign of a median of zeros included: the stable
+    sort keeps -0.0 and 0.0 in their order."""
+    from repro_torch.core import aggregation
+
+    rng = np.random.default_rng(0)
+    mat = rng.normal(size=(20, 64)).astype(np.float32)
+    mat[:, 0] = np.where(rng.random(20) < 0.5, -0.0, 0.0)
+    mat[:, 1] = 1.5
+    mask = (rng.random(20) < 0.7).astype(np.float32)
+    k = torch.tensor(int(mask.sum()), dtype=torch.int32)
+    cpu_args = (torch.from_numpy(mat), torch.from_numpy(mask), k)
+    args = tuple(a.to(cuda_device) for a in cpu_args)
+    got, want = aggregation.coordinate_median_rows(*args).cpu(), aggregation.coordinate_median_rows(*cpu_args)
+    assert torch.equal(got, want) and torch.equal(torch.signbit(got), torch.signbit(want))
+    vals = torch.where(args[1][:, None] > 0, args[0], float("inf"))
+    order = torch.sort(vals, dim=0, stable=True).indices.cpu()
+    assert torch.equal(order, torch.sort(vals.cpu(), dim=0, stable=True).indices)
+    np.testing.assert_allclose(aggregation.trimmed_mean_rows(*args, 0.2).cpu().numpy(),
+                               aggregation.trimmed_mean_rows(*cpu_args, 0.2).numpy(), rtol=1e-6, atol=1e-7)
 
 
 # --------------------------------------------------------- autograd guard

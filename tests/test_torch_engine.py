@@ -511,10 +511,8 @@ def test_program_cache_hits_and_evicts(linreg):
     (dict(n_workers=7), ValueError, "not divisible"),
     (dict(key=None), ValueError, "keys="),
     (dict(straggler=tstr.WorkerFleet([tstr.Exponential()] * 4)), ValueError, "fleet has 4 models"),
-    (dict(mode="kasync", agg="trimmed"), NotImplementedError, "item 10"),
-    (dict(mode="kbatch", fault=object()), NotImplementedError, "item 10"),
-    (dict(agg="trimmed"), NotImplementedError, "item 10"),
-    (dict(fault=object()), NotImplementedError, "item 10"),
+    (dict(mode="kbatch", fault=object()), ValueError, "FaultPlan"),
+    (dict(fault=object()), ValueError, "FaultPlan"),
 ])
 def test_validation_errors(linreg, kw, err, match):
     _, X, y = linreg
@@ -524,9 +522,13 @@ def test_validation_errors(linreg, kw, err, match):
 
 def test_build_stale_names_the_roadmap_item(linreg):
     """`build_stale` gives the async modes' closures over the worker-major
-    shards; the mode tails built on them refuse faults, naming ROADMAP
-    Queue 1 item 10."""
-    from repro_torch.core import execmode
+    shards; mode tails built on them with ``faults=None, robust_agg=None``
+    run the same ops as tails built without those arguments, and none of
+    the ops only the fault and robust paths run (the median's sort and
+    gather, the gauss noise's erfinv), which a faulty robust tail does."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core import execmode, faults
 
     _, X, y = linreg
     stale_grad, shard_grad_at = PerExampleSource(torch_loss).build_stale((X, y), N)
@@ -537,7 +539,38 @@ def test_build_stale_names_the_roadmap_item(linreg):
     mask = torch.zeros(N)
     mask[2] = 1.0
     torch.testing.assert_close(stale_grad(w, mask, torch.tensor(1, dtype=torch.int32)), want)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        execmode.make_mode_steps(n_slots=N, draw=None, sync_grad=None, stale_grad=stale_grad,
-                                 shard_grad_at=shard_grad_at, comm_time=None, eta=0.1, ctrl_update=None,
-                                 faults=object())
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    fns = PerExampleSource(torch_loss).build((X, y), N)
+    common = dict(n_slots=N, draw=lambda sub, t: 0.5 + prng.uniform(sub, (N,)), sync_grad=fns.grad,
+                  stale_grad=stale_grad, shard_grad_at=shard_grad_at, comm_time=None, eta=0.1,
+                  ctrl_update=lambda s, g, t, st: (s, s.k))
+    kinds, onset, param = (torch.from_numpy(a) for a in faults.pack_faults(
+        faults.FaultPlan([None] * 3 + [faults.FaultModel("crash", 1.0), faults.FaultModel("random_gauss", 0.0)]),
+        N, N))
+    robust = dict(faults=faults.make_fault_fns(kinds, onset, param, (faults.FAULT_GAUSS, faults.FAULT_CRASH),
+                                               torch.zeros(D), N),
+                  robust_agg=tagg.make_robust_select(tagg.AGG_MEDIAN, 0.1, (0, tagg.AGG_MEDIAN)))
+    carry = execmode.init_exec_carry(torch.zeros(D), N, tctl.FixedState(k=torch.tensor(2, dtype=torch.int32)),
+                                     prng.PRNGKey(3))
+    fault_only = {"aten.sort", "aten.gather", "aten.erfinv"}
+
+    def ops(mode, **kw):
+        with Ops() as rec:
+            execmode.make_mode_steps(**common, **kw)[execmode.MODES[mode]](carry)
+        return rec.names
+
+    for mode in ("sync", "kasync", "kbatch"):
+        plain = ops(mode, faults=None, robust_agg=None)
+        assert plain == ops(mode), mode
+        assert not fault_only & set(plain), mode
+        if mode != "kbatch":
+            assert fault_only <= set(ops(mode, **robust)), mode

@@ -35,6 +35,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import aggregation as jagg  # noqa: E402
 from repro.core import controller as jctl  # noqa: E402
 from repro.core import execmode as jem  # noqa: E402
+from repro.core import faults as jfaults  # noqa: E402
 from repro.core import montecarlo as jmc  # noqa: E402
 from repro.core import simulate as jsim  # noqa: E402
 from repro.core import straggler as jstr  # noqa: E402
@@ -44,6 +45,7 @@ from repro_torch.core import aggregation as tagg  # noqa: E402
 from repro_torch.core import async_sim as tasync  # noqa: E402
 from repro_torch.core import controller as tctl  # noqa: E402
 from repro_torch.core import execmode as tem  # noqa: E402
+from repro_torch.core import faults as tfaults  # noqa: E402
 from repro_torch.core import montecarlo as tmc  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import simulate as tsim  # noqa: E402
@@ -197,11 +199,59 @@ def test_mode_steps_match_the_reference_step_by_step(mode):
 
 
 def test_mode_tails_refuse_faults_and_robust_aggregation():
-    common = dict(n_slots=2, draw=None, sync_grad=None, stale_grad=None, shard_grad_at=None, comm_time=None, eta=0.1,
-                  ctrl_update=None)
-    for kw in (dict(faults=object()), dict(robust_agg=lambda *a: a)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tem.make_mode_prelude_and_tails(**common, **kw)
+    """The tails with fault closures (sign flip, a crash that strikes
+    mid-run, gauss noise) and, in sync and kasync, the coordinate median
+    over the row stack, from the same carry and key as the reference's
+    tails, step by step: clocks, staleness, pending flags, simulated time,
+    key and k exactly, the parameters within 1e-5 (the gauss noise's erfinv
+    is within 64 ulp of XLA's)."""
+    X, y, _, _ = _snapshots()
+    n, k = N, 3
+    j_stale, j_shard = jem.make_stale_grad_fns(jax_loss, jnp.asarray(X), jnp.asarray(y), n)
+    t_stale, t_shard = tem.make_stale_grad_fns(torch_loss, torch.from_numpy(X), torch.from_numpy(y), n)
+    Xf, yf = X.reshape(-1, D), y.reshape(-1)
+
+    def j_sync(w, mask, kk):
+        return jax.grad(lambda p: jagg.fastest_k_weighted_loss(jax_loss(p, jnp.asarray(Xf), jnp.asarray(yf)), mask,
+                                                               kk, M // N))(w)
+
+    def t_sync(w, mask, kk):
+        return torch.func.grad(lambda p: tagg.fastest_k_weighted_loss(
+            torch_loss(p, torch.from_numpy(Xf), torch.from_numpy(yf)), mask, kk, M // N))(w)
+
+    plan = jfaults.FaultPlan([None, None, jfaults.FaultModel("crash", 1.0), None,
+                              jfaults.FaultModel("random_gauss", 0.0, 0.5), jfaults.FaultModel("sign_flip", 0.5)])
+    packed = jfaults.pack_faults(plan, n, n)
+    present = jfaults.plan_kinds_present(plan)
+    jfns = jfaults.make_fault_fns(*map(jnp.asarray, packed), present, jnp.zeros((D,)), n)
+    tfns = tfaults.make_fault_fns(*map(torch.from_numpy, packed), present, torch.zeros(D), n)
+    median = (0, jagg.AGG_MEDIAN)
+    jrob, trob = jagg.make_robust_select(jagg.AGG_MEDIAN, 0.1, median), tagg.make_robust_select(2, 0.1, median)
+    jdraw = lambda sub, t: 0.5 + jax.random.uniform(sub, (n,))  # noqa: E731
+    tdraw = lambda sub, t: 0.5 + prng.uniform(sub, (n,))  # noqa: E731
+    common = dict(n_slots=n, comm_time=None, eta=0.01, ctrl_update=lambda s, g, t, st: (s, s.k))
+    for mode in ("sync", "kasync", "kbatch"):
+        rob = mode != "kbatch"
+        jsteps = jem.make_mode_steps(draw=jdraw, sync_grad=j_sync, stale_grad=j_stale, shard_grad_at=j_shard,
+                                     faults=jfns, robust_agg=jrob if rob else None, **common)
+        tsteps = tem.make_mode_steps(draw=tdraw, sync_grad=t_sync, stale_grad=t_stale, shard_grad_at=t_shard,
+                                     faults=tfns, robust_agg=trob if rob else None, **common)
+        key = jax.random.PRNGKey(4)
+        jc = jem.init_exec_carry(jnp.zeros((D,)), n, jctl.FixedState(k=jnp.int32(k)), key)
+        tc = tem.init_exec_carry(torch.zeros(D), n, tctl.FixedState(k=torch.tensor(k, dtype=torch.int32)),
+                                 prng.as_key(np.asarray(key)))
+        jstep, tstep = jsteps[jem.MODES[mode]], tsteps[tem.MODES[mode]]
+        for _ in range(4):
+            jc, jk = jstep(jc)
+            tc, tk = tstep(tc)
+            assert int(tk) == int(jk)
+            for name in ("remaining", "staleness", "pending", "sim_time", "key"):
+                np.testing.assert_array_equal(_np(getattr(tc, name)), np.asarray(getattr(jc, name)).astype(
+                    _np(getattr(tc, name)).dtype), err_msg=f"{mode} {name}")
+            np.testing.assert_allclose(_np(tc.params), np.asarray(jc.params), rtol=1e-5, atol=1e-7, err_msg=mode)
+        assert float(tc.sim_time) > 1.0  # the crash struck
+        if mode != "sync":
+            assert np.isinf(_np(tc.remaining)[2]), mode
     assert tem.MODES == jem.MODES and tem.ExecStats._fields == jem.ExecStats._fields
 
 

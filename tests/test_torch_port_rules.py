@@ -44,7 +44,7 @@ def test_port_files_were_found():
     assert {"ops.py", "kernel.py", "ref.py", "layers.py", "rwkv.py", "linear_scan.py", "serve.py",
             "chip_smoke.py", "prng.py", "straggler.py", "aggregation.py", "controller.py", "theory.py",
             "gradsource.py", "montecarlo.py", "simulate.py", "async_sim.py", "synthetic.py",
-            "quickstart.py", "sweep.py", "execmode.py"} <= names
+            "quickstart.py", "sweep.py", "execmode.py", "faults.py"} <= names
 
 
 def _no_card():
@@ -78,7 +78,7 @@ def _engine_entry_points():
     import numpy as np
 
     from repro_torch.checkpoint import convert
-    from repro_torch.core import async_sim, controller, montecarlo, prng, simulate, straggler, sweep
+    from repro_torch.core import async_sim, controller, faults, montecarlo, prng, simulate, straggler, sweep
     from repro_torch.data import make_linreg_data
     from repro_torch.launch import quickstart
 
@@ -106,6 +106,15 @@ def _engine_entry_points():
             num_iters=4, key=prng.PRNGKey(0), n_replicas=2),
         "quickstart.main[--setup async]": lambda: quickstart.main(["--setup", "async", "--iters", "2",
                                                                    "--replicas", "2"]),
+        "montecarlo.run_monte_carlo[fault]": lambda: montecarlo.run_monte_carlo(
+            loss, w0, X, y, n_workers=3, controller=ctrl, straggler=strag, eta=0.01, num_iters=4,
+            key=prng.PRNGKey(0), n_replicas=2, fault=faults.byzantine_plan(3, 0.34, "crash"), agg="median"),
+        "sweep.run_sweep[geomedian]": lambda: sweep.run_sweep(
+            loss, w0, X, y, n_workers=3, cases=[sweep.SweepCase(ctrl, strag, eta=0.01, agg="geomedian",
+                                                                fault=faults.byzantine_plan(3, 0.34, "sign_flip"))],
+            num_iters=4, key=prng.PRNGKey(0), n_replicas=2),
+        "quickstart.main[--setup byzantine]": lambda: quickstart.main(["--setup", "byzantine", "--iters", "2",
+                                                                       "--replicas", "2"]),
         "make_linreg_data": lambda: make_linreg_data(prng.PRNGKey(0), m=12, d=4),
         "quickstart.main": lambda: quickstart.main(["--iters", "2", "--replicas", "2"]),
         "quickstart.main[--looped]": lambda: quickstart.main(["--iters", "2", "--replicas", "2", "--looped"]),
@@ -122,7 +131,8 @@ def _engine_entry_points():
      "montecarlo.run_monte_carlo", "simulate.simulate_fastest_k", "async_sim.simulate_async_sgd",
      "sweep.run_sweep", "make_linreg_data", "quickstart.main", "quickstart.main[--looped]",
      "convert.engine_inputs", "montecarlo.run_monte_carlo[kbatch]", "sweep.run_sweep[kasync]",
-     "quickstart.main[--setup async]"],
+     "quickstart.main[--setup async]", "montecarlo.run_monte_carlo[fault]", "sweep.run_sweep[geomedian]",
+     "quickstart.main[--setup byzantine]"],
 )
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     _no_card()

@@ -27,11 +27,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import aggregation as jagg  # noqa: E402
 from repro.core import controller as jctl  # noqa: E402
+from repro.core import faults as jfaults  # noqa: E402
 from repro.core import straggler as jstr  # noqa: E402
 from repro.core import sweep as jsw  # noqa: E402
 from repro.data import make_linreg_data as jax_linreg  # noqa: E402
 from repro_torch.core import aggregation as tagg  # noqa: E402
 from repro_torch.core import controller as tctl  # noqa: E402
+from repro_torch.core import faults as tfaults  # noqa: E402
 from repro_torch.core import montecarlo as tmc  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import straggler as tstr  # noqa: E402
@@ -79,12 +81,13 @@ def _straggler(spec, lib):
 
 
 def _case(spec, lib, eta):
-    ctl, agg, sw = (jctl, jagg, jsw) if lib == "jax" else (tctl, tagg, tsw)
+    ctl, agg, sw, fm = (jctl, jagg, jsw, jfaults) if lib == "jax" else (tctl, tagg, tsw, tfaults)
     name, kw, n_active = spec["ctrl"]
     comm = agg.CommModel(*spec["comm"]) if spec.get("comm") is not None else None
+    fault = fm.byzantine_plan(n_active, *spec["fault"][:2], **spec["fault"][2]) if "fault" in spec else None
     return sw.SweepCase(ctl.get_controller(name, n_active, **kw), _straggler(spec["strag"], lib),
                         eta=eta * spec.get("eta", 1.0), comm=comm, label=spec["label"],
-                        mode=spec.get("mode", "sync"), agg=spec.get("agg", "mean"))
+                        mode=spec.get("mode", "sync"), fault=fault, agg=spec.get("agg", "mean"))
 
 
 EXP = ("Exponential", dict(rate=1.0))
@@ -308,6 +311,12 @@ SIGNATURE_GRIDS = {
               dict(ctrl=("fixed", dict(k=2), N), strag=EXP, label="kbatch", mode="kbatch")],
     "robust_agg": [dict(ctrl=("fixed", dict(k=2), N), strag=EXP, label="mean"),
                    dict(ctrl=("fixed", dict(k=2), N), strag=EXP, label="trimmed", agg="trimmed")],
+    "faults": [dict(ctrl=("fixed", dict(k=2), N), strag=EXP, label="clean"),
+               dict(ctrl=("fixed", dict(k=2), N), strag=EXP, label="flip", fault=(0.3, "sign_flip", {})),
+               dict(ctrl=("pflug", PFLUG, 8), strag=EXP, label="crash_gm", agg="geomedian",
+                    fault=(0.25, "crash", dict(onset=2.0))),
+               dict(ctrl=("fixed", dict(k=2), N), strag=EXP, label="gauss_ka", mode="kasync",
+                    fault=(0.2, "random_gauss", dict(param=0.5)))],
 }
 
 
@@ -373,10 +382,11 @@ def _cells(**kw):
     (dict(num_iters=0), ValueError, "num_iters"),
     (dict(n_workers=7), ValueError, "not divisible"),
     (dict(partition="nope"), ValueError, "unknown partition"),
-    (dict(cases=_cells(mode="kasync", agg="trimmed")), NotImplementedError, "item 10"),
+    (dict(cases=_cells(fault=tfaults.FaultPlan([None] * (N + 1)))), ValueError, "11 entries but only 10 active"),
     (dict(cases=_cells(mode="kbatch"), mesh=object()), NotImplementedError, "item 13"),
-    (dict(cases=_cells(agg="trimmed")), NotImplementedError, "item 10"),
-    (dict(cases=_cells(fault=object())), NotImplementedError, "item 10"),
+    (dict(cases=[tsw.SweepCase(tctl.FixedKController(6, k=2), tstr.Exponential(), 1e-4,
+                               fault=tfaults.byzantine_plan(8, 0.5, "crash"))]), ValueError, "only 6 active"),
+    (dict(cases=_cells(fault=object())), ValueError, "FaultPlan"),
     (dict(mesh=object()), NotImplementedError, "item 13"),
 ])
 def test_validation_errors_raise_before_any_program_is_built(linreg, kw, err, match):
