@@ -80,19 +80,35 @@
    and top operations, a looped cell's ms and launches for each
    aggregator; then the whole figure (6000 iterations) with its wall time,
    the reference's two headline flags and the times to target.
-11. Print one `kernels` JSON line, the card again, and, as the last line,
+11. Train (the LM training path, `launch/steps.py`): llama3.2-3b at full
+   width and depth in bf16 with random weights from seed 0 and remat on,
+   sync fastest-k with AdamW (lr 3e-4), Pflug at the train CLI's defaults,
+   Exponential(1) stragglers, 4 workers, batch 8 x seq 512, 6 steps: every
+   CE finite, k in [1, 4], sim_time rising, the eval forward's 28
+   flash-attention launches a step, its CE against the plain path's, ms a
+   step, tokens/s, train_mfu, peak memory and the device's time by kernel;
+   qwen1.5-0.5b at full width in kasync and kbatch (3 steps each: finite
+   values, ms a step, peak memory); the train step on the card against the
+   CPU at smoke width (f32, llama3.2-3b and rwkv6-3b, sync, kasync, kbatch
+   and sync with 2 microbatches); and `quickstart --setup lm` (fig_lm's
+   grid) at 60 iterations, graph-replayed against eager (bitwise), each
+   cell against its looped run and the grid against the CPU, with its ms an
+   iteration and launches, then the whole 600-iteration figure.
+12. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  It does the same when there is no CUDA device or no port beside it.
 No kernel has a CPU path and nothing falls back to a plain version; the
-engine phases run the CPU only as the reference they are held to.
+engine and training phases run the CPU only as the reference they are held
+to.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1510,6 +1526,416 @@ def engine_faults() -> dict:
             "pool_mb": pool_mb, "capture_s": first_s - replay_s, "figure_s": out["wall_s"], "flags": flags}
 
 
+# The training phase.  llama3.2-3b at full width and depth, bf16, remat on,
+# random weights from seed 0: sync fastest-k, AdamW at lr 3e-4, Pflug with
+# the train CLI's defaults, Exponential(1) stragglers, 4 workers, batch 8 x
+# seq 512 from TokenStream seed 0, TRAIN_STEPS steps (the first untimed).
+# The eval forward (no grad, the model's own config) runs the bf16 attention
+# kernel in each of the 28 layers; its CE is held to the plain path's at the
+# same parameters within TRAIN_EVAL_RTOL (the plain path rounds its scores
+# and probabilities to bf16 in every layer).
+TRAIN = dict(batch=8, seq=512, n_workers=4, lr=3e-4, steps=6)
+TRAIN_EVAL_RTOL = 1e-2
+PFLUG_CLI = dict(k0=1, step=1, thresh=10, burnin=20)  # launch/train.py's defaults
+# qwen1.5-0.5b at full width and depth, bf16: each async mode, 3 steps.
+QWEN_ASYNC = dict(batch=8, seq=256, n_workers=4, lr=3e-4, steps=3)
+# Card against CPU at smoke width, f32, TF32 off: (arch, mode, n_micro), 3
+# steps each at T = 128 (the eval forward runs the f32 kernels on the card):
+# k equal, sim_time within 1e-6, ce within 1e-5 relative.
+TRAIN_SMOKE_CASES = [(arch, mode, n_micro) for arch in ("llama3.2-3b", "rwkv6-3b")
+                     for mode, n_micro in (("sync", 1), ("kasync", 1), ("kbatch", 1), ("sync", 2))]
+TRAIN_SMOKE_TIME_RTOL, TRAIN_SMOKE_CE_RTOL = 1e-6, 1e-5
+# quickstart --setup lm (fig_lm's grid) at LM_ITERS iterations and R = 8:
+# graph-replayed against eager bitwise; each cell against its looped run
+# (time and k bitwise, loss within LM_LOOPED_RTOL); against the CPU (no
+# fork, time within 1e-6, loss within 1e-4 wherever the loss is
+# well-conditioned).  The fixed k = 16 cell takes full-batch steps at eta
+# 0.1, and between iterations 45 and 60 they amplify a rounding ~1e4-fold
+# (on the CPU: the port against the reference 3.9e-3 at iteration 60, the
+# port against itself with its weights scaled by 1 + 1e-7 noise 5.3e-4).
+# So the CPU worker runs the grid twice, the second time from weights
+# scaled by 1 + LM_NOISE noise, and an eval point where that moves the
+# loss by more than LM_WELL_CONDITIONED is reported, not held (its time
+# and k still are).
+LM_ITERS, LM_LOOPED_RTOL, LM_CPU_TIME_RTOL, LM_CPU_LOSS_RTOL = 60, 1e-5, 1e-6, 1e-4
+LM_NOISE, LM_WELL_CONDITIONED = 1e-7, 1e-5
+
+
+def train_flops(cfg, params, tokens: int, seq: int) -> float:
+    """Model FLOPs of one train step (PERF.md §2): per token 6 N for the
+    gradient pass and 2 N for the eval forward, N the parameters that enter
+    a matmul (all but the embedding table, which is gathered), plus the
+    attention products: 12 L H hd T for the gradient pass and 4 L H hd T for
+    the eval forward (QK^T and PV over every (query, key) pair, causal or
+    not).  Remat's recomputed forward is not counted."""
+    n = sum(a.numel() for path, a in _leaf_paths(params) if path != "['embed']")
+    attn = cfg.n_layers * cfg.n_heads * cfg.resolved_head_dim * seq
+    return tokens * (8 * n + 16 * attn)
+
+
+def _leaf_paths(tree):
+    from repro_torch.core.tree import leaves_with_path
+
+    return leaves_with_path(tree)
+
+
+def train_llama(counters) -> dict:
+    """Phase 11a: llama3.2-3b trained at full width and depth on the card."""
+    import torch
+    from repro_torch.checkpoint import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.aggregation import CommModel
+    from repro_torch.core.controller import get_controller
+    from repro_torch.core.straggler import get_straggler_model
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    t = TRAIN
+    cfg = get_config("llama3.2-3b")
+    model = build_model(cfg, "cuda")
+    params = convert.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    n_params = sum(a.numel() for _, a in _leaf_paths(params))
+    opt = adamw(t["lr"])
+    ctrl = get_controller("pflug", t["n_workers"], **PFLUG_CLI)
+    step_fn = steps.make_train_step(model, opt, ctrl, get_straggler_model("exponential"), t["n_workers"],
+                                    CommModel(0.0, 0.0))
+    state = steps.init_train_state(opt, ctrl, params)
+    data = TokenStream(cfg.vocab_size, t["seq"], t["batch"], seed=0, device="cuda")
+    tokens = t["batch"] * t["seq"]
+    print(f"[11] train {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} G parameters, "
+          f"{cfg.param_dtype}, remat {cfg.remat}; sync fastest-k, AdamW lr {t['lr']}, Pflug {PFLUG_CLI}, exp(1), "
+          f"{t['n_workers']} workers, batch {t['batch']} x seq {t['seq']}, {t['steps']} steps")
+    key = prng.PRNGKey(0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    rows, secs, per_step = [], [], []
+    for i in range(t["steps"]):
+        tok, tgt = data.batch_at(i)
+        key, sub = prng.split(key).unbind(0)
+        before = counters["flash_attention"].launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, {"tokens": tok, "targets": tgt}, sub)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(counters["flash_attention"].launches - before)
+        rows.append((float(m["ce"]), int(m["k"]), float(m["sim_time"])))
+    counts = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, ((ce, k, st), sec) in enumerate(zip(rows, secs)):
+        print(f"  step {i}: ce {ce:.4f}, k {k}, sim_time {st:.4f}, {sec * 1e3:.1f} ms"
+              + (" (untimed: first step)" if i == 0 else ""))
+    print(f"  launches during the run: {counts}; flash_attention per step {per_step} (expected {cfg.n_layers}, "
+          f"the eval forward's layers)")
+    if any(n != cfg.n_layers for n in per_step) or counts["wkv6"] != 0:
+        raise AssertionError(f"expected {cfg.n_layers} flash-attention launches a step and no wkv6, got {per_step}, "
+                             f"{counts}")
+    ces, ks, sims = zip(*rows)
+    if not all(torch.isfinite(torch.tensor(ces))) or not all(1 <= k <= t["n_workers"] for k in ks):
+        raise AssertionError(f"bad ce or k: {rows}")
+    if not all(b > a for a, b in zip((0.0,) + sims, sims)):
+        raise AssertionError(f"sim_time does not rise: {sims}")
+    step_ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+    flops = train_flops(cfg, params, tokens, t["seq"])
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    print(f"  {step_ms:.1f} ms a step (mean of steps 1-{t['steps'] - 1}), {tokens / (step_ms / 1e3):.0f} tokens/s, "
+          f"train_mfu {mfu:.4f} ({flops / 1e12:.1f} TFLOP a step at {PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s); "
+          f"peak memory {peak_gb:.2f} GB")
+
+    # the eval forward against the plain path, at the trained parameters
+    tok, tgt = data.batch_at(0)
+    plain = build_model(cfg.replace(use_kernels=False), "cuda")
+    with torch.no_grad():
+        ce_kernel = float(model.loss_fn(state.params, {"tokens": tok, "targets": tgt})[1]["ce"])
+        ce_plain = float(plain.loss_fn(state.params, {"tokens": tok, "targets": tgt})[1]["ce"])
+    gap = abs(ce_kernel - ce_plain) / abs(ce_plain)
+    print(f"  eval forward, kernel vs plain attention: ce {ce_kernel:.6f} vs {ce_plain:.6f}, relative gap {gap:.3e} "
+          f"(bound {TRAIN_EVAL_RTOL})")
+    if not gap < TRAIN_EVAL_RTOL:
+        raise AssertionError(f"eval CE differs by {gap:.3e} relative between the kernel and the plain path")
+    tok, tgt = data.batch_at(TRAIN["steps"])
+    batch = {"tokens": tok, "targets": tgt}
+    key, sub = prng.split(key).unbind(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step_fn(state, batch, sub)
+    torch.cuda.synchronize()
+    prof_ms = 1e3 * (time.perf_counter() - t0)
+    key, sub = prng.split(key).unbind(0)
+    device_breakdown(lambda: step_fn(state, batch, sub), "one train step (host clock beside it)", prof_ms, top=8)
+    del state, params, model, plain
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tokens_s": tokens / (step_ms / 1e3), "mfu": mfu, "peak_gb": peak_gb,
+            "launches": counts["flash_attention"], "eval_gap": gap, "n_params": n_params}
+
+
+def train_llama_worker() -> dict:
+    """`train_llama` in a process of its own: a fresh CUDA context whose
+    allocator grows its segments in place (PYTORCH_CUDA_ALLOC_CONF, set by
+    the parent), so the full-width run neither inherits the earlier phases'
+    segments nor fragments its own."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return train_llama({"flash_attention": ops, "wkv6": wkv_ops})
+    finally:
+        sys.stdout.flush()
+
+
+def train_qwen_async() -> dict:
+    """Phase 11b: qwen1.5-0.5b at full width and depth in kasync and kbatch."""
+    import torch
+    from repro_torch.checkpoint import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.controller import get_controller
+    from repro_torch.core.straggler import get_straggler_model
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    t = QWEN_ASYNC
+    cfg = get_config("qwen1.5-0.5b")
+    model = build_model(cfg, "cuda")
+    data = TokenStream(cfg.vocab_size, t["seq"], t["batch"], seed=0, device="cuda")
+    out = {}
+    for mode in ("kasync", "kbatch"):
+        params = convert.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        param_gb = sum(a.numel() * a.element_size() for _, a in _leaf_paths(params)) / 1e9
+        opt, ctrl = adamw(t["lr"]), get_controller("pflug", t["n_workers"], **PFLUG_CLI)
+        step_fn = steps.make_train_step(model, opt, ctrl, get_straggler_model("exponential"), t["n_workers"],
+                                        mode=mode)
+        state = steps.init_train_state(opt, ctrl, params)
+        key = prng.PRNGKey(0, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows, secs = [], []
+        for i in range(t["steps"]):
+            tok, tgt = data.batch_at(i)
+            key, sub = prng.split(key).unbind(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, {"tokens": tok, "targets": tgt}, sub)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            rows.append((float(m["ce"]), int(m["k"]), float(m["sim_time"])))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if not all(math.isfinite(ce) and math.isfinite(st) for ce, _, st in rows):
+            raise AssertionError(f"{mode}: values not finite: {rows}")
+        step_ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+        print(f"[11] train {cfg.arch_id} {mode}: {t['n_workers']} workers, batch {t['batch']} x seq {t['seq']}, "
+              f"{param_gb:.2f} GB of parameters: steps (ce, k, sim_time) {[(round(a, 4), b, round(c, 4)) for a, b, c in rows]}; "
+              f"{step_ms:.1f} ms a step (steps 1-{t['steps'] - 1}; the first {secs[0] * 1e3:.1f} ms), peak memory "
+              f"{peak_gb:.2f} GB ({t['n_workers']} snapshots of {param_gb:.2f} GB)")
+        out[mode] = {"step_ms": step_ms, "peak_gb": peak_gb}
+        del state, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_smoke_run(arch: str, mode: str, n_micro: int, device: str):
+    """3 train steps of a smoke config (f32) from weights drawn on the CPU
+    from seed 0, T = 128: [(k, sim_time, ce)] and the kernels' launches."""
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.core.aggregation import CommModel
+    from repro_torch.core.controller import PflugController
+    from repro_torch.core.straggler import Exponential
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.wkv import ops as wkv_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import sgd
+
+    cfg = get_smoke_config(arch)
+    params = tree_map(lambda a: a.to(device), build_model(cfg, "cpu").init(torch.Generator().manual_seed(0)))
+    opt, ctrl = sgd(0.3, momentum=0.9), PflugController(n_workers=4, k0=1, step=1, thresh=0, burnin=0)
+    step = steps.make_train_step(build_model(cfg, device), opt, ctrl, Exponential(1.0), 4, CommModel(0.1, 0.05),
+                                 n_micro=n_micro, mode=mode)
+    state = steps.init_train_state(opt, ctrl, params)
+    data = TokenStream(cfg.vocab_size, 128, 8, seed=0, device=device)
+    key = prng.PRNGKey(7, device=device)
+    before = (ops.launches, wkv_ops.launches)
+    rows = []
+    for i in range(3):
+        tok, tgt = data.batch_at(i)
+        key, sub = prng.split(key).unbind(0)
+        state, m = step(state, {"tokens": tok, "targets": tgt}, sub)
+        rows.append((int(m["k"]), float(m["sim_time"]), float(m["ce"])))
+    return rows, (ops.launches - before[0], wkv_ops.launches - before[1])
+
+
+def train_smoke_vs_cpu() -> dict:
+    """Phase 11c: the train step on the card against the CPU at smoke width."""
+    worst, launches = (0.0, 0.0), {}
+    for arch, mode, n_micro in TRAIN_SMOKE_CASES:
+        card, counts = train_smoke_run(arch, mode, n_micro, "cuda")
+        cpu, _ = train_smoke_run(arch, mode, n_micro, "cpu")
+        launches[(arch, mode, n_micro)] = counts
+        for (k, st, ce), (k0, st0, ce0) in zip(card, cpu):
+            t_gap, c_gap = abs(st - st0) / abs(st0), abs(ce - ce0) / abs(ce0)
+            worst = (max(worst[0], t_gap), max(worst[1], c_gap))
+            if k != k0 or not (t_gap <= TRAIN_SMOKE_TIME_RTOL and c_gap <= TRAIN_SMOKE_CE_RTOL):
+                raise AssertionError(f"card vs CPU, {arch} {mode} n_micro {n_micro}: {card} against {cpu}")
+    print(f"[11] card vs CPU at smoke width (f32, T = 128, 3 steps): {len(TRAIN_SMOKE_CASES)} runs "
+          f"({', '.join(f'{a} {m}' + (f' n_micro {n}' if n > 1 else '') for a, m, n in TRAIN_SMOKE_CASES)}): "
+          f"k equal, max rel gap sim_time {worst[0]:.3e} (bound {TRAIN_SMOKE_TIME_RTOL}), ce {worst[1]:.3e} "
+          f"(bound {TRAIN_SMOKE_CE_RTOL}); kernel launches on the card (flash, wkv6): "
+          + ", ".join(f"{a} {m}{'/' + str(n) if n > 1 else ''} {c}" for (a, m, n), c in launches.items()))
+    return {"rwkv_sync_wkv_launches": launches[("rwkv6-3b", "sync", 1)][1]}
+
+
+def lm_grid_cpu(iters: int, threads: int):
+    """fig_lm's grid on the CPU in a worker process, from its weights and
+    from them scaled by 1 + LM_NOISE noise: two {label: (time, loss, k)}."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.core.straggler import Exponential
+    from repro_torch.core.sweep import run_sweep_source
+    from repro_torch.launch import quickstart
+
+    torch.set_num_threads(threads)
+    cfg = quickstart.LM
+    source, params0, data, keys = quickstart.lm_inputs(device="cpu")
+    cases = quickstart.lm_cases(quickstart.theorem1_times(source, params0, data, Exponential(rate=1.0)))
+    rng = np.random.default_rng(0)
+    noisy = tree_map(lambda a: a * (1 + LM_NOISE * torch.from_numpy(rng.standard_normal(a.shape).astype(np.float32))),
+                     params0)
+    out = []
+    for p in (params0, noisy):
+        res = run_sweep_source(source, p, data, n_workers=cfg["n"], cases=cases, num_iters=iters, keys=keys,
+                               eval_every=cfg["eval_every"], device="cpu")
+        out.append(cells_of(res))
+    return out
+
+
+def train_lm_grid() -> dict:
+    """Phase 11d: quickstart --setup lm (fig_lm's grid) on the card."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    from repro_torch.core.straggler import Exponential
+    from repro_torch.core.sweep import run_sweep_source
+    from repro_torch.launch import quickstart
+
+    cfg = quickstart.LM
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        cpu_f = pool.submit(lm_grid_cpu, LM_ITERS, 6)
+        source, params0, data, keys = quickstart.lm_inputs(device="cuda")
+        grid_cases = quickstart.lm_cases(quickstart.theorem1_times(source, params0, data, Exponential(rate=1.0)))
+
+        def grid(iters, capture=True):
+            return run_sweep_source(source, params0, data, n_workers=cfg["n"], cases=grid_cases, num_iters=iters,
+                                    keys=keys, eval_every=cfg["eval_every"], device="cuda", capture=capture)
+
+        lanes = len(grid_cases) * cfg["replicas"]
+        print(f"[11] --setup lm: fig_lm's grid ({len(grid_cases)} cells x R={cfg['replicas']} = {lanes} lanes, "
+              f"n={cfg['n']}, a {cfg['rows']} x {cfg['seq']} token batch, the shrunk {cfg['arch']}), {LM_ITERS} "
+              "iterations")
+        t0 = time.perf_counter()
+        graph = cells_of(grid(LM_ITERS))
+        first_s = time.perf_counter() - t0
+        eager = cells_of(grid(LM_ITERS, capture=False))
+        diff = [lb for lb in graph if not all(np.array_equal(a, b) for a, b in zip(graph[lb], eager[lb]))]
+        print(f"  graph-replayed vs eager: {len(graph) - len(diff)}/{len(graph)} cells bitwise equal"
+              + (f"; differ: {diff}" if diff else "") + f" (first run {first_s:.2f} s, capture included)")
+        if diff:
+            raise AssertionError(f"--setup lm: graph-replayed run differs from eager in {diff}")
+        looped = quickstart.run_lm(iters=LM_ITERS, device="cuda", looped=True)["results"]
+        worst = 0.0
+        for lb, (gt, gl, gk) in graph.items():
+            lt, ll, lk = (getattr(looped[lb], f).cpu().numpy() for f in ("time", "loss", "k"))
+            gap = float(np.max(np.abs(gl - ll) / np.abs(ll)))
+            worst = max(worst, gap)
+            if not (np.array_equal(gt, lt) and np.array_equal(gk, lk) and gap <= LM_LOOPED_RTOL):
+                raise AssertionError(f"--setup lm: {lb} differs from its looped run (loss gap {gap:.3e})")
+        print(f"  each cell vs its looped run: time and k bitwise, loss within {worst:.3e} (bound {LM_LOOPED_RTOL})")
+        grid(1), grid(2)  # capture both programs before they are counted
+        launches = count_kernels(lambda: grid(2)) - count_kernels(lambda: grid(1))
+        iter_ms = cuda_ms(lambda: grid(LM_ITERS), iters=2, warmup=0) / LM_ITERS
+        print(f"  graph-replayed: {iter_ms:.4f} ms an iteration ({lanes} lanes), {launches} kernels an iteration "
+              "(torch.profiler, runs of 2 and 1 iterations)")
+        cpu, noisy = cpu_f.result()
+    worst, unheld = (0.0, 0.0), []
+    for lb, (gt, gl, gk) in graph.items():
+        ct, cl, ck = cpu[lb]
+        t_gap = float(np.max(np.abs(gt - ct) / np.abs(ct)))
+        l_gaps = np.abs(gl - cl) / np.abs(cl)
+        cond = np.abs(noisy[lb][1] - cl) / np.abs(cl)  # the loss's own move under LM_NOISE
+        held = cond <= LM_WELL_CONDITIONED
+        worst = (max(worst[0], t_gap), max(worst[1], float(np.max(l_gaps[held], initial=0.0))))
+        for r, c in zip(*np.nonzero(~held)):
+            unheld.append(f"{lb} replica {r} iteration {(c + 1) * cfg['eval_every']}: card vs CPU {l_gaps[r, c]:.2e}, "
+                          f"the CPU under noise {cond[r, c]:.2e}")
+        if not (np.array_equal(gk, ck) and t_gap <= LM_CPU_TIME_RTOL and bool((l_gaps[held] <= LM_CPU_LOSS_RTOL).all())
+                and np.isfinite(gl).all()):
+            raise AssertionError(f"--setup lm: {lb} on the card differs from the CPU (time {t_gap:.3e}, loss "
+                                 f"{l_gaps.max():.3e}, k equal {np.array_equal(gk, ck)})")
+    print(f"  card vs CPU at iteration {LM_ITERS}: no fork, max rel gap time {worst[0]:.3e} (bound {LM_CPU_TIME_RTOL}),"
+          f" loss {worst[1]:.3e} (bound {LM_CPU_LOSS_RTOL}) where weights scaled by 1 + {LM_NOISE:g} noise move the "
+          f"CPU's loss by at most {LM_WELL_CONDITIONED:g}; not held there ({len(unheld)} of "
+          f"{sum(a[1].size for a in graph.values())} points): " + ("; ".join(unheld) or "none"))
+    out = quickstart.run_lm(device="cuda")
+    final = {lb: float(s["loss_mean"][-1]) for lb, s in out["cases"].items()}
+    print(f"  the whole figure ({cfg['iters']} iterations, one grid): {out['wall_s']:.2f} s; final CE "
+          + ", ".join(f"{lb} {ce:.4f}" for lb, ce in final.items())
+          + f"; adaptive k_final {out['cases']['adaptive']['k_mean'][-1]:.1f}; Theorem-1 switches "
+          f"{[round(x, 1) for x in out['t1_times']]}")
+    if not all(math.isfinite(ce) for ce in final.values()):
+        raise AssertionError(f"--setup lm: final CE not finite: {final}")
+    return {"iter_ms": iter_ms, "launches": launches, "figure_s": out["wall_s"]}
+
+
+def train_phase() -> dict:
+    """Phase 11: the LM training path."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from repro_torch.core import montecarlo, sweep
+
+    phase_t0 = time.perf_counter()
+    # the engine phases' programs hold CUDA-graph pools; the full-width run needs the card
+    montecarlo.clear_program_cache()
+    sweep.clear_sweep_cache()
+    torch.cuda.empty_cache()
+    print(f"[11] this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of the card's memory before the "
+          "full-width run (in a process of its own)", flush=True)
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # for the spawned process only
+    try:
+        with ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            out = {"llama": pool.submit(train_llama_worker).result()}
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    out["qwen"] = train_qwen_async()
+    out["smoke"] = train_smoke_vs_cpu()
+    out["lm"] = train_lm_grid()
+    print(f"  phase 11 took {time.perf_counter() - phase_t0:.1f} s")
+    return out
+
+
 def prng_key(seed: int):
     from repro_torch.core import prng
 
@@ -1697,7 +2123,11 @@ def main() -> int:
     # 10. faults and robust aggregation: the forced grid and fig_byzantine's grid (no kernel of the port on their path)
     engine_faults()
 
-    # 11. summary
+    # 11. the LM training path: the eval forward of each step runs the kernels, the gradients the plain path
+    sys.stdout.flush()
+    p11 = train_phase()
+
+    # 12. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1712,6 +2142,7 @@ def main() -> int:
         "library_ms": library_ms,
         "f32_source": "src/repro_torch/kernels/attention/csrc/flash_attn.cu",
         "f32_ms": f32_ms,
+        "train_launches": p11["llama"]["launches"],
     }, {
         "name": "wkv6",
         "route": "cuda",
@@ -1728,6 +2159,7 @@ def main() -> int:
         "scalar_ms": wkv_scalar_ms,
         "scalar_bound_ms": scalar_bound_ms,
         "scalar_bound_by": scalar_bound_by,
+        "train_launches": p11["smoke"]["rwkv_sync_wkv_launches"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())

@@ -13,11 +13,12 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 _MODULES: Dict[str, str] = {
     "llama3.2-3b": "llama3_2_3b",
     "rwkv6-3b": "rwkv6_3b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
 }
 
 # Architectures of the JAX package that the port does not run yet.
 _NOT_PORTED = (
-    "qwen3-moe-30b-a3b", "qwen1.5-110b", "qwen1.5-0.5b",
+    "qwen3-moe-30b-a3b", "qwen1.5-110b",
     "granite-moe-1b-a400m", "seamless-m4t-medium", "hymba-1.5b",
     "paligemma-3b", "nemotron-4-340b",
 )

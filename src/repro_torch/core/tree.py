@@ -15,22 +15,29 @@ from typing import List, Tuple
 
 import torch
 
-__all__ = ["leaves_with_path", "tree_leaves", "tree_dot", "first_leaf", "map_with_index"]
+__all__ = ["leaves_with_keys", "leaves_with_path", "tree_leaves", "tree_dot", "first_leaf", "map_with_index"]
 
 
-def leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
-    """[(keystr, leaf)] in JAX's flattening order (dict keys sorted)."""
+def leaves_with_keys(tree, prefix: tuple = ()) -> List[Tuple[Tuple[str, ...], torch.Tensor]]:
+    """[(path, leaf)] in JAX's flattening order (dict keys sorted), each
+    path a tuple of the `str` of JAX's key entries: ``.field`` for a named
+    tuple, ``['key']`` for a dict, ``[i]`` for a list or tuple."""
     if isinstance(tree, torch.Tensor):
         return [(prefix, tree)]
     if tree is None:
         return []
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in leaves_with_path(tree[k], f"{prefix}[{k!r}]")]
+        return [leaf for k in sorted(tree) for leaf in leaves_with_keys(tree[k], prefix + (f"[{k!r}]",))]
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return [leaf for f in tree._fields for leaf in leaves_with_path(getattr(tree, f), f"{prefix}.{f}")]
+        return [leaf for f in tree._fields for leaf in leaves_with_keys(getattr(tree, f), prefix + (f".{f}",))]
     if isinstance(tree, (list, tuple)):
-        return [leaf for i, x in enumerate(tree) for leaf in leaves_with_path(x, f"{prefix}[{i}]")]
+        return [leaf for i, x in enumerate(tree) for leaf in leaves_with_keys(x, prefix + (f"[{i}]",))]
     raise TypeError(f"not a pytree of tensors: {type(tree).__name__}")
+
+
+def leaves_with_path(tree) -> List[Tuple[str, torch.Tensor]]:
+    """[(keystr, leaf)] in JAX's flattening order (dict keys sorted)."""
+    return [("".join(path), leaf) for path, leaf in leaves_with_keys(tree)]
 
 
 def map_with_index(fn, tree, _count=None):

@@ -1,1 +1,6 @@
-from repro_torch.data.synthetic import LinRegData, make_linreg_data, worker_major_batch  # noqa: F401
+from repro_torch.data.synthetic import (  # noqa: F401
+    LinRegData,
+    TokenStream,
+    make_linreg_data,
+    worker_major_batch,
+)

@@ -1,22 +1,26 @@
-"""Synthetic data, in torch: the paper's linear-regression task (§V-A).
+"""Synthetic data, in torch: the paper's linear-regression task (§V-A) and
+the LM path's token stream.
 
-X uniform over {1..10}^d, w_bar uniform over {1..100}^d, y ~ N(<x, w_bar>, 1),
-drawn with the port's threefry from one key, so X and w_bar are the JAX
-package's bits; y differs from it only where torch's erfinv does from XLA's
-(a few tens of ulp of the unit noise).  The token stream of the LM path
-waits for the training slice.
+Linear regression: X uniform over {1..10}^d, w_bar uniform over
+{1..100}^d, y ~ N(<x, w_bar>, 1), drawn with the port's threefry from one
+key, so X and w_bar are the JAX package's bits; y differs from it only
+where torch's erfinv does from XLA's (a few tens of ulp of the unit noise).
+
+`TokenStream`: the deterministic next-token stream the LM trainer and
+`LMSource` consume, the JAX package's bit for bit (integer draws only).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import Iterator, NamedTuple, Tuple
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import prng
 
-__all__ = ["LinRegData", "make_linreg_data", "worker_major_batch"]
+__all__ = ["LinRegData", "make_linreg_data", "worker_major_batch", "TokenStream"]
 
 
 class LinRegData(NamedTuple):
@@ -46,3 +50,43 @@ def worker_major_batch(tokens: torch.Tensor, n_workers: int) -> torch.Tensor:
     if b % n_workers:
         raise ValueError(f"batch {b} not divisible by n_workers {n_workers}")
     return tokens
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Deterministic synthetic LM token stream on ``device``.
+
+    ``batch_at(step)`` gives (tokens, targets), both (global_batch, seq_len)
+    int32, targets the tokens shifted by one.  Each row is a seeded walk
+    with Markov structure, so the LM loss is learnable: with probability
+    ``correlation`` the next token is the previous one plus 1 (mod vocab),
+    else a fresh uniform token.  Rows are worker-major: worker i of n owns
+    rows [i*s, (i+1)*s), the layout the fastest-k weights assume."""
+
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    correlation: float = 0.8
+    device: str = "cuda"
+
+    def batches(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+    def batch_at(self, step: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        dev = resolve_device(self.device)
+        key = prng.fold_in(prng.PRNGKey(self.seed, device=dev), step)
+        k1, k2 = prng.split(key).unbind(0)
+        b, t, v = self.global_batch, self.seq_len, self.vocab_size
+        base = prng.randint(k1, (b, t + 1), 0, v)
+        follow = prng.bernoulli(k2, self.correlation, (b, t + 1))
+        # the reference's lax.scan over positions, vectorised over rows
+        seq = torch.empty_like(base)
+        prev = base[:, 0]
+        for i in range(t + 1):
+            prev = torch.where(follow[:, i], (prev + 1) % v, base[:, i])
+            seq[:, i] = prev
+        return seq[:, :-1], seq[:, 1:]

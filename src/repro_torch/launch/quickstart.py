@@ -6,6 +6,7 @@ as replica means with 95% CIs: the port of `examples/quickstart.py`.
     PYTHONPATH=src python -m repro_torch.launch.quickstart --setup ablation [--looped]
     PYTHONPATH=src python -m repro_torch.launch.quickstart --setup async [--looped]
     PYTHONPATH=src python -m repro_torch.launch.quickstart --setup byzantine [--looped]
+    PYTHONPATH=src python -m repro_torch.launch.quickstart --setup lm [--looped]
 
 ``quickstart`` (the default): n = 20 workers, m = 400, d = 20, R = 16,
 Algorithm 1's Pflug test (k0 = 2, step 4, thresh 10, burn-in 40) against
@@ -56,11 +57,13 @@ from repro_torch.core.controller import (
     VarianceRatioController,
 )
 from repro_torch.core.faults import byzantine_plan
-from repro_torch.core.montecarlo import run_monte_carlo, summarize
+from repro_torch.core.montecarlo import run_monte_carlo, run_monte_carlo_source, summarize
 from repro_torch.core.straggler import Bimodal, Exponential, Pareto, WorkerFleet
-from repro_torch.core.sweep import SweepCase, run_sweep
+from repro_torch.core.sweep import SweepCase, run_sweep, run_sweep_source
+from repro_torch.core.tree import tree_leaves
 from repro_torch.core.theory import SGDSystem, switching_times
 from repro_torch.data import make_linreg_data
+from repro_torch.launch.lm_source import LMSource
 
 SETUPS = {
     "quickstart": dict(m=400, d=20, n=20, replicas=16, iters=8000, eval_every=1000,
@@ -74,6 +77,12 @@ SETUPS = {
                       byz_rate=2.0, edge_fraction=0.75, adaptive=dict(k0=4, step=4, thresh=10, burnin=40, k_max=16),
                       fixed=(4, 16)),
 }
+# benchmarks/fig_lm.py: a real registered architecture, shrunk so the grid
+# stays minutes.
+LM = dict(arch="qwen1.5-0.5b", overrides=(("n_layers", 2), ("d_model", 64), ("n_heads", 4), ("n_kv_heads", 4),
+                                          ("d_ff", 128), ("vocab_size", 256)),
+          n=16, rows=32, seq=32, replicas=8, iters=600, eval_every=30, eta=0.1, k0=4, k_step=4, k_cap=16,
+          adaptive=dict(thresh=5, burnin=10))
 # fig_byzantine's headline bars on the final excess loss at k = 16 and 30%
 # sign-flip workers: the weighted mean has diverged above the first (or is
 # not finite), the geometric median has recovered below the second.
@@ -268,17 +277,104 @@ def report(out: dict) -> None:
               f"{flags['gm_recovered_b30']})")
 
 
+def lm_inputs(replicas: int | None = None, device="cuda"):
+    """fig_lm's source, parameters (from key 0: the same on every device),
+    token batch (seed 0) and replica keys split from key 1."""
+    dev = resolve_device(device)
+    source = LMSource(arch=LM["arch"], smoke=True, overrides=LM["overrides"])
+    params0 = source.init_params(prng.PRNGKey(0), device=dev)
+    data = source.make_data(n_rows=LM["rows"], seq_len=LM["seq"], seed=0, device=dev)
+    return source, params0, data, prng.split(prng.PRNGKey(1, device=dev), replicas or LM["replicas"])
+
+
+def theorem1_times(source: LMSource, params0, data, straggler) -> list:
+    """fig_lm's Theorem-1 switch times from heuristic SGD constants: an LM
+    loss exposes no Hessian, so L ~ 1/eta (eta tuned to ~1/L), c = L/100,
+    sigma^2 the squared norm of the initial full-batch gradient, F0_gap 90%
+    of the initial CE."""
+    n, eta = LM["n"], LM["eta"]
+    fns = source.build(data, n)
+    dev = data[0].device
+    g0 = fns.grad(params0, torch.ones(n, device=dev), torch.tensor(n, dtype=torch.int32, device=dev))
+    sigma2 = float(sum(torch.dot(g.reshape(-1), g.reshape(-1)) for g in tree_leaves(g0)))
+    f0 = float(fns.eval_loss(params0))
+    big_l = 1.0 / eta
+    sysm = SGDSystem(eta=eta, L=big_l, c=big_l / 100.0, sigma2=sigma2, s=LM["rows"] // n, F0_gap=0.9 * f0, n=n,
+                     straggler=straggler)
+    return switching_times(sysm, list(range(LM["k0"], LM["k_cap"], LM["k_step"])), step=LM["k_step"])
+
+
+def lm_cases(t1_times: list) -> list:
+    n, eta, k0, k_step, k_cap = LM["n"], LM["eta"], LM["k0"], LM["k_step"], LM["k_cap"]
+    straggler = Exponential(rate=1.0)
+    return [
+        SweepCase(PflugController(n_workers=n, k0=k0, step=k_step, k_max=k_cap, **LM["adaptive"]), straggler,
+                  eta=eta, label="adaptive"),
+        SweepCase(FixedKController(n_workers=n, k=k0), straggler, eta=eta, label=f"fixed_k{k0}"),
+        SweepCase(FixedKController(n_workers=n, k=k_cap), straggler, eta=eta, label=f"fixed_k{k_cap}"),
+        SweepCase(ScheduleController(n_workers=n, switch_times=t1_times, k0=k0, step=k_step), straggler, eta=eta,
+                  label="schedule_t1"),
+    ]
+
+
+def run_lm(iters: int | None = None, replicas: int | None = None, device="cuda", capture: bool = True,
+           looped: bool = False) -> dict:
+    """fig_lm's four arms as one `run_sweep_source` grid, or (``looped``)
+    one `run_monte_carlo_source` call each.  Returns {"t1_times",
+    "wall_s", "cases": {label: summarize(result)}, "results": {label:
+    result}}; the loss is the CE over the token batch."""
+    source, params0, data, keys = lm_inputs(replicas, device)
+    t1_times = theorem1_times(source, params0, data, Exponential(rate=1.0))
+    grid = lm_cases(t1_times)
+    num_iters, dev = iters or LM["iters"], data[0].device
+    t0 = time.perf_counter()
+    if looped:
+        results = {c.label: run_monte_carlo_source(
+            source, params0, data, n_workers=LM["n"], controller=c.controller, straggler=c.straggler, eta=c.eta,
+            num_iters=num_iters, keys=keys, eval_every=LM["eval_every"], device=dev, capture=capture)
+            for c in grid}
+    else:
+        res = run_sweep_source(source, params0, data, n_workers=LM["n"], cases=grid, num_iters=num_iters, keys=keys,
+                               eval_every=LM["eval_every"], device=dev, capture=capture)
+        results = {label: res.cell(g) for g, label in enumerate(res.labels)}
+    out = {"t1_times": t1_times, "cases": {}, "results": results}
+    for label, r in results.items():
+        out["cases"][label] = summarize(r)  # reads the result back, so the time includes the run
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def report_lm(out: dict) -> None:
+    """Each arm's trajectory, then fig_lm's ``derived`` line."""
+    for label, s in out["cases"].items():
+        print(f"== {label}: replica mean +- 95% CI over R={s['n_replicas']} (CE) ==")
+        for i in range(len(s["iteration"])):
+            print(f"  iter={s['iteration'][i]:6d}  sim_time={s['time_mean'][i]:10.2f}  "
+                  f"ce={s['loss_mean'][i]:9.5f} +-{s['loss_ci95'][i]:9.2g}  k={s['k_mean'][i]:5.2f}")
+    final = {label: s["loss_mean"][-1] for label, s in out["cases"].items()}
+    s0 = next(iter(out["cases"].values()))
+    print(f"replicas={s0['n_replicas']};cells={len(final)};iters={s0['iteration'][-1]};"
+          f"t1_switches={[round(t, 1) for t in out['t1_times']]};"
+          + ";".join(f"final_ce_{label}={ce:.4f}" for label, ce in final.items())
+          + f";k_final={out['cases']['adaptive']['k_mean'][-1]:.1f}")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--setup", default="quickstart", choices=sorted(SETUPS))
+    ap.add_argument("--setup", default="quickstart", choices=sorted(SETUPS) + ["lm"])
     ap.add_argument("--iters", type=int, default=None, help="iterations per case (default: the setup's)")
     ap.add_argument("--replicas", type=int, default=None, help="Monte-Carlo replicas (default: the setup's)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--looped", action="store_true", help="one run_monte_carlo call per case instead of one grid")
     args = ap.parse_args(argv)
+    how = "looped, a program each" if args.looped else "as one grid"
+    if args.setup == "lm":
+        out = run_lm(iters=args.iters, replicas=args.replicas, device=args.device, looped=args.looped)
+        report_lm(out)
+        print(f"{len(out['cases'])} cases ({how}) in {out['wall_s']:.2f} s on {args.device}")
+        return
     out = run(args.setup, iters=args.iters, replicas=args.replicas, device=args.device, looped=args.looped)
     report(out)
-    how = "looped, a program each" if args.looped else "as one grid"
     print(f"eta {out['eta']:.6g}; {len(out['cases'])} cases ({how}) in {out['wall_s']:.2f} s on {args.device}")
 
 

@@ -1,15 +1,19 @@
-"""Top-level serving API of the port: build_model(cfg, device) ->
-Model(prefill, decode_step, init_cache).
+"""Top-level model API of the port: build_model(cfg, device) ->
+Model(init, loss_fn, prefill, decode_step, init_cache).
 
-A port of the serving half of `repro/models/model.py::build_model`, for
-the families in `transformer.PORTED_FAMILIES` (dense and ssm).  The
-training entry (`loss_fn`, chunked cross-entropy) waits for the training
-slice, and parameters come from `repro_torch.checkpoint.convert`
-(`init` on the card, or `params_from_jax`).
+A port of `repro/models/model.py::build_model` for the families in
+`transformer.PORTED_FAMILIES` (dense and ssm).  Parameters come from
+`init` (random, on the card) or `repro_torch.checkpoint.params_from_jax`.
 
 Batch contract, as in the JAX package:
+  train:   {tokens (B,T) int, targets (B,T) int}
   prefill: {tokens (B,T) int}
   decode:  token (B,1) int, cache, pos (int) = number of tokens already cached
+
+`loss_fn` returns per-batch-row losses (B,): the fastest-k aggregation
+turns them into the masked weighted mean of eq. (2), so the model never
+needs to know about stragglers.  It runs where its inputs lie, under
+autograd and under `torch.func` transforms (with ``cfg.remat`` off there).
 """
 
 from __future__ import annotations
@@ -21,20 +25,87 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, transformer
+from repro_torch.models.transformer import checkpointed
+
+# The chunked cross-entropy's sequence chunk: (B, 512, Vpad) f32 logits at a time.
+CE_CHUNK = 512
 
 
 class Model(NamedTuple):
     cfg: ModelConfig
     device: torch.device
+    init: Callable
+    loss_fn: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
 
 
+def _masked_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Padded vocab entries set to the f32 minimum, out of the softmax."""
+    vpad = logits.shape[-1]
+    if vpad <= vocab:
+        return logits
+    pad = torch.arange(vpad, device=logits.device) >= vocab
+    return torch.where(pad, torch.finfo(logits.dtype).min, logits)
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Next-token negative log-likelihood (B, T) from (B, T, Vpad) f32 logits."""
+    logits = _masked_logits(logits, vocab)
+    gold = torch.gather(logits, -1, targets[..., None].to(torch.int64))[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def _ce_per_row(logits: torch.Tensor, targets: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mean next-token cross-entropy per batch row.  logits (B, T, Vpad) f32."""
+    return _nll(logits, targets, vocab).mean(dim=-1)
+
+
+def _ce_per_row_chunked(params, cfg: ModelConfig, x: torch.Tensor, targets: torch.Tensor,
+                        chunk: int = CE_CHUNK) -> torch.Tensor:
+    """The cross-entropy over sequence chunks when T is a multiple of
+    ``chunk`` above it, so the (B, T, Vpad) f32 logits never exist at once.
+    Under ``cfg.scan_layers`` with grad mode on, each chunk is recomputed in
+    the backward pass, as the reference wraps each in `jax.checkpoint`, so
+    no chunk's logits stay alive for it."""
+    b, t, _ = x.shape
+    if t % chunk or t <= chunk:
+        return _ce_per_row(layers.logits(params, cfg, x), targets, cfg.vocab_size)
+
+    def chunk_sum(xc, tc):
+        return _nll(layers.logits(params, cfg, xc), tc, cfg.vocab_size).sum(dim=-1)
+
+    remat = cfg.scan_layers and torch.is_grad_enabled()
+    total = torch.zeros((b,), dtype=torch.float32, device=x.device)
+    for i in range(t // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        total = total + (checkpointed(chunk_sum, x[:, sl], targets[:, sl]) if remat
+                         else chunk_sum(x[:, sl], targets[:, sl]))
+    return total / t
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
-    """Raises if `device` names CUDA and there is no card, or the family is not ported."""
+    """Raises if `device` names CUDA and there is no card, or the family is
+    not ported.  `device` is where `init`, `prefill` and `init_cache` put
+    their tensors; `loss_fn` runs on its inputs' device."""
     dev = resolve_device(device)
     transformer.check_family(cfg)
+
+    def init(generator: torch.Generator):
+        """Random parameters on the model's device (`convert.init`)."""
+        from repro_torch.checkpoint import convert  # convert imports this package
+
+        return convert.init(cfg, generator, dev)
+
+    def loss_fn(params, batch):
+        """(per-row losses (B,) f32, {"ce": their mean})."""
+        x = layers.embed(params, cfg, batch["tokens"])
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = transformer.run_stack_full(params["layers"], cfg, x, pos, window=cfg.sliding_window)
+        x = layers.rmsnorm(params["final_norm"], x)
+        per_row = _ce_per_row_chunked(params, cfg, x, batch["targets"])
+        return per_row, {"ce": per_row.mean()}
 
     @torch.inference_mode()
     def prefill(params, batch, *, window: Optional[int] = None):
@@ -61,4 +132,5 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
     def init_cache(batch: int, cache_len: int, window: int = 0):
         return transformer.init_cache(cfg, batch, cache_len, window, device=dev)
 
-    return Model(cfg=cfg, device=dev, prefill=prefill, decode_step=decode_step, init_cache=init_cache)
+    return Model(cfg=cfg, device=dev, init=init, loss_fn=loss_fn, prefill=prefill, decode_step=decode_step,
+                 init_cache=init_cache)

@@ -1,4 +1,4 @@
-"""Layer stacks for serving: prefill, then decode against a cache.
+"""Layer stacks: the training forward, prefill, and decode against a cache.
 
 A port of the dense and ssm parts of `repro/models/transformer.py`:
 
@@ -7,15 +7,18 @@ A port of the dense and ssm parts of `repro/models/transformer.py`:
               decode against the recurrent state
 
 Layer parameters stay stacked over a leading L axis, as in the JAX package,
-and the layers run as a Python loop over views `a[i]` (there is no scan).
-Other families raise.
+and the layers run as a Python loop (there is no scan): over views `a[i]`
+when serving, over `unbind` when training, whose backward writes each
+stacked gradient once.  Other families raise.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
+import torch.utils.checkpoint
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, rwkv
@@ -66,23 +69,60 @@ def _kv_to_ring_cache(k: torch.Tensor, window: int) -> torch.Tensor:
     return cache
 
 
-def _block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *, window: int):
-    """One layer over the whole prompt.  Returns (x_out, cache_l): the
-    per-layer decode cache, whose leaves are init_cache's without the L axis."""
+def _block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *, window: int,
+                capture_cache: bool = False):
+    """One layer over the whole sequence.  Returns (x_out, cache_l): with
+    ``capture_cache`` the per-layer decode cache, whose leaves are
+    init_cache's without the L axis; else None (the training forward)."""
     if cfg.family == "ssm":
         h = layers.rmsnorm(p["ln1"], x)
         y, x_att, s = rwkv.time_mix(p["tmix"], cfg, h)
         x = x + y
         h = layers.rmsnorm(p["ln2"], x)
         y, x_ffn = rwkv.channel_mix(p["cmix"], cfg, h)
-        return x + y, {"x_att": x_att, "x_ffn": x_ffn, "s": s}
+        return x + y, ({"x_att": x_att, "x_ffn": x_ffn, "s": s} if capture_cache else None)
     h = layers.rmsnorm(p["ln1"], x)
     y, (k, v) = layers.attention_full(
         p["attn"], cfg, h, positions, causal=True, window=window, return_kv=True
     )
     x = x + y
     x = x + layers.mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))
+    if not capture_cache:
+        return x, None
     return x, {"k": _kv_to_ring_cache(k, window), "v": _kv_to_ring_cache(v, window)}
+
+
+def checkpointed(fn: Callable, *args):
+    """``fn(*args)`` through `torch.utils.checkpoint` (recomputed in the
+    backward pass, as `jax.checkpoint`).  It is not reliable under a
+    `torch.func` transform, so there it raises rather than run unchecked:
+    set ``remat=False`` for a mapped loss (the smoke configs do)."""
+    if torch._C._functorch.maybe_current_level() is not None:
+        raise RuntimeError("remat (torch.utils.checkpoint) under a torch.func transform: build the mapped loss "
+                           "from a config with remat=False")
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
+def run_stack_full(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
+                   window: int = 0) -> torch.Tensor:
+    """The training forward through the layer stack (causal, no decode
+    cache).  With ``cfg.remat`` and grad mode on, each block is recomputed
+    in the backward pass (`checkpointed`)."""
+    check_family(cfg)
+    if cfg.remat and cfg.remat_policy == "dots":
+        raise NotImplementedError("remat_policy='dots' (save the matmul outputs) is not yet ported; see "
+                                  "ROADMAP.md Queue 1 item 17")
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def body(x, p):
+        return _block_full(p, cfg, x, positions, window=window)[0]
+
+    leaves, spec = tree_flatten(stacked)
+    unbound = [a.unbind(0) for a in leaves]
+    per_layer = [tree_unflatten([u[i] for u in unbound], spec) for i in range(cfg.n_layers)]
+    for p in per_layer:
+        x = checkpointed(body, x, p) if remat else body(x, p)
+    return x
 
 
 def run_stack_prefill(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -94,7 +134,7 @@ def run_stack_prefill(stacked: dict, cfg: ModelConfig, x: torch.Tensor, position
     check_family(cfg)
     cache = None
     for i in range(cfg.n_layers):
-        x, cache_l = _block_full(layer_params(stacked, i), cfg, x, positions, window=window)
+        x, cache_l = _block_full(layer_params(stacked, i), cfg, x, positions, window=window, capture_cache=True)
         if cache is None:
             cache = {kk: a.new_empty((cfg.n_layers,) + tuple(a.shape)) for kk, a in cache_l.items()}
         for kk, a in cache_l.items():

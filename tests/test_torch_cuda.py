@@ -1,9 +1,12 @@
 """The port's CUDA kernels (flash attention, wkv6) against their plain
 PyTorch versions, the simulation engine against its CPU run and the
 goldens, the sweep engine against its eager run and the looped engine, the
-async modes graph-replayed against eager, and faults and robust aggregation
+async modes graph-replayed against eager, faults and robust aggregation
 (graph-replayed against eager, a forced grid against the looped engine, the
-stable sort's signed zeros), on the card.  Flash attention
+stable sort's signed zeros), and the LM training path (the train step
+against its CPU run, no per-worker snapshots in a sync step, the kernels'
+guard under `torch.func.grad`, `quickstart --setup lm` graph-replayed
+against eager), on the card.  Flash attention
 has two routes, by dtype: f32 the scalar kernel, bf16 the wgmma + TMA
 kernel; every attention case runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
 tensor-core kernel, every other shape the scalar one; each wkv case asserts
@@ -28,11 +31,19 @@ from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import straggler as strag  # noqa: E402
 from repro_torch.core import sweep as sw  # noqa: E402
 from repro_torch.core.aggregation import CommModel  # noqa: E402
-from repro_torch.data import make_linreg_data  # noqa: E402
+from torch.utils._pytree import tree_map  # noqa: E402
+
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.tree import leaves_with_path  # noqa: E402
+from repro_torch.data import TokenStream, make_linreg_data  # noqa: E402
 from repro_torch.kernels.attention import ops, ref  # noqa: E402
 from repro_torch.kernels.wkv import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.wkv import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.wkv import ref as wkv_ref  # noqa: E402
+from repro_torch.launch import quickstart  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.optim import optimizers as optim  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -631,7 +642,7 @@ def test_kernels_refuse_grad_mode_and_run_without_it(cuda_device, kernel_name, d
         plain = wkv_ref.wkv6_ref(*xs, chunk=32)
     xs[0].requires_grad_(True)
     before = counter.launches
-    with pytest.raises(RuntimeError, match="item 6"):
+    with pytest.raises(RuntimeError, match="no backward kernel"):
         fn(*xs)
     assert counter.launches == before
     with torch.no_grad():
@@ -652,3 +663,95 @@ def test_run_monte_carlo_on_cuda_without_a_card_raises():
         mc.run_monte_carlo(_sq, torch.zeros(4), torch.ones(12, 4), torch.ones(12), n_workers=3,
                            controller=ctl.FixedKController(n_workers=3, k=2), straggler=strag.Exponential(1.0),
                            eta=0.01, num_iters=4, key=prng.PRNGKey(0), n_replicas=2)
+
+
+# --------------------------------------------------------- the training path
+
+
+def _train_run(arch, mode, n_micro, device, seq, n_steps=3):
+    """3 train steps of a smoke config (f32) from weights drawn on the CPU
+    from seed 0: [(k, sim_time, ce)] and the kernels' launches."""
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, device)
+    params = tree_map(lambda a: a.to(device), build_model(cfg, "cpu").init(torch.Generator().manual_seed(0)))
+    opt, ctrl = optim.sgd(0.3, momentum=0.9), ctl.PflugController(n_workers=4, k0=1, step=1, thresh=0, burnin=0)
+    step = steps.make_train_step(model, opt, ctrl, strag.Exponential(1.0), 4, CommModel(0.1, 0.05), n_micro=n_micro,
+                                 mode=mode)
+    state = steps.init_train_state(opt, ctrl, params)
+    stream = TokenStream(cfg.vocab_size, seq, 8, seed=0, device=device)
+    key = prng.PRNGKey(7, device=device)
+    before = (ops.launches, wkv_ops.launches)
+    out = []
+    for i in range(n_steps):
+        tokens, targets = stream.batch_at(i)
+        key, sub = prng.split(key).unbind(0)
+        state, m = step(state, {"tokens": tokens, "targets": targets}, sub)
+        out.append((int(m["k"]), float(m["sim_time"]), float(m["ce"])))
+    return out, (ops.launches - before[0], wkv_ops.launches - before[1])
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b"])
+@pytest.mark.parametrize("mode,n_micro", [("sync", 1), ("kasync", 1), ("kbatch", 1), ("sync", 2)])
+def test_train_step_on_the_card_follows_the_cpu(cuda_device, arch, mode, n_micro):
+    """k equal, sim_time within 1e-6 and ce within 1e-5 relative; at T = 128
+    the eval forward of every step launches the kernels (one a layer), the
+    gradients none."""
+    card, launches = _train_run(arch, mode, n_micro, cuda_device, 128)
+    cpu, _ = _train_run(arch, mode, n_micro, "cpu", 128)
+    for (k, t, ce), (k0, t0, ce0) in zip(card, cpu):
+        assert k == k0
+        np.testing.assert_allclose(t, t0, rtol=1e-6)
+        np.testing.assert_allclose(ce, ce0, rtol=1e-5)
+    n_layers = get_smoke_config(arch).n_layers
+    assert launches == ((3 * n_layers, 0) if arch == "llama3.2-3b" else (0, 3 * n_layers))
+
+
+@pytest.mark.parametrize("mode", ["sync", "kasync"])
+def test_sync_train_step_holds_no_worker_snapshots(cuda_device, mode):
+    """A sync step's peak memory above its state stays below 3x the
+    parameters (the gradient and one leaf's update temporaries), where
+    n_workers = 8 snapshots would add 8x; a kasync step builds its 8."""
+    cfg = get_smoke_config("llama3.2-3b").replace(n_layers=4, d_model=512, n_heads=8, n_kv_heads=4, d_ff=2048,
+                                                   vocab_size=4096)
+    model = build_model(cfg, cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    param_bytes = sum(a.numel() * a.element_size() for _, a in leaves_with_path(params))
+    opt, ctrl = optim.sgd(0.1), ctl.FixedKController(n_workers=8, k=4)
+    step = steps.make_train_step(model, opt, ctrl, strag.Exponential(1.0), 8, mode=mode)
+    state = steps.init_train_state(opt, ctrl, params)
+    tokens, targets = TokenStream(cfg.vocab_size, 16, 8, device=cuda_device).batch_at(0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, m = step(state, {"tokens": tokens, "targets": targets}, prng.PRNGKey(0, device=cuda_device))
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert bool(torch.isfinite(m["ce"]))
+    if mode == "sync":
+        assert extra < 3 * param_bytes, (extra, param_bytes)
+    else:
+        assert extra >= 8 * param_bytes, (extra, param_bytes)
+
+
+@pytest.mark.parametrize("kernel_name", ["flash_attention", "wkv6"])
+def test_kernels_refuse_torch_func_grad(cuda_device, kernel_name):
+    """Under `torch.func.grad` the inputs are wrapped tensors that require
+    grad: the wrappers raise before they launch."""
+    if kernel_name == "flash_attention":
+        xs = [torch.randn(sh, device=cuda_device) for sh in ((1, 128, 4, 64), (1, 128, 2, 64), (1, 128, 2, 64))]
+        fn, counter = (lambda q: ops.flash_attention(q, xs[1], xs[2], causal=True).sum()), ops
+    else:
+        xs = list(_wkv_inputs((1, 64, 2, 64, 64, 32, 0.5), torch.float32, cuda_device))
+        fn, counter = (lambda r: wkv_ops.wkv6(r, *xs[1:], chunk=32)[0].sum()), wkv_ops
+    before = counter.launches
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        torch.func.grad(fn)(xs[0])
+    assert counter.launches == before
+
+
+def test_setup_lm_graph_replayed_equals_eager(cuda_device):
+    graph = quickstart.run_lm(iters=60, replicas=2, device=cuda_device, capture=True)
+    eager = quickstart.run_lm(iters=60, replicas=2, device=cuda_device, capture=False)
+    for label, r in graph["results"].items():
+        e = eager["results"][label]
+        assert torch.equal(r.time, e.time) and torch.equal(r.k, e.k) and torch.equal(r.loss, e.loss), label

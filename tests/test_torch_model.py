@@ -163,7 +163,7 @@ def test_decode_past_the_cache_end_raises(weights):
 
 
 @pytest.mark.parametrize("which", ["full", "smoke"])
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b", "qwen1.5-0.5b"])
 def test_config_is_a_copy_of_the_jax_config(arch, which):
     """Field for field the JAX package's config, with use_pallas renamed use_kernels."""
     port = get_config(arch) if which == "full" else get_smoke_config(arch)
@@ -176,7 +176,7 @@ def test_config_is_a_copy_of_the_jax_config(arch, which):
 
 
 def test_registry_lists_only_ported_archs():
-    assert list_archs() == ["llama3.2-3b", "rwkv6-3b"]
+    assert list_archs() == ["llama3.2-3b", "qwen1.5-0.5b", "rwkv6-3b"]
     with pytest.raises(ValueError, match="not yet ported; see ROADMAP.md"):
         get_config("hymba-1.5b")
     with pytest.raises(ValueError, match="unknown arch"):

@@ -44,7 +44,8 @@ def test_port_files_were_found():
     assert {"ops.py", "kernel.py", "ref.py", "layers.py", "rwkv.py", "linear_scan.py", "serve.py",
             "chip_smoke.py", "prng.py", "straggler.py", "aggregation.py", "controller.py", "theory.py",
             "gradsource.py", "montecarlo.py", "simulate.py", "async_sim.py", "synthetic.py",
-            "quickstart.py", "sweep.py", "execmode.py", "faults.py"} <= names
+            "quickstart.py", "sweep.py", "execmode.py", "faults.py", "optimizers.py", "steps.py", "train.py",
+            "lm_source.py", "io.py"} <= names
 
 
 def _no_card():
@@ -118,9 +119,27 @@ def _engine_entry_points():
         "make_linreg_data": lambda: make_linreg_data(prng.PRNGKey(0), m=12, d=4),
         "quickstart.main": lambda: quickstart.main(["--iters", "2", "--replicas", "2"]),
         "quickstart.main[--looped]": lambda: quickstart.main(["--iters", "2", "--replicas", "2", "--looped"]),
+        **_training_entry_points(),
         "convert.engine_inputs": lambda: convert.engine_inputs(
             np.zeros((2, 2), np.uint32), np.zeros(4, np.float32), np.ones((12, 4), np.float32),
             np.ones(12, np.float32)),
+    }
+
+
+def _training_entry_points():
+    from repro_torch.core import prng
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import quickstart, train
+    from repro_torch.launch.lm_source import LMSource
+
+    return {
+        "train.main": lambda: train.main(["--smoke", "--steps", "1", "--batch", "4", "--seq", "8"]),
+        "train.main[--mode kbatch]": lambda: train.main(["--smoke", "--steps", "1", "--batch", "4", "--seq", "8",
+                                                         "--mode", "kbatch"]),
+        "TokenStream.batch_at": lambda: TokenStream(512, 8, 4).batch_at(0),
+        "LMSource.init_params": lambda: LMSource().init_params(prng.PRNGKey(0)),
+        "LMSource.make_data": lambda: LMSource().make_data(4, 8),
+        "quickstart.main[--setup lm]": lambda: quickstart.main(["--setup", "lm", "--iters", "2", "--replicas", "2"]),
     }
 
 
@@ -132,7 +151,8 @@ def _engine_entry_points():
      "sweep.run_sweep", "make_linreg_data", "quickstart.main", "quickstart.main[--looped]",
      "convert.engine_inputs", "montecarlo.run_monte_carlo[kbatch]", "sweep.run_sweep[kasync]",
      "quickstart.main[--setup async]", "montecarlo.run_monte_carlo[fault]", "sweep.run_sweep[geomedian]",
-     "quickstart.main[--setup byzantine]"],
+     "quickstart.main[--setup byzantine]", "train.main", "train.main[--mode kbatch]", "TokenStream.batch_at",
+     "LMSource.init_params", "LMSource.make_data", "quickstart.main[--setup lm]"],
 )
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     _no_card()
