@@ -94,7 +94,23 @@
    grid) at 60 iterations, graph-replayed against eager (bitwise), each
    cell against its looped run and the grid against the CPU, with its ms an
    iteration and launches, then the whole 600-iteration figure.
-12. Print one `kernels` JSON line, the card again, and, as the last line,
+12. The MoE and hybrid families (`models/moe.py`, `models/hybrid.py`): the
+   flash-attention kernel at their prefill shapes (qwen3-moe-30b-a3b B=4,
+   T=1024, H=32, KV=4, hd=64; granite-moe-1b-a400m H=16, KV=8; hymba-1.5b
+   T=2048, H=25, KV=5, window 1024; bf16, causal) against its plain version,
+   timed in turns with SDPA; qwen3-moe-30b-a3b (~60 GB of bf16 weights, in a
+   process of its own), granite-moe-1b-a400m and hymba-1.5b (prompt 2048,
+   window 1024) served at full width and depth, batch 4, 32 greedy tokens,
+   with one flash-attention launch a prefill layer, prefill ms, decode
+   tokens/s, peak memory, the device's idle share and top operations, each
+   layer's attention sub-block held to the plain path and, for MoE, the
+   share of tokens whose expert set differs between the paths; the smoke
+   configs in f32 against their plain path; granite-moe-1b-a400m and
+   hymba-1.5b trained at full width (sync, AdamW, Pflug, batch 8 x 512, 3
+   steps: finite ce and moe_aux, k in [1, 4], rising sim_time, one flash
+   launch a layer a step); the train step of all three on the card against
+   the CPU at smoke width.
+13. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -114,6 +130,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1579,8 +1596,27 @@ def _leaf_paths(tree):
     return leaves_with_path(tree)
 
 
-def train_llama(counters) -> dict:
-    """Phase 11a: llama3.2-3b trained at full width and depth on the card."""
+class TrainRun(NamedTuple):
+    """A full-width training run: rows are (ce, k, sim_time) a step, secs its
+    host seconds, per_step its flash-attention launches."""
+    cfg: object
+    model: object
+    state: object
+    step_fn: object
+    data: object
+    key: object
+    rows: list
+    secs: list
+    per_step: list
+    peak_gb: float
+    n_params: int
+
+
+def train_full_width(label: str, arch: str, t: dict, counters) -> TrainRun:
+    """t["steps"] sync train steps of `arch` at full width and depth on the
+    card: bf16, remat, random weights from seed 0, AdamW at t["lr"], Pflug
+    at the train CLI's defaults, Exponential(1) stragglers, t["n_workers"]
+    workers, t["batch"] x t["seq"] tokens from TokenStream seed 0."""
     import torch
     from repro_torch.checkpoint import convert
     from repro_torch.configs import get_config
@@ -1593,8 +1629,7 @@ def train_llama(counters) -> dict:
     from repro_torch.models import build_model
     from repro_torch.optim import adamw
 
-    t = TRAIN
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
     model = build_model(cfg, "cuda")
     params = convert.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(a.numel() for _, a in _leaf_paths(params))
@@ -1604,10 +1639,10 @@ def train_llama(counters) -> dict:
                                     CommModel(0.0, 0.0))
     state = steps.init_train_state(opt, ctrl, params)
     data = TokenStream(cfg.vocab_size, t["seq"], t["batch"], seed=0, device="cuda")
-    tokens = t["batch"] * t["seq"]
-    print(f"[11] train {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} G parameters, "
-          f"{cfg.param_dtype}, remat {cfg.remat}; sync fastest-k, AdamW lr {t['lr']}, Pflug {PFLUG_CLI}, exp(1), "
-          f"{t['n_workers']} workers, batch {t['batch']} x seq {t['seq']}, {t['steps']} steps")
+    print(f"[{label}] train {cfg.arch_id}: {cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} G parameters, {cfg.param_dtype}, remat {cfg.remat}; sync fastest-k, AdamW lr "
+          f"{t['lr']}, Pflug {PFLUG_CLI}, exp(1), {t['n_workers']} workers, batch {t['batch']} x seq {t['seq']}, "
+          f"{t['steps']} steps", flush=True)
     key = prng.PRNGKey(0, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1624,8 +1659,22 @@ def train_llama(counters) -> dict:
         secs.append(time.perf_counter() - t0)
         per_step.append(counters["flash_attention"].launches - before)
         rows.append((float(m["ce"]), int(m["k"]), float(m["sim_time"])))
+    return TrainRun(cfg, model, state, step_fn, data, key, rows, secs, per_step,
+                    torch.cuda.max_memory_allocated() / 1e9, n_params)
+
+
+def train_llama(counters) -> dict:
+    """Phase 11a: llama3.2-3b trained at full width and depth on the card."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import build_model
+
+    t = TRAIN
+    run = train_full_width("11", "llama3.2-3b", t, counters)
+    cfg, model, state, step_fn, data, key, rows, secs, per_step, peak_gb, n_params = run
+    del run
+    tokens = t["batch"] * t["seq"]
     counts = {name: c.launches for name, c in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for i, ((ce, k, st), sec) in enumerate(zip(rows, secs)):
         print(f"  step {i}: ce {ce:.4f}, k {k}, sim_time {st:.4f}, {sec * 1e3:.1f} ms"
               + (" (untimed: first step)" if i == 0 else ""))
@@ -1640,7 +1689,7 @@ def train_llama(counters) -> dict:
     if not all(b > a for a, b in zip((0.0,) + sims, sims)):
         raise AssertionError(f"sim_time does not rise: {sims}")
     step_ms = 1e3 * sum(secs[1:]) / len(secs[1:])
-    flops = train_flops(cfg, params, tokens, t["seq"])
+    flops = train_flops(cfg, state.params, tokens, t["seq"])
     mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
     print(f"  {step_ms:.1f} ms a step (mean of steps 1-{t['steps'] - 1}), {tokens / (step_ms / 1e3):.0f} tokens/s, "
           f"train_mfu {mfu:.4f} ({flops / 1e12:.1f} TFLOP a step at {PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s); "
@@ -1667,7 +1716,7 @@ def train_llama(counters) -> dict:
     prof_ms = 1e3 * (time.perf_counter() - t0)
     key, sub = prng.split(key).unbind(0)
     device_breakdown(lambda: step_fn(state, batch, sub), "one train step (host clock beside it)", prof_ms, top=8)
-    del state, params, model, plain
+    del state, model, plain
     torch.cuda.empty_cache()
     return {"step_ms": step_ms, "tokens_s": tokens / (step_ms / 1e3), "mfu": mfu, "peak_gb": peak_gb,
             "launches": counts["flash_attention"], "eval_gap": gap, "n_params": n_params}
@@ -1936,6 +1985,273 @@ def train_phase() -> dict:
     return out
 
 
+# The MoE and hybrid families (phase 12).  The flash-attention kernel at the
+# three families' prefill shapes (bf16, causal; hymba-1.5b's 25 heads over 5
+# kv heads with its 1024-token sliding window at T = 2048), each held to the
+# plain version at TOL and timed in turns with SDPA (hymba's with the
+# boolean window mask).  Then each arch served at full width and depth, bf16,
+# random weights from seed 0, batch 4, 32 greedy tokens: qwen3-moe-30b-a3b
+# (~60 GB of weights) in a process of its own with expandable segments, as
+# phase 11 trains llama3.2-3b.  Each layer's attention sub-block is held to
+# the plain path from the same input (the kernel path's output of the layer
+# below) within FAMILY_LAYER_TOL of its max; for MoE the run reports the
+# share of tokens whose expert set differs between the two paths' router
+# inputs (a routing flip moves a whole token, so the layer output is no
+# test).  The smoke configs in f32: kernel against plain within 1e-4, equal
+# greedy tokens.  Then granite-moe-1b-a400m and hymba-1.5b trained at full
+# width (phase 11's recipe, FAMILY_TRAIN; the kernel also held and timed at
+# the eval forward's shapes, FAMILY_TRAIN_SHAPES), the eval forward at the
+# trained parameters held to the plain path, and the train step of all three
+# archs on the card against the CPU at smoke width (phase 11's bounds).
+FAMILY_SHAPES = {
+    "qwen3-moe-30b-a3b": (4, 1024, 1024, 32, 4, 64, True, 0),
+    "granite-moe-1b-a400m": (4, 1024, 1024, 16, 8, 64, True, 0),
+    "hymba-1.5b": (4, 2048, 2048, 25, 5, 64, True, 1024),
+}
+# (batch, prompt length, new tokens, window) of each serve run
+FAMILY_SERVE = {"qwen3-moe-30b-a3b": (4, 1024, 32, 0), "granite-moe-1b-a400m": (4, 1024, 32, 0),
+                "hymba-1.5b": (4, 2048, 32, 1024)}
+# the train step's eval forward (FAMILY_TRAIN's batch x seq, the arch's own window)
+FAMILY_TRAIN_SHAPES = {
+    "granite-moe-1b-a400m": (8, 512, 512, 16, 8, 64, True, 0),
+    "hymba-1.5b": (8, 512, 512, 25, 5, 64, True, 1024),
+}
+FAMILY_LAYER_TOL = 2e-2
+FAMILY_TRAIN = dict(batch=8, seq=512, n_workers=4, lr=3e-4, steps=3)
+
+
+def attention_layer_gaps(cfg, params, prompts, window: int):
+    """Each layer's attention sub-block, kernel against plain path, from the
+    same input (the kernel path's output of the layer below; the input and
+    the layer are the model's own, `transformer.attention_input` and
+    `block_full`): the worst max|dy|/max|y| over the layers, and for moe the
+    share of tokens whose expert set differs between the router inputs the
+    two paths give (None for other families)."""
+    import torch
+    from repro_torch.models import layers, moe, transformer
+
+    plain = cfg.replace(use_kernels=False)
+    worst, flipped, routed = 0.0, 0, 0
+    with torch.inference_mode():
+        x = layers.embed(params, cfg, prompts)
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i in range(cfg.n_layers):
+            p = transformer.layer_params(params["layers"], i)
+            attn, h = transformer.attention_input(p, cfg, x)
+            yk = layers.attention_full(attn, cfg, h, pos, causal=True, window=window)
+            yp = layers.attention_full(attn, plain, h, pos, causal=True, window=window)
+            worst = max(worst, rel_gap(yk.float(), yp.float()))
+            if cfg.family == "moe":
+                sets = [moe.route(p["moe"], cfg, transformer.ffn_input(p, x + y))[0].sort(dim=0).values
+                        for y in (yk, yp)]
+                flipped += int((sets[0] != sets[1]).any(dim=0).sum())
+                routed += sets[0][0].numel()
+            x = transformer.block_full(p, cfg, x, pos, window=window)[0]
+    return worst, (flipped / routed if routed else None)
+
+
+def serve_family(arch: str, counters) -> dict:
+    """Phase 12b/c: one arch served at full width and depth on the card."""
+    import torch
+    from repro_torch.checkpoint import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    b, t, new, window = FAMILY_SERVE[arch]
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = convert.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in _leaves(params))
+    weight_gb = sum(a.numel() * a.element_size() for a in _leaves(params)) / 1e9
+    print(f"[12] serve {arch}: {cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv of {cfg.resolved_head_dim}"
+          + (f", {cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.d_ff} ({cfg.moe_dispatch})"
+             if cfg.family == "moe" else f", SSM state {cfg.ssm_state}, d_ff {cfg.d_ff}")
+          + f"; {n_params / 1e9:.3f} G parameters, {weight_gb:.2f} GB in {cfg.param_dtype} (drawn in {init_s:.1f} s); "
+          f"batch {b}, prompt {t}, {new} new tokens, window {window}", flush=True)
+    prompts = serve.random_prompts(cfg, b, t, seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    res = serve.generate(model, params, prompts, new, window=window)
+    counts = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launches during the run: {counts} (expected flash_attention {cfg.n_layers}, one per prefill layer)")
+    if counts != {"flash_attention": cfg.n_layers, "wkv6": 0}:
+        raise AssertionError(f"{arch}: expected {cfg.n_layers} flash-attention launches and no other, got {counts}")
+    if not bool(torch.isfinite(res.prefill_logits).all()):
+        raise AssertionError(f"{arch}: prefill logits are not finite")
+    if tuple(res.tokens.shape) != (b, new) or not bool(((res.tokens >= 0) & (res.tokens < cfg.padded_vocab)).all()):
+        raise AssertionError(f"{arch}: bad generated tokens {tuple(res.tokens.shape)}")
+    steps = new - 1
+    tok_s = steps * b / res.decode_s
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"  first prefill {res.prefill_s * 1e3:.1f} ms; decoded {steps} steps x batch {b} in {res.decode_s:.3f} s "
+          f"({tok_s:.1f} tok/s); peak memory {peak_gb:.2f} GB of {total_gb:.1f} GB")
+    print(f"  tokens[0]: {res.tokens[0].tolist()}")
+    prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": prompts}, window=window), iters=3, warmup=1)
+    print(f"  prefill {prefill_ms:.1f} ms (CUDA events, mean of 3)")
+    device_breakdown(lambda: model.prefill(params, {"tokens": prompts}, window=window), "prefill", prefill_ms)
+    del res
+    cache = model.init_cache(b, t + new, window)
+    token = torch.zeros((b, 1), dtype=torch.long, device="cuda")
+    decode_ms = cuda_ms(lambda: model.decode_step(params, token, cache, t, window=window), iters=5, warmup=2)
+    device_breakdown(lambda: model.decode_step(params, token, cache, t, window=window), "one decode step", decode_ms)
+    del cache
+    layer_rel, flip_share = attention_layer_gaps(cfg, params, prompts, window)
+    print(f"  attention sub-block, kernel vs plain, each layer fed the same input: worst max|dy|/max|y| "
+          f"{layer_rel:.3e} (bound {FAMILY_LAYER_TOL})"
+          + (f"; tokens whose expert set differs between the two paths: {flip_share:.4%}" if flip_share is not None
+             else ""))
+    if not layer_rel < FAMILY_LAYER_TOL:
+        raise AssertionError(f"{arch}: a layer's attention differs by {layer_rel:.3e} relative (> {FAMILY_LAYER_TOL})")
+    del params, model
+    torch.cuda.empty_cache()
+    return {"launches": counts["flash_attention"], "prefill_ms": prefill_ms, "tok_s": tok_s, "peak_gb": peak_gb,
+            "layer_rel": layer_rel, "flip_share": flip_share, "weight_gb": weight_gb}
+
+
+def serve_qwen3_worker() -> dict:
+    """`serve_family` of qwen3-moe-30b-a3b in a process of its own: a fresh
+    CUDA context whose allocator grows its segments in place
+    (PYTORCH_CUDA_ALLOC_CONF, set by the parent), for ~60 GB of weights."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return serve_family("qwen3-moe-30b-a3b", {"flash_attention": ops, "wkv6": wkv_ops})
+    finally:
+        sys.stdout.flush()
+
+
+def family_smoke_serving() -> None:
+    """Phase 12c: each arch's smoke config in f32, kernel path against plain
+    path (hymba at its sliding window, 32): prefill logits within 1e-4 and
+    equal greedy tokens.  The MoE smoke configs' head dim is 16 (f32 route)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+
+    for arch in FAMILY_SHAPES:
+        small = get_smoke_config(arch)
+        runs = {use: serve.serve(small.replace(use_kernels=use), batch=2, prompt_len=128, new_tokens=8, seed=3,
+                                 window=small.sliding_window) for use in (True, False)}
+        d = (runs[True].prefill_logits - runs[False].prefill_logits).abs().max().item()
+        same = bool(torch.equal(runs[True].tokens, runs[False].tokens))
+        print(f"  {arch} smoke config f32 (head dim {small.resolved_head_dim}, window {small.sliding_window}), "
+              f"kernel vs plain: max|dlogits| {d:.3e} (atol 1e-4), greedy tokens equal: {same}")
+        if not (d <= 1e-4 and same):
+            raise AssertionError(f"{arch} smoke model: kernel path disagrees with the plain path")
+
+
+def train_family(arch: str, counters) -> dict:
+    """Phase 12d: one arch trained at full width and depth (FAMILY_TRAIN),
+    then the eval forward at the trained parameters held to the plain path:
+    ce and moe_aux within TRAIN_EVAL_RTOL, and each layer's attention
+    sub-block within FAMILY_LAYER_TOL (ce at random weights hardly depends
+    on the attention)."""
+    import torch
+    from repro_torch.models import build_model
+
+    t = FAMILY_TRAIN
+    run = train_full_width("12", arch, t, counters)
+    cfg, rows, secs, per_step, peak_gb = run.cfg, run.rows, run.secs, run.per_step, run.peak_gb
+    tokens = t["batch"] * t["seq"]
+    launches = counters["flash_attention"].launches
+    tok, tgt = run.data.batch_at(0)
+    batch = {"tokens": tok, "targets": tgt}
+    plain = build_model(cfg.replace(use_kernels=False), "cuda")
+    with torch.no_grad():
+        (ce, aux), (ce_p, aux_p) = ((float(m["ce"]), float(m["moe_aux"])) for m in (
+            model.loss_fn(run.state.params, batch)[1] for model in (run.model, plain)))
+    layer_rel, flip_share = attention_layer_gaps(cfg, run.state.params, tok, cfg.sliding_window)
+    ce_gap = abs(ce - ce_p) / abs(ce_p)
+    aux_gap = abs(aux - aux_p) / abs(aux_p) if cfg.family == "moe" else 0.0
+    step_ms = 1e3 * sum(secs[1:]) / len(secs[1:])
+    print(f"  steps (ce, k, sim_time) {[(round(a, 4), b, round(c, 4)) for a, b, c in rows]}; "
+          f"flash_attention per step {per_step} (expected {cfg.n_layers}); {step_ms:.1f} ms a step (steps "
+          f"1-{t['steps'] - 1}; the first {secs[0] * 1e3:.1f} ms), {tokens / (step_ms / 1e3):.0f} tokens/s, "
+          f"peak memory {peak_gb:.2f} GB", flush=True)
+    print(f"  eval forward at the trained parameters, kernel vs plain path: ce {ce:.6f} vs {ce_p:.6f} (relative "
+          f"gap {ce_gap:.3e}), moe_aux {aux:.6f} vs {aux_p:.6f} (relative gap {aux_gap:.3e}; bound "
+          f"{TRAIN_EVAL_RTOL}); attention sub-block, each layer fed the same input: worst max|dy|/max|y| "
+          f"{layer_rel:.3e} (bound {FAMILY_LAYER_TOL})"
+          + (f"; tokens whose expert set differs: {flip_share:.4%}" if flip_share is not None else ""), flush=True)
+    if not (ce_gap < TRAIN_EVAL_RTOL and aux_gap < TRAIN_EVAL_RTOL and layer_rel < FAMILY_LAYER_TOL):
+        raise AssertionError(f"{arch}: the eval forward's kernel path disagrees with the plain path")
+    ces, ks, sims = zip(*rows)
+    if any(n != cfg.n_layers for n in per_step):
+        raise AssertionError(f"{arch}: expected {cfg.n_layers} flash-attention launches a step, got {per_step}")
+    if not all(math.isfinite(ce) for ce in ces) or not math.isfinite(aux) or not all(
+            1 <= k <= t["n_workers"] for k in ks):
+        raise AssertionError(f"{arch}: bad ce, moe_aux or k: {rows}, {aux}")
+    if not all(b > a for a, b in zip((0.0,) + sims, sims)):
+        raise AssertionError(f"{arch}: sim_time does not rise: {sims}")
+    del run, plain
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tokens_s": tokens / (step_ms / 1e3), "peak_gb": peak_gb, "launches": launches,
+            "moe_aux": aux, "eval_gap": ce_gap, "aux_gap": aux_gap, "layer_rel": layer_rel, "flip_share": flip_share}
+
+
+def family_phase(counters) -> dict:
+    """Phase 12: the MoE and hybrid families."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    phase_t0 = time.perf_counter()
+    out = {"kernel": {}, "train_kernel": {}, "serve": {}, "train": {}}
+    print("[12] flash attention at the MoE and hybrid families' prefill shapes and train-step eval shapes (bf16)")
+    for i, (key, arch, shape) in enumerate([("kernel", a, sh) for a, sh in FAMILY_SHAPES.items()]
+                                           + [("train_kernel", a, sh) for a, sh in FAMILY_TRAIN_SHAPES.items()]):
+        err = check_attention(shape, "bfloat16", seed=400 + i)
+        kernel_ms, plain_ms, library_ms, bound_ms, bound_by = report_attention_times(arch, shape)
+        out[key][arch] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+    torch.cuda.empty_cache()
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # for the spawned process only
+    try:
+        with ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            out["serve"]["qwen3-moe-30b-a3b"] = pool.submit(serve_qwen3_worker).result()
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    for arch in ("granite-moe-1b-a400m", "hymba-1.5b"):
+        out["serve"][arch] = serve_family(arch, counters)
+    family_smoke_serving()
+    for arch in FAMILY_TRAIN_SHAPES:
+        out["train"][arch] = train_family(arch, counters)
+    worst = (0.0, 0.0)
+    smoke_launches = {}
+    for arch in FAMILY_SHAPES:
+        card, counts = train_smoke_run(arch, "sync", 1, "cuda")
+        cpu, _ = train_smoke_run(arch, "sync", 1, "cpu")
+        smoke_launches[arch] = counts
+        for (k, st, ce), (k0, st0, ce0) in zip(card, cpu):
+            t_gap, c_gap = abs(st - st0) / abs(st0), abs(ce - ce0) / abs(ce0)
+            worst = (max(worst[0], t_gap), max(worst[1], c_gap))
+            if k != k0 or not (t_gap <= TRAIN_SMOKE_TIME_RTOL and c_gap <= TRAIN_SMOKE_CE_RTOL):
+                raise AssertionError(f"card vs CPU, {arch} sync: {card} against {cpu}")
+    print(f"[12] train step card vs CPU at smoke width (f32, T = 128, sync, 3 steps): {', '.join(FAMILY_SHAPES)}: "
+          f"k equal, max rel gap sim_time {worst[0]:.3e} (bound {TRAIN_SMOKE_TIME_RTOL}), ce {worst[1]:.3e} "
+          f"(bound {TRAIN_SMOKE_CE_RTOL}); kernel launches on the card (flash, wkv6): {smoke_launches}")
+    print(f"  phase 12 took {time.perf_counter() - phase_t0:.1f} s")
+    return out
+
+
 def prng_key(seed: int):
     from repro_torch.core import prng
 
@@ -2127,7 +2443,11 @@ def main() -> int:
     sys.stdout.flush()
     p11 = train_phase()
 
-    # 12. summary
+    # 12. the MoE and hybrid families: the kernel at their prefill shapes, serving and training at full width
+    sys.stdout.flush()
+    p12 = family_phase(counters)
+
+    # 13. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2143,6 +2463,12 @@ def main() -> int:
         "f32_source": "src/repro_torch/kernels/attention/csrc/flash_attn.cu",
         "f32_ms": f32_ms,
         "train_launches": p11["llama"]["launches"],
+        "family_shapes": {arch: {**p12["kernel"][arch], "shape": list(FAMILY_SHAPES[arch]),
+                                 "launches": p12["serve"][arch]["launches"]}
+                          for arch in FAMILY_SHAPES},
+        "family_train_shapes": {arch: {**p12["train_kernel"][arch], "shape": list(FAMILY_TRAIN_SHAPES[arch]),
+                                       "launches": p12["train"][arch]["launches"]}
+                                for arch in FAMILY_TRAIN_SHAPES},
     }, {
         "name": "wkv6",
         "route": "cuda",

@@ -6,9 +6,14 @@ The tree is the JAX package's (`repro/models/model.py::build_model().init`):
    "layers": stacked (L, ...), by family
      dense: {"ln1": {"scale"}, "attn": {"wq","wk","wv","wo"}, "ln2": {"scale"},
              "mlp": {"w_gate","w_in","w_out"}}
+     moe:   {"ln1": {"scale"}, "attn": {...}, "ln2": {"scale"},
+             "moe": {"router" (L,D,E) f32, "w_gate","w_in" (L,E,D,F), "w_out" (L,E,F,D)}}
      ssm:   {"ln1": {"scale"}, "tmix": {"mu","wr","wk","wv","wg","wo","decay_w0",
              "decay_a1","decay_a2","bonus_u","ln_out"}, "ln2": {"scale"},
              "cmix": {"mu_c","w_in","w_out","w_recept"}},
+     hybrid: {"ln1": {"scale"}, "mix": {"attn": {...}, "ssm": {"w_xs","w_dt","dt_bias",
+             "a_log","w_b","w_c","w_os","skip_d"}, "norm_attn" (L,D), "norm_ssm" (L,D)},
+             "ln2": {"scale"}, "mlp": {...}},
    "final_norm": {"scale"}}
 as plain dicts of torch tensors with the same names, shapes and dtypes.
 """
@@ -54,7 +59,9 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
     on that device), from the distributions of the JAX package's init:
     N(0, 1/fan_in) dense weights, unit norm scales, and for ssm the constant
     lerp weights (0.5), decay bias (-1) and groupnorm scale (1), with the
-    decay LoRA and bonus u N(0, 1/fan_in) in f32.  JAX's bits cannot be
+    decay LoRA and bonus u N(0, 1/fan_in) in f32; for moe an f32 router;
+    for hybrid the SSM branch's zero dt bias and log-decay, unit skip and
+    branch-norm scales, and an f32 step-size projection.  JAX's bits cannot be
     reproduced; use `params_from_jax` for that."""
     dev = resolve_device(device)
     return {

@@ -14,14 +14,13 @@ _MODULES: Dict[str, str] = {
     "llama3.2-3b": "llama3_2_3b",
     "rwkv6-3b": "rwkv6_3b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 # Architectures of the JAX package that the port does not run yet.
-_NOT_PORTED = (
-    "qwen3-moe-30b-a3b", "qwen1.5-110b",
-    "granite-moe-1b-a400m", "seamless-m4t-medium", "hymba-1.5b",
-    "paligemma-3b", "nemotron-4-340b",
-)
+_NOT_PORTED = ("qwen1.5-110b", "seamless-m4t-medium", "paligemma-3b", "nemotron-4-340b")
 
 
 def list_archs() -> List[str]:

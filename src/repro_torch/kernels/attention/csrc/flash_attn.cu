@@ -242,6 +242,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   st.o_b = strides[9]; st.o_t = strides[10]; st.o_h = strides[11];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16: return (int)launch<16>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
     case 32: return (int)launch<32>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
     case 64: return (int)launch<64>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
     case 128: return (int)launch<128>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);

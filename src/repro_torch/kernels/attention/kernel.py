@@ -25,9 +25,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)
 # dtype -> the CUDA source (and library) that computes it
 ROUTES = {torch.float32: "flash_attn", torch.bfloat16: "flash_attn_sm90"}
+# route -> the head dims it is instantiated for; the f32 route also takes 16,
+# the head dim of the MoE archs' smoke configs
+ROUTE_HEAD_DIMS = {"flash_attn": (16, 32, 64, 128), "flash_attn_sm90": (32, 64, 128)}
 # TMA reads a tile from a base address, and through strides, that are
 # multiples of 16 bytes; a stride must also be below 2^40 bytes.
 TMA_ALIGN = 16
@@ -97,8 +99,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: b
     b, h, t, hd = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"k, v must be (B, KV, S, hd) matching q {tuple(q.shape)}; got {tuple(k.shape)}, {tuple(v.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    head_dims = ROUTE_HEAD_DIMS[ROUTES[q.dtype]]
+    if hd not in head_dims:
+        raise ValueError(f"head_dim {hd} not in {head_dims} for {q.dtype}")
     if k.shape[1] == 0 or h % k.shape[1]:
         raise ValueError(f"n_heads {h} must be a multiple of n_kv_heads {k.shape[1]}")
     if causal and t != k.shape[2]:

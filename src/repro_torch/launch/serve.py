@@ -6,12 +6,16 @@ The port of `examples/serve_decode.py`, on the card by default:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --batch 4 --prompt-len 1024 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --batch 4 --prompt-len 2048 --window 1024
 
 Weights are random, drawn on the device from `--seed`; prompts from
-`--seed + 1`.  For llama3.2-3b, prompt lengths that are a multiple of 128
-run every prefill layer's attention through the flash-attention kernel; for
-rwkv6-3b every prefill layer of more than one token runs its wkv scan
-through the wkv6 kernel, and decode steps the recurrent state.
+`--seed + 1`.  For the attention families (llama3.2-3b, qwen1.5-0.5b, the
+MoE archs and hymba-1.5b's attention heads), prompt lengths that are a
+multiple of 128 run every prefill layer's attention through the
+flash-attention kernel; for rwkv6-3b every prefill layer of more than one
+token runs its wkv scan through the wkv6 kernel, and decode steps the
+recurrent state.
 """
 
 from __future__ import annotations
@@ -51,14 +55,15 @@ def random_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int, dev
 
 def _grow_kv_cache(model: Model, cache: dict, batch: int, total: int, window: int) -> dict:
     """The prefill KV cache copied into one of `total` positions (or the
-    ring of `window` slots); the prefill cache itself when that is no longer."""
+    ring of `window` slots); the prefill cache itself when that is no longer.
+    Only k and v grow: hybrid's SSM state goes through as it is."""
     s = cache["k"].shape[2]
     full = model.init_cache(batch, total, window)
     if full["k"].shape[2] <= s:
         return cache
     for kk in ("k", "v"):
         full[kk][:, :, :s] = cache[kk]
-    return full
+    return {**cache, "k": full["k"], "v": full["v"]}
 
 
 @torch.inference_mode()
@@ -66,11 +71,11 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, new_tokens: int,
              *, window: int = 0) -> ServeResult:
     """Prefill `prompts` (B, T), then take new_tokens - 1 greedy decode steps.
 
-    A KV cache (dense) is copied into a cache preallocated for all
-    T + new_tokens positions (or the ring of `window` slots), which the
-    decode steps then update in place.  The ssm family's prefill state is
-    its decode cache as it is, and `window` has no effect on it, as in the
-    JAX package.  argmax takes the first of equal maxima, as jnp.argmax does."""
+    A KV cache (dense, moe, hybrid) is copied into a cache preallocated for
+    all T + new_tokens positions (or the ring of `window` slots), which the
+    decode steps then update in place; hybrid's SSM state goes through as
+    it is.  The ssm family's prefill state is its decode cache as it is,
+    and `window` has no effect on it, as in the JAX package.  argmax takes the first of equal maxima, as jnp.argmax does."""
     dev = model.device
     b, t = prompts.shape
 
@@ -110,7 +115,7 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--window", type=int, default=0,
-                    help="sliding-window decode (0 = full attention; no effect on rwkv6-3b)")
+                    help="sliding-window prefill and decode (0 = full attention; no effect on rwkv6-3b)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)

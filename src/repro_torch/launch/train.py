@@ -4,6 +4,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b --smoke --device cpu \\
         --steps 200 --batch 16 --seq 128 --controller pflug
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b --batch 8 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m --batch 8 --seq 512
+
+Every registered arch trains: dense, moe (each row's loss carries the
+router's load-balance term, as in the JAX package), ssm and hybrid.
 
 Each step is `launch.steps.make_train_step`: the same per-mode builders the
 simulation engines run, around the model's loss, so ``--mode kasync`` and

@@ -29,9 +29,18 @@ def _dtype(name: str) -> torch.dtype:
 
 def _dense_init(gen: torch.Generator, shape, dtype, in_axis_size: int, device) -> torch.Tensor:
     """N(0, 1/in_axis_size) drawn in f32, as `layers._dense_init` of the JAX
-    package; the bits differ from jax.random's."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return x.mul_(1.0 / math.sqrt(in_axis_size)).to(dtype)
+    package; the bits differ from jax.random's.  A leaf of rank 3 or more
+    (a stacked or per-head weight) is drawn slice by slice along its leading
+    axis into a leaf of `dtype`, so no f32 temporary outgrows one slice:
+    qwen3-moe-30b-a3b's stacked expert weights, (48, 128, 2048, 768), would
+    need 38.7 GB in f32 at once."""
+    scale = 1.0 / math.sqrt(in_axis_size)
+    if len(shape) < 3:
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=device).mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = torch.randn(shape[1:], generator=gen, dtype=torch.float32, device=device).mul_(scale)
+    return out
 
 
 # ----------------------------------------------------------------------------

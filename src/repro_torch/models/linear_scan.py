@@ -1,6 +1,7 @@
-"""Chunked RWKV-6 linear-attention scan, plain PyTorch.
+"""Chunked linear-attention scans, plain PyTorch: RWKV-6 and the
+Mamba2-style SSM of Hymba.
 
-A port of the RWKV-6 half of `repro/models/linear_scan.py`:
+A port of `repro/models/linear_scan.py`.  RWKV-6:
 
       S_t = diag(w_t) S_{t-1} + k_t v_t^T          S in R^{K x V} per head
       y_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
@@ -9,8 +10,9 @@ computed chunkwise: a Python loop over the T/C chunks carries the state
 (the JAX package's `lax.scan`); the intra-chunk term is a decay-weighted
 attention-like product, the inter-chunk term applies the carried state.
 These are the plain versions of the wkv CUDA kernel (`kernels/wkv`), and
-what the model runs with `use_kernels=False`.  The Mamba2-style
-`ssm_chunked`/`ssm_step` (Hymba) are not ported yet.
+what the model runs with `use_kernels=False`.  `ssm_chunked` and
+`ssm_step` (Hymba's SSM heads) are plain PyTorch on every device, as the
+JAX package's are XLA-level: no TPU kernel lies behind them.
 """
 
 from __future__ import annotations
@@ -124,4 +126,80 @@ def wkv6_step(r, k, v, w, u, s):
     kv = torch.einsum("bhk,bhv->bhkv", k, v)
     y = torch.einsum("bhk,bhkv->bhv", r, s + u.to(f32)[None, :, :, None] * kv)
     s_new = w[..., None] * s + kv
+    return y, s_new
+
+
+def ssm_chunked(
+    x: torch.Tensor,  # (B, T, H, P)  per-head inputs
+    dt: torch.Tensor,  # (B, T, H)     positive step sizes
+    a: torch.Tensor,  # (H,)          negative decay rates (A)
+    bmat: torch.Tensor,  # (B, T, H, N) input projections  (B_t)
+    cmat: torch.Tensor,  # (B, T, H, N) output projections (C_t)
+    s0: Optional[torch.Tensor] = None,  # (B, H, N, P)
+    chunk: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2-style chunked scan with a scalar per-head decay a_t = exp(a *
+    dt_t) (Hymba's SSM heads):
+
+          S_t = a_t S_{t-1} + dt_t b_t x_t^T        S in R^{N x P} per head
+          y_t = c_t S_t
+
+    The reference's per-chunk terms, with the chunk loop split by what
+    depends on the carried state: the intra-chunk outputs and each chunk's
+    own state contribution for all chunks at once, then a loop over the T/C
+    chunks that carries the state (two operations a chunk), then the
+    inter-chunk outputs at once.  Returns (y (B,T,H,P) f32, s_T (B,H,N,P)
+    f32)."""
+    b, t, h, p = x.shape
+    n = bmat.shape[-1]
+    if t % chunk:
+        raise ValueError(f"T={t} not divisible by chunk={chunk}")
+    nc = t // chunk
+    f32 = torch.float32
+    x, dt, bmat, cmat = (z.to(f32) for z in (x, dt, bmat, cmat))
+    a = a.to(f32)
+    dev = x.device
+
+    xs_ = x.reshape(b, nc, chunk, h, p)
+    dts = dt.reshape(b, nc, chunk, h)
+    bs = bmat.reshape(b, nc, chunk, h, n)
+    cs = cmat.reshape(b, nc, chunk, h, n)
+
+    la = a * dts  # log-decay per step (B,NC,C,H), <= 0
+    li = torch.cumsum(la, dim=2)  # inclusive
+    lt = li[:, :, -1]  # (B,NC,H)
+
+    # intra-chunk: y_t reads the post-update state S_t, so tau <= t
+    cm = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
+    liq = li.transpose(2, 3)  # (B,NC,H,C)
+    # masked (future) exponents are positive and can overflow: where, not *
+    pair = torch.exp(torch.where(cm, liq[..., :, None] - liq[..., None, :], 0.0))
+    scores = torch.where(cm, torch.einsum("bzchn,bzdhn->bzhcd", cs, bs) * pair, 0.0)
+    xin = xs_ * dts[..., None]  # (B,NC,C,H,P)
+    y_intra = torch.einsum("bzhcd,bzdhp->bzchp", scores, xin)
+    # each chunk's own contribution to the state: sum_tau exp(lt - li_tau) dt_tau b_tau x_tau^T
+    b_carry = bs * torch.exp(lt[:, :, None] - li)[..., None]
+    ds = torch.einsum("bzchn,bzchp->bzhnp", b_carry, xin)  # (B,NC,H,N,P)
+
+    # the state carried into each chunk: S' = exp(lt) S + ds
+    decay = torch.exp(lt)[..., None, None]  # (B,NC,H,1,1)
+    s = torch.zeros((b, h, n, p), dtype=f32, device=dev) if s0 is None else s0
+    carried = []
+    for c in range(nc):
+        carried.append(s)
+        s = decay[:, c] * s + ds[:, c]
+    # inter-chunk: the carried state decays by the inclusive cumulative decay li
+    y_inter = torch.einsum("bzchn,bzhnp->bzchp", cs * torch.exp(li)[..., None], torch.stack(carried, dim=1))
+    y = (y_inter + y_intra).reshape(b, t, h, p)
+    return y, s
+
+
+def ssm_step(x, dt, a, bvec, cvec, s):
+    """Single-token SSM update.  x (B,H,P), dt (B,H), a (H,), b/c (B,H,N),
+    s (B,H,N,P) -> (y (B,H,P), s'), both f32."""
+    f32 = torch.float32
+    x, dt, bvec, cvec = (z.to(f32) for z in (x, dt, bvec, cvec))
+    decay = torch.exp(a.to(f32)[None, :] * dt)  # (B,H)
+    s_new = decay[..., None, None] * s + torch.einsum("bhn,bhp->bhnp", bvec, x * dt[..., None])
+    y = torch.einsum("bhn,bhnp->bhp", cvec, s_new)
     return y, s_new

@@ -2,7 +2,7 @@
 Model(init, loss_fn, prefill, decode_step, init_cache).
 
 A port of `repro/models/model.py::build_model` for the families in
-`transformer.PORTED_FAMILIES` (dense and ssm).  Parameters come from
+`transformer.PORTED_FAMILIES` (dense, moe, ssm and hybrid).  Parameters come from
 `init` (random, on the card) or `repro_torch.checkpoint.params_from_jax`.
 
 Batch contract, as in the JAX package:
@@ -99,13 +99,18 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         return convert.init(cfg, generator, dev)
 
     def loss_fn(params, batch):
-        """(per-row losses (B,) f32, {"ce": their mean})."""
+        """(per-row losses (B,) f32, {"ce": the mean CE, "moe_aux": the
+        layers' summed load-balance loss}).  For moe every row also carries
+        router_aux_weight * aux / B, as in the JAX package."""
         x = layers.embed(params, cfg, batch["tokens"])
         pos = torch.arange(x.shape[1], device=x.device)
-        x = transformer.run_stack_full(params["layers"], cfg, x, pos, window=cfg.sliding_window)
+        x, aux = transformer.run_stack_full(params["layers"], cfg, x, pos, window=cfg.sliding_window)
         x = layers.rmsnorm(params["final_norm"], x)
         per_row = _ce_per_row_chunked(params, cfg, x, batch["targets"])
-        return per_row, {"ce": per_row.mean()}
+        metrics = {"ce": per_row.mean(), "moe_aux": aux}
+        if cfg.family == "moe":
+            per_row = per_row + cfg.router_aux_weight * aux / per_row.shape[0]
+        return per_row, metrics
 
     @torch.inference_mode()
     def prefill(params, batch, *, window: Optional[int] = None):

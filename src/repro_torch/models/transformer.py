@@ -1,15 +1,19 @@
 """Layer stacks: the training forward, prefill, and decode against a cache.
 
-A port of the dense and ssm parts of `repro/models/transformer.py`:
+A port of the dense, moe, ssm and hybrid parts of
+`repro/models/transformer.py`:
 
-  dense     : [RMSNorm -> GQA attention] + [RMSNorm -> MLP], KV-cache decode
-  ssm       : [RMSNorm -> time-mix] + [RMSNorm -> channel-mix] (RWKV-6),
-              decode against the recurrent state
+  dense / moe : [RMSNorm -> GQA attention] + [RMSNorm -> MLP | MoE],
+                KV-cache decode
+  ssm         : [RMSNorm -> time-mix] + [RMSNorm -> channel-mix] (RWKV-6),
+                decode against the recurrent state
+  hybrid      : [RMSNorm -> parallel attention + SSM mix] + [RMSNorm -> MLP]
+                (Hymba), decode against the KV cache and the SSM state
 
 Layer parameters stay stacked over a leading L axis, as in the JAX package,
 and the layers run as a Python loop (there is no scan): over views `a[i]`
 when serving, over `unbind` when training, whose backward writes each
-stacked gradient once.  Other families raise.
+stacked gradient once.  encdec and vlm raise.
 """
 
 from __future__ import annotations
@@ -21,9 +25,9 @@ import torch.utils.checkpoint
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers, rwkv
+from repro_torch.models import hybrid, layers, moe, rwkv
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -48,12 +52,23 @@ def init_layer_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int, devi
             "ln2": layers.rmsnorm_init(cfg, device, lead),
             "cmix": rwkv.channel_mix_init(gen, cfg, device, lead),
         }
-    return {
+    if cfg.family == "hybrid":
+        return {
+            "ln1": layers.rmsnorm_init(cfg, device, lead),
+            "mix": hybrid.hymba_mix_init(gen, cfg, device, lead),
+            "ln2": layers.rmsnorm_init(cfg, device, lead),
+            "mlp": layers.mlp_init(gen, cfg, device, lead),
+        }
+    p = {
         "ln1": layers.rmsnorm_init(cfg, device, lead),
         "attn": layers.attention_init(gen, cfg, device, lead),
         "ln2": layers.rmsnorm_init(cfg, device, lead),
-        "mlp": layers.mlp_init(gen, cfg, device, lead),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe.moe_init(gen, cfg, device, lead)
+    else:
+        p["mlp"] = layers.mlp_init(gen, cfg, device, lead)
+    return p
 
 
 def _kv_to_ring_cache(k: torch.Tensor, window: int) -> torch.Tensor:
@@ -69,27 +84,49 @@ def _kv_to_ring_cache(k: torch.Tensor, window: int) -> torch.Tensor:
     return cache
 
 
-def _block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *, window: int,
-                capture_cache: bool = False):
-    """One layer over the whole sequence.  Returns (x_out, cache_l): with
-    ``capture_cache`` the per-layer decode cache, whose leaves are
-    init_cache's without the L axis; else None (the training forward)."""
+def attention_input(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """One dense, moe or hybrid layer's attention parameters and the input
+    its block gives `layers.attention_full`: RMSNorm ln1 of the residual x
+    (hybrid's SSM branch reads the same input)."""
+    return (p["mix"]["attn"] if cfg.family == "hybrid" else p["attn"]), layers.rmsnorm(p["ln1"], x)
+
+
+def ffn_input(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The input a dense, moe or hybrid block gives its MLP or MoE: RMSNorm
+    ln2 of the residual x after the attention (or mix) sub-block."""
+    return layers.rmsnorm(p["ln2"], x)
+
+
+def block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *, window: int,
+               capture_cache: bool = False):
+    """One layer over the whole sequence.  Returns (x_out, aux, cache_l):
+    aux the MoE load-balance loss (f32), None for other families; cache_l
+    with ``capture_cache`` the per-layer decode cache, whose leaves are
+    init_cache's without the L axis, else None (the training forward)."""
     if cfg.family == "ssm":
         h = layers.rmsnorm(p["ln1"], x)
         y, x_att, s = rwkv.time_mix(p["tmix"], cfg, h)
         x = x + y
         h = layers.rmsnorm(p["ln2"], x)
         y, x_ffn = rwkv.channel_mix(p["cmix"], cfg, h)
-        return x + y, ({"x_att": x_att, "x_ffn": x_ffn, "s": s} if capture_cache else None)
-    h = layers.rmsnorm(p["ln1"], x)
-    y, (k, v) = layers.attention_full(
-        p["attn"], cfg, h, positions, causal=True, window=window, return_kv=True
-    )
+        return x + y, None, ({"x_att": x_att, "x_ffn": x_ffn, "s": s} if capture_cache else None)
+    attn, h = attention_input(p, cfg, x)
+    aux, cache_l = None, {}
+    if cfg.family == "hybrid":
+        y, cache_l["ssm"], (k, v) = hybrid.hymba_mix_full(p["mix"], cfg, h, positions, window=window,
+                                                         return_kv=True)
+    else:
+        y, (k, v) = layers.attention_full(attn, cfg, h, positions, causal=True, window=window, return_kv=True)
     x = x + y
-    x = x + layers.mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))
+    h = ffn_input(p, x)
+    if cfg.family == "moe":
+        y, aux = moe.moe_layer(p["moe"], cfg, h)
+    else:
+        y = layers.mlp(p["mlp"], cfg, h)
+    x = x + y
     if not capture_cache:
-        return x, None
-    return x, {"k": _kv_to_ring_cache(k, window), "v": _kv_to_ring_cache(v, window)}
+        return x, aux, None
+    return x, aux, {"k": _kv_to_ring_cache(k, window), "v": _kv_to_ring_cache(v, window), **cache_l}
 
 
 def checkpointed(fn: Callable, *args):
@@ -104,10 +141,11 @@ def checkpointed(fn: Callable, *args):
 
 
 def run_stack_full(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
-                   window: int = 0) -> torch.Tensor:
+                   window: int = 0):
     """The training forward through the layer stack (causal, no decode
-    cache).  With ``cfg.remat`` and grad mode on, each block is recomputed
-    in the backward pass (`checkpointed`)."""
+    cache).  Returns (x, aux_sum): the layers' MoE load-balance losses
+    summed in f32 (zero for other families).  With ``cfg.remat`` and grad
+    mode on, each block is recomputed in the backward pass (`checkpointed`)."""
     check_family(cfg)
     if cfg.remat and cfg.remat_policy == "dots":
         raise NotImplementedError("remat_policy='dots' (save the matmul outputs) is not yet ported; see "
@@ -115,26 +153,31 @@ def run_stack_full(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: 
     remat = cfg.remat and torch.is_grad_enabled()
 
     def body(x, p):
-        return _block_full(p, cfg, x, positions, window=window)[0]
+        return block_full(p, cfg, x, positions, window=window)[:2]
 
     leaves, spec = tree_flatten(stacked)
     unbound = [a.unbind(0) for a in leaves]
     per_layer = [tree_unflatten([u[i] for u in unbound], spec) for i in range(cfg.n_layers)]
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in per_layer:
-        x = checkpointed(body, x, p) if remat else body(x, p)
-    return x
+        x, aux = checkpointed(body, x, p) if remat else body(x, p)
+        if aux is not None:
+            aux_sum = aux_sum + aux
+    return x, aux_sum
 
 
 def run_stack_prefill(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                       *, window: int = 0):
     """Prefill: full-sequence forward that also captures the decode cache.
     Returns (x, cache) with cache leaves stacked over layers: k, v (L, B, S,
-    KV, hd) for dense; x_att, x_ffn (L, B, D) and s (L, B, H, hd, hd) f32 for
-    ssm.  Each layer's leaves are written straight into the preallocated stack."""
+    KV, hd) for dense and moe, and for hybrid with ssm (L, B, H, N, hd) f32;
+    x_att, x_ffn (L, B, D) and s (L, B, H, hd, hd) f32 for ssm.  Each
+    layer's leaves are written straight into the preallocated stack."""
     check_family(cfg)
     cache = None
     for i in range(cfg.n_layers):
-        x, cache_l = _block_full(layer_params(stacked, i), cfg, x, positions, window=window, capture_cache=True)
+        x, _, cache_l = block_full(layer_params(stacked, i), cfg, x, positions, window=window,
+                                    capture_cache=True)
         if cache is None:
             cache = {kk: a.new_empty((cfg.n_layers,) + tuple(a.shape)) for kk, a in cache_l.items()}
         for kk, a in cache_l.items():
@@ -156,19 +199,31 @@ def _block_decode(p: dict, cache_l: Dict[str, torch.Tensor], cfg: ModelConfig, x
         y, xp = rwkv.channel_mix(p["cmix"], cfg, layers.rmsnorm(p["ln2"], x), cache_l["x_ffn"])
         cache_l["x_ffn"].copy_(xp)
         return x + y
+    if cfg.family == "hybrid":
+        y, _, _, s = hybrid.hymba_mix_decode(
+            p["mix"], cfg, layers.rmsnorm(p["ln1"], x), cache_l["k"], cache_l["v"], cache_l["ssm"], pos,
+            window=window,
+        )
+        cache_l["ssm"].copy_(s)
+        x = x + y
+        return x + layers.mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))
     h = layers.rmsnorm(p["ln1"], x)
     y, _, _ = layers.attention_decode(
         p["attn"], cfg, h, cache_l["k"], cache_l["v"], pos, window=window
     )
     x = x + y
-    return x + layers.mlp(p["mlp"], cfg, layers.rmsnorm(p["ln2"], x))
+    h = layers.rmsnorm(p["ln2"], x)
+    if cfg.family == "moe":
+        return x + moe.moe_layer(p["moe"], cfg, h)[0]
+    return x + layers.mlp(p["mlp"], cfg, h)
 
 
 def run_stack_decode(stacked: dict, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
                      x: torch.Tensor, pos: int, *, window: int = 0):
     """Single-token decode through the stack.  Returns (x, cache): the
-    stacked cache (KV for dense, token-shift carries and wkv state for ssm)
-    is updated in place and returned."""
+    stacked cache (KV for dense and moe, KV and SSM state for hybrid,
+    token-shift carries and wkv state for ssm) is updated in place and
+    returned."""
     check_family(cfg)
     for i in range(cfg.n_layers):
         cache_l = {kk: a[i] for kk, a in cache.items()}
@@ -179,11 +234,11 @@ def run_stack_decode(stacked: dict, cache: Dict[str, torch.Tensor], cfg: ModelCo
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, window: int = 0, *, device) -> dict:
     """Zero decode cache (stacked over layers).  For windowed attention the
     kv cache length is min(cache_len, window); the ssm cache (token-shift
-    carries and wkv state) has no length, so cache_len and window do not
-    change it."""
+    carries and wkv state) and hybrid's SSM state have no length, so
+    cache_len and window do not change them."""
     check_family(cfg)
     l, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
-    h, d = cfg.n_heads, cfg.d_model
+    h, d, n = cfg.n_heads, cfg.d_model, max(cfg.ssm_state, 1)
     dt = layers._dtype(cfg.compute_dtype)
     s = min(cache_len, window) if window else cache_len
     if cfg.family == "ssm":
@@ -192,7 +247,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, window: int = 0, *,
             "x_ffn": torch.zeros((l, batch, d), dtype=dt, device=device),
             "s": torch.zeros((l, batch, h, hd, hd), dtype=torch.float32, device=device),
         }
-    return {
+    cache = {
         "k": torch.zeros((l, batch, s, kv, hd), dtype=dt, device=device),
         "v": torch.zeros((l, batch, s, kv, hd), dtype=dt, device=device),
     }
+    if cfg.family == "hybrid":
+        cache["ssm"] = torch.zeros((l, batch, h, n, hd), dtype=torch.float32, device=device)
+    return cache

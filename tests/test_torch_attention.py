@@ -75,6 +75,21 @@ def test_port_attention_matches_jax(shape, dtype, fn):
     np.testing.assert_allclose(_np(port), _np(oracle), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype, hd", [(dt, hd) for dt, route in kernel.ROUTES.items()
+                                       for hd in kernel.ROUTE_HEAD_DIMS[route]], ids=str)
+def test_port_attention_matches_jax_at_each_route_head_dim(dtype, hd):
+    """Every head dim a route is instantiated for (the f32 route's 16 too,
+    the MoE smoke configs'), GQA causal with a window, against the Pallas
+    kernel in interpret mode."""
+    shape = (1, 128, 128, 4, 2, hd, True, 64)
+    name = str(dtype).removeprefix("torch.")
+    xs = _inputs(shape, seed=hd)
+    port = ops.flash_attention(*_to_torch(xs, name), causal=True, window=64)
+    pallas = jax_flash_attention(*_to_jax(xs, name), causal=True, window=64, block_q=64, block_k=64)
+    assert port.dtype == dtype and tuple(port.shape) == tuple(pallas.shape)
+    np.testing.assert_allclose(_np(port), _np(pallas), atol=TOL[name], rtol=TOL[name])
+
+
 def test_first_token_attends_only_to_itself():
     """Causal row 0 equals v[0] (softmax over a single key), and matches JAX."""
     shape = (1, 64, 64, 2, 2, 32, True, 0)
@@ -142,7 +157,7 @@ def _tma_error(x):
     return kernel.tma_layout_error(x.shape, x.stride(), x.data_ptr(), x.element_size())
 
 
-@pytest.mark.parametrize("hd", kernel.HEAD_DIMS)
+@pytest.mark.parametrize("hd", kernel.ROUTE_HEAD_DIMS["flash_attn_sm90"])
 def test_tma_check_accepts_the_models_views(hd):
     """The model's (B,T,H,hd) q and (B,S,KV,hd) k, v, transposed to the
     kernel's (B,H,T,hd) as ops.flash_attention does, contiguous or cut from

@@ -6,7 +6,9 @@ async modes graph-replayed against eager, faults and robust aggregation
 stable sort's signed zeros), and the LM training path (the train step
 against its CPU run, no per-worker snapshots in a sync step, the kernels'
 guard under `torch.func.grad`, `quickstart --setup lm` graph-replayed
-against eager), on the card.  Flash attention
+against eager), and the MoE and hybrid families (the kernel at their
+prefill shapes, the MoE layer and the SSM scan against their CPU runs),
+on the card.  Flash attention
 has two routes, by dtype: f32 the scalar kernel, bf16 the wgmma + TMA
 kernel; every attention case runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
 tensor-core kernel, every other shape the scalar one; each wkv case asserts
@@ -65,6 +67,12 @@ ATTN_SHAPES = [
     (1, 100, 65, 4, 1, 128, False, 0),  # non-causal, T > S, both ragged
     (1, 512, 512, 4, 2, 128, True, 96),  # a window that crosses tile boundaries
     (1, 512, 512, 4, 2, 32, True, 96),
+    # the prefill attention of qwen3-moe-30b-a3b, granite-moe-1b-a400m (batch
+    # 4, prompt 1024) and hymba-1.5b (prompt 2048, 25 heads over 5 kv heads,
+    # its 1024-token window)
+    (4, 1024, 1024, 32, 4, 64, True, 0),
+    (4, 1024, 1024, 16, 8, 64, True, 0),
+    (4, 2048, 2048, 25, 5, 64, True, 1024),
 ]
 # f32 differs from the plain version only in summation order; bf16 also in
 # where the plain version rounds scores and probabilities (2^-8 relative).
@@ -690,7 +698,7 @@ def _train_run(arch, mode, n_micro, device, seq, n_steps=3):
     return out, (ops.launches - before[0], wkv_ops.launches - before[1])
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b", "granite-moe-1b-a400m", "hymba-1.5b"])
 @pytest.mark.parametrize("mode,n_micro", [("sync", 1), ("kasync", 1), ("kbatch", 1), ("sync", 2)])
 def test_train_step_on_the_card_follows_the_cpu(cuda_device, arch, mode, n_micro):
     """k equal, sim_time within 1e-6 and ce within 1e-5 relative; at T = 128
@@ -703,7 +711,7 @@ def test_train_step_on_the_card_follows_the_cpu(cuda_device, arch, mode, n_micro
         np.testing.assert_allclose(t, t0, rtol=1e-6)
         np.testing.assert_allclose(ce, ce0, rtol=1e-5)
     n_layers = get_smoke_config(arch).n_layers
-    assert launches == ((3 * n_layers, 0) if arch == "llama3.2-3b" else (0, 3 * n_layers))
+    assert launches == ((0, 3 * n_layers) if arch == "rwkv6-3b" else (3 * n_layers, 0))
 
 
 @pytest.mark.parametrize("mode", ["sync", "kasync"])
@@ -755,3 +763,70 @@ def test_setup_lm_graph_replayed_equals_eager(cuda_device):
     for label, r in graph["results"].items():
         e = eager["results"][label]
         assert torch.equal(r.time, e.time) and torch.equal(r.k, e.k) and torch.equal(r.loss, e.loss), label
+
+
+# ------------------------------------------------- the MoE and hybrid families
+
+# The MoE smoke configs' head dim 16 (the f32 route only), causal and windowed.
+HD16_SHAPES = [(2, 128, 128, 8, 4, 16, True, 0), (2, 128, 128, 8, 2, 16, True, 32), (1, 100, 100, 4, 2, 16, True, 0)]
+
+
+@pytest.mark.parametrize("shape", HD16_SHAPES, ids=str)
+def test_f32_route_takes_head_dim_16(cuda_device, shape):
+    test_flash_attention_kernel_matches_plain_version(cuda_device, shape, "float32")
+
+
+def test_bf16_route_refuses_head_dim_16(cuda_device):
+    q, k, v = (torch.zeros(sh, dtype=torch.bfloat16, device=cuda_device)
+               for sh in ((1, 128, 4, 16), (1, 128, 2, 16), (1, 128, 2, 16)))
+    before = ops.launches
+    with pytest.raises(ValueError, match="head_dim 16"):
+        ops.flash_attention(q, k, v, causal=True)
+    assert ops.launches == before
+
+
+def _moe_cases():
+    small = get_smoke_config("granite-moe-1b-a400m")
+    wide = small.replace(d_model=512, d_ff=256, n_experts=16, moe_top_k=4)
+    return [(cfg, d, cf) for cfg in (small, wide) for d in ("einsum", "gather", "hybrid", "scatter")
+            for cf in (0.5, 1.25)]
+
+
+@pytest.mark.parametrize("cfg,dispatch,cf", _moe_cases(),
+                         ids=lambda c: f"E{c.n_experts}" if hasattr(c, "n_experts") else str(c))
+def test_moe_layer_on_the_card_follows_the_cpu(cuda_device, cfg, dispatch, cf):
+    """f32 with TF32 off: the routing (experts, queue positions, kept flags)
+    equal to the CPU's, y within 1e-5, the load-balance loss within 1e-6."""
+    from repro_torch.models import moe
+
+    cfg = cfg.replace(moe_dispatch=dispatch, capacity_factor=cf)
+    params = moe.moe_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((4, 64, cfg.d_model), dtype=np.float32) * 0.5)
+    card = tree_map(lambda a: a.to(cuda_device), params)
+    for got, want in zip(moe.route(card, cfg, x.to(cuda_device))[:3:2], moe.route(params, cfg, x)[:3:2]):
+        assert torch.equal(got.cpu(), want)
+    assert torch.equal(moe.route(card, cfg, x.to(cuda_device))[1].cpu() > 0, moe.route(params, cfg, x)[1] > 0)
+    y, aux = moe.moe_layer(card, cfg, x.to(cuda_device))
+    y0, aux0 = moe.moe_layer(params, cfg, x)
+    np.testing.assert_allclose(y.cpu().numpy(), y0.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(aux), float(aux0), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_ssm_chunked_on_the_card_follows_the_cpu(cuda_device, chunk):
+    """Within 1e-5 of the output's max |y|: the card's f32 products (TF32
+    off) sum in another order than the CPU's, and at hymba's head width
+    (P = 64, N = 16) |y| reaches ~10, so an element near zero differs by
+    ~2e-5 absolute (seen) where the max differs by ~1e-6 relative."""
+    from repro_torch.models import linear_scan
+
+    rng = np.random.default_rng(chunk)
+    b, t, h, p, n = 2, 256, 25, 64, 16
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))  # noqa: E731
+    xs = (f(b, t, h, p), torch.nn.functional.softplus(f(b, t, h)), -torch.exp(f(h) * 0.5), f(b, t, h, n),
+          f(b, t, h, n), f(b, h, n, p) * 0.3)
+    y, s = linear_scan.ssm_chunked(*(a.to(cuda_device) for a in xs), chunk=chunk)
+    y0, s0 = linear_scan.ssm_chunked(*xs, chunk=chunk)
+    for got, want in ((y, y0), (s, s0)):
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())

@@ -160,3 +160,38 @@ def test_init_params_from_a_key_is_deterministic():
     c = src.init_params(torch.Generator().manual_seed(5), device="cpu")
     assert all(torch.equal(x, y) for (_, x), (_, y) in zip(leaves_with_path(a), leaves_with_path(b)))
     assert not torch.equal(a["embed"], c["embed"])
+
+
+def test_moe_source_grid_matches_reference():
+    """granite-moe-1b-a400m's smoke config as the source (router, capacity
+    drops and the load-balance term in every row's loss, under the
+    engine's `vmap` over lanes): adaptive and fixed k = 2 cells, n = 4,
+    R = 2, 20 iterations, the loss every 10, against the reference's
+    `run_sweep_source(..., partition="none")` at the engine's tolerances."""
+    n, rows, seq = 4, 8, 16
+    jsrc, tsrc = JaxLMSource(arch="granite-moe-1b-a400m"), LMSource(arch="granite-moe-1b-a400m")
+    assert tsrc.cache_token() == jsrc.cache_token() and tsrc.model.cfg.family == "moe"
+    jparams = jsrc.init_params(jax.random.PRNGKey(0))
+    tparams = tsrc.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    jdata, tdata = jsrc.make_data(rows, seq, seed=0), tsrc.make_data(rows, seq, seed=0, device="cpu")
+
+    def cells(ctl, strag, sw):
+        return [sw.SweepCase(ctl.PflugController(n_workers=n, k0=1, step=1, thresh=0, burnin=0),
+                             strag.Exponential(rate=1.0), eta=0.05, label="adaptive"),
+                sw.SweepCase(ctl.FixedKController(n_workers=n, k=2), strag.Exponential(rate=1.0), eta=0.05,
+                             label="fixed_k2")]
+
+    keys = jax.random.split(jax.random.PRNGKey(2), 2)
+    want = jsw.run_sweep_source(jsrc, jparams, jdata, n_workers=n, cases=cells(jctl, jstr, jsw), num_iters=20,
+                                keys=keys, eval_every=10, partition="none")
+    got = tsw.run_sweep_source(tsrc, tparams, tdata, n_workers=n, cases=cells(tctl, tstr, tsw), num_iters=20,
+                               keys=np.asarray(keys), eval_every=10, device="cpu")
+    assert got.labels == tuple(want.labels)
+    wk, gk = np.asarray(want.k), got.k.numpy()
+    for g, label in enumerate(got.labels):
+        forked = [r for r in range(wk.shape[1]) if not np.array_equal(gk[g, r], wk[g, r])]
+        assert len(forked) <= (MAX_FORKS if label == "adaptive" else 0), (label, forked)
+        held = [r for r in range(wk.shape[1]) if r not in forked]
+        np.testing.assert_allclose(got.time.numpy()[g, held], np.asarray(want.time)[g, held], rtol=TIME_RTOL)
+        np.testing.assert_allclose(got.loss.numpy()[g, held], np.asarray(want.loss)[g, held], rtol=LOSS_RTOL)
+    assert np.isfinite(got.loss.numpy()).all()

@@ -65,7 +65,8 @@ ARCHS = ["llama3.2-3b", "rwkv6-3b", "qwen1.5-0.5b"]
 N_WORKERS, BATCH, SEQ = 4, 8, 32
 # Gradients and trained parameters, as a share of each leaf's max: rwkv6-3b's
 # smoke model is ill-conditioned (see the module docstring).
-GRAD_TOL = {"llama3.2-3b": 1e-4, "rwkv6-3b": 1e-3, "qwen1.5-0.5b": 1e-4}
+GRAD_TOL = {"llama3.2-3b": 1e-4, "rwkv6-3b": 1e-3, "qwen1.5-0.5b": 1e-4, "granite-moe-1b-a400m": 1e-4,
+            "qwen3-moe-30b-a3b": 1e-4, "hymba-1.5b": 1e-4}
 
 
 def _np(x):
@@ -205,6 +206,7 @@ def _loss_case(arch, t, vocab=None):
     ("llama3.2-3b", 32, None), ("rwkv6-3b", 32, None), ("qwen1.5-0.5b", 32, None),
     ("qwen1.5-0.5b", 1024, None),  # the chunked cross-entropy: two chunks of 512
     ("llama3.2-3b", 32, 500),  # a padded vocab: 500 of 512 columns
+    ("granite-moe-1b-a400m", 32, None), ("qwen3-moe-30b-a3b", 32, None), ("hymba-1.5b", 32, None),
 ])
 def test_per_row_loss_matches_reference(arch, t, vocab):
     jcfg, tcfg, jmodel, jparams, tparams, tokens, targets = _loss_case(arch, t, vocab)
@@ -214,12 +216,16 @@ def test_per_row_loss_matches_reference(arch, t, vocab):
     assert tuple(got.shape) == (tokens.shape[0],) and got.dtype == torch.float32
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5)
     np.testing.assert_allclose(float(gmet["ce"]), float(wmet["ce"]), rtol=1e-5)
+    # the summed load-balance loss (zero outside moe), folded into each row for moe
+    np.testing.assert_allclose(float(gmet["moe_aux"]), float(wmet["moe_aux"]), rtol=1e-6, atol=1e-7)
+    assert (float(gmet["moe_aux"]) > 0) == (tcfg.family == "moe")
 
 
 @pytest.mark.parametrize("arch,t,remat", [
     ("llama3.2-3b", 32, False), ("llama3.2-3b", 32, True), ("rwkv6-3b", 32, False), ("rwkv6-3b", 32, True),
     ("qwen1.5-0.5b", 32, False),
     ("qwen1.5-0.5b", 1024, True),  # remat of every block and of each cross-entropy chunk
+    ("granite-moe-1b-a400m", 32, False), ("qwen3-moe-30b-a3b", 32, True), ("hymba-1.5b", 32, False),
 ])
 def test_weighted_loss_gradients_match_jax_grad(arch, t, remat):
     jcfg, tcfg, jmodel, jparams, tparams, tokens, targets = _loss_case(arch, t)
@@ -327,7 +333,9 @@ def _run_both(arch, mode, n_micro, opt_name, steps=3):
 STEP_CASES = [("llama3.2-3b", m, n, "sgd") for m, n in (("sync", 1), ("kasync", 1), ("kbatch", 1), ("sync", 2))] + [
     ("llama3.2-3b", "sync", 1, "adamw"), ("llama3.2-3b", "kasync", 1, "adamw"),
     ("rwkv6-3b", "sync", 2, "sgd"), ("rwkv6-3b", "kbatch", 1, "sgd"),
-    ("qwen1.5-0.5b", "sync", 1, "sgd"), ("qwen1.5-0.5b", "kasync", 1, "sgd")]
+    ("qwen1.5-0.5b", "sync", 1, "sgd"), ("qwen1.5-0.5b", "kasync", 1, "sgd"),
+    ("granite-moe-1b-a400m", "sync", 1, "adamw"), ("qwen3-moe-30b-a3b", "kbatch", 1, "sgd"),
+    ("hymba-1.5b", "sync", 2, "sgd")]
 
 
 @pytest.mark.parametrize("arch,mode,n_micro,opt_name", STEP_CASES)
