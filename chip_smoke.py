@@ -110,7 +110,23 @@
    steps: finite ce and moe_aux, k in [1, 4], rising sim_time, one flash
    launch a layer a step); the train step of all three on the card against
    the CPU at smoke width.
-13. Print one `kernels` JSON line, the card again, and, as the last line,
+13. The vlm and encdec families and the large dense archs: the
+   flash-attention kernel at head dims 192 and 256 in both routes
+   (tests/test_kernels.py's shapes and ragged T) and the f32 route at hd 48
+   against the plain version; at the prefill shapes of seamless-m4t-medium's
+   decoder (B=4, T=1024, H=KV=16, hd=64), paligemma-3b (256 patches + 1024
+   tokens, H=8, KV=1, hd=256), qwen1.5-110b (H=64, KV=8, hd=128) and
+   nemotron-4-340b (H=96, KV=8, hd=192) and the two train steps' eval
+   shapes, timed in turns with SDPA; the four archs served at full width
+   (qwen1.5-110b at 8 layers, nemotron-4-340b at 2), batch 4, prompt 1024,
+   32 greedy tokens, seeded random frames and patches, in a process of
+   their own, with one flash launch a decoder layer, prefill ms, decode
+   tokens/s, peak memory, idle share, each layer's attention sub-block held
+   to the plain path; seamless-m4t-medium and paligemma-3b trained at full
+   width (phase 12's recipe), the eval forward at the trained parameters
+   held to the plain path; the four smoke configs in f32 on the card
+   against the CPU (serving and the train step).
+14. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -1616,7 +1632,8 @@ def train_full_width(label: str, arch: str, t: dict, counters) -> TrainRun:
     """t["steps"] sync train steps of `arch` at full width and depth on the
     card: bf16, remat, random weights from seed 0, AdamW at t["lr"], Pflug
     at the train CLI's defaults, Exponential(1) stragglers, t["n_workers"]
-    workers, t["batch"] x t["seq"] tokens from TokenStream seed 0."""
+    workers, t["batch"] x t["seq"] tokens from TokenStream seed 0 (vlm and
+    encdec: step i's `frontend_inputs` of seed i beside them)."""
     import torch
     from repro_torch.checkpoint import convert
     from repro_torch.configs import get_config
@@ -1654,7 +1671,7 @@ def train_full_width(label: str, arch: str, t: dict, counters) -> TrainRun:
         before = counters["flash_attention"].launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step_fn(state, {"tokens": tok, "targets": tgt}, sub)
+        state, m = step_fn(state, {"tokens": tok, "targets": tgt, **frontend_inputs(cfg, t["batch"], i)}, sub)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         per_step.append(counters["flash_attention"].launches - before)
@@ -1727,15 +1744,9 @@ def train_llama_worker() -> dict:
     allocator grows its segments in place (PYTORCH_CUDA_ALLOC_CONF, set by
     the parent), so the full-width run neither inherits the earlier phases'
     segments nor fragments its own."""
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    from repro_torch.kernels.attention import ops
-    from repro_torch.kernels.wkv import ops as wkv_ops
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    counters = _worker_counters()
     try:
-        return train_llama({"flash_attention": ops, "wkv6": wkv_ops})
+        return train_llama(counters)
     finally:
         sys.stdout.flush()
 
@@ -1794,7 +1805,9 @@ def train_qwen_async() -> dict:
 
 def train_smoke_run(arch: str, mode: str, n_micro: int, device: str):
     """3 train steps of a smoke config (f32) from weights drawn on the CPU
-    from seed 0, T = 128: [(k, sim_time, ce)] and the kernels' launches."""
+    from seed 0, 128 positions (vlm: its patches and T = 128 - P; vlm and
+    encdec fed `frontend_inputs`): [(k, sim_time, ce)] and the kernels'
+    launches."""
     import torch
     from torch.utils._pytree import tree_map
     from repro_torch.configs import get_smoke_config
@@ -1815,14 +1828,15 @@ def train_smoke_run(arch: str, mode: str, n_micro: int, device: str):
     step = steps.make_train_step(build_model(cfg, device), opt, ctrl, Exponential(1.0), 4, CommModel(0.1, 0.05),
                                  n_micro=n_micro, mode=mode)
     state = steps.init_train_state(opt, ctrl, params)
-    data = TokenStream(cfg.vocab_size, 128, 8, seed=0, device=device)
+    data = TokenStream(cfg.vocab_size, 128 - (cfg.vlm_patches if cfg.family == "vlm" else 0), 8, seed=0,
+                       device=device)
     key = prng.PRNGKey(7, device=device)
     before = (ops.launches, wkv_ops.launches)
     rows = []
     for i in range(3):
         tok, tgt = data.batch_at(i)
         key, sub = prng.split(key).unbind(0)
-        state, m = step(state, {"tokens": tok, "targets": tgt}, sub)
+        state, m = step(state, {"tokens": tok, "targets": tgt, **frontend_inputs(cfg, 8, i, device)}, sub)
         rows.append((int(m["k"]), float(m["sim_time"]), float(m["ce"])))
     return rows, (ops.launches - before[0], wkv_ops.launches - before[1])
 
@@ -1954,10 +1968,6 @@ def train_lm_grid() -> dict:
 
 def train_phase() -> dict:
     """Phase 11: the LM training path."""
-    import multiprocessing
-    import os
-    from concurrent.futures import ProcessPoolExecutor
-
     import torch
     from repro_torch.core import montecarlo, sweep
 
@@ -1968,16 +1978,7 @@ def train_phase() -> dict:
     torch.cuda.empty_cache()
     print(f"[11] this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of the card's memory before the "
           "full-width run (in a process of its own)", flush=True)
-    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # for the spawned process only
-    try:
-        with ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn")) as pool:
-            out = {"llama": pool.submit(train_llama_worker).result()}
-    finally:
-        if conf is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    out = {"llama": in_spawned_process(train_llama_worker)}
     out["qwen"] = train_qwen_async()
     out["smoke"] = train_smoke_vs_cpu()
     out["lm"] = train_lm_grid()
@@ -2020,20 +2021,25 @@ FAMILY_LAYER_TOL = 2e-2
 FAMILY_TRAIN = dict(batch=8, seq=512, n_workers=4, lr=3e-4, steps=3)
 
 
-def attention_layer_gaps(cfg, params, prompts, window: int):
+def attention_layer_gaps(cfg, params, prompts, window: int, extra=None):
     """Each layer's attention sub-block, kernel against plain path, from the
     same input (the kernel path's output of the layer below; the input and
     the layer are the model's own, `transformer.attention_input` and
-    `block_full`): the worst max|dy|/max|y| over the layers, and for moe the
+    `block_full`, with vlm's patches before the prompt and encdec's memory
+    from `extra`): the worst max|dy|/max|y| over the layers, and for moe the
     share of tokens whose expert set differs between the router inputs the
     two paths give (None for other families)."""
     import torch
-    from repro_torch.models import layers, moe, transformer
+    from repro_torch.models import build_model, layers, moe, transformer
 
     plain = cfg.replace(use_kernels=False)
+    extra = extra or {}
     worst, flipped, routed = 0.0, 0, 0
     with torch.inference_mode():
         x = layers.embed(params, cfg, prompts)
+        if "patches" in extra:
+            x = torch.cat([extra["patches"].to(x.dtype), x], dim=1)
+        enc_out = build_model(cfg, x.device).encode(params, extra["frames"]) if "frames" in extra else None
         pos = torch.arange(x.shape[1], device=x.device)
         for i in range(cfg.n_layers):
             p = transformer.layer_params(params["layers"], i)
@@ -2046,38 +2052,47 @@ def attention_layer_gaps(cfg, params, prompts, window: int):
                         for y in (yk, yp)]
                 flipped += int((sets[0] != sets[1]).any(dim=0).sum())
                 routed += sets[0][0].numel()
-            x = transformer.block_full(p, cfg, x, pos, window=window)[0]
+            x = transformer.block_full(p, cfg, x, pos, window=window, enc_out=enc_out)[0]
     return worst, (flipped / routed if routed else None)
 
 
-def serve_family(arch: str, counters) -> dict:
-    """Phase 12b/c: one arch served at full width and depth on the card."""
+def serve_family(arch: str, counters, label: str = "12") -> dict:
+    """Phases 12b/c and 13b: one arch served at full width on the card, at
+    its full depth or `full_width_config`'s, with `frontend_inputs` for vlm
+    and encdec."""
     import torch
     from repro_torch.checkpoint import convert
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import build_model
 
-    cfg = get_config(arch)
-    b, t, new, window = FAMILY_SERVE[arch]
+    cfg = full_width_config(arch)
+    b, t, new, window = {**FAMILY_SERVE, **NEW_SERVE}[arch]
+    extra = frontend_inputs(cfg, b, seed=2)
+    n_prefix = cfg.vlm_patches if cfg.family == "vlm" else 0
     model = build_model(cfg, "cuda")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = convert.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(a.numel() for a in _leaves(params))
     weight_gb = sum(a.numel() * a.element_size() for a in _leaves(params)) / 1e9
-    print(f"[12] serve {arch}: {cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
-          f"{cfg.n_kv_heads} kv of {cfg.resolved_head_dim}"
-          + (f", {cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.d_ff} ({cfg.moe_dispatch})"
-             if cfg.family == "moe" else f", SSM state {cfg.ssm_state}, d_ff {cfg.d_ff}")
-          + f"; {n_params / 1e9:.3f} G parameters, {weight_gb:.2f} GB in {cfg.param_dtype} (drawn in {init_s:.1f} s); "
-          f"batch {b}, prompt {t}, {new} new tokens, window {window}", flush=True)
+    family_note = {"moe": f", {cfg.n_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.d_ff} ({cfg.moe_dispatch})",
+                   "hybrid": f", SSM state {cfg.ssm_state}, d_ff {cfg.d_ff}",
+                   "encdec": f", d_ff {cfg.d_ff}; encoder {cfg.encoder_layers} layers over {cfg.encoder_frames} random "
+                             "frames",
+                   "vlm": f", d_ff {cfg.d_ff}; {cfg.vlm_patches} random patches before the prompt"}
+    print(f"[{label}] serve {arch}: {cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv of {cfg.resolved_head_dim}" + family_note.get(cfg.family, f", d_ff {cfg.d_ff}")
+          + f"; {n_params / 1e9:.3f} G parameters, {weight_gb:.2f} GB in {cfg.param_dtype} (drawn in {init_s:.1f} s, "
+          f"peak {init_peak_gb:.2f} GB while drawn); batch {b}, prompt {t}, {new} new tokens, window {window}",
+          flush=True)
     prompts = serve.random_prompts(cfg, b, t, seed=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
-    res = serve.generate(model, params, prompts, new, window=window)
+    res = serve.generate(model, params, prompts, new, window=window, **extra)
     counts = {name: c.launches for name, c in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  launches during the run: {counts} (expected flash_attention {cfg.n_layers}, one per prefill layer)")
@@ -2093,16 +2108,20 @@ def serve_family(arch: str, counters) -> dict:
     print(f"  first prefill {res.prefill_s * 1e3:.1f} ms; decoded {steps} steps x batch {b} in {res.decode_s:.3f} s "
           f"({tok_s:.1f} tok/s); peak memory {peak_gb:.2f} GB of {total_gb:.1f} GB")
     print(f"  tokens[0]: {res.tokens[0].tolist()}")
-    prefill_ms = cuda_ms(lambda: model.prefill(params, {"tokens": prompts}, window=window), iters=3, warmup=1)
-    print(f"  prefill {prefill_ms:.1f} ms (CUDA events, mean of 3)")
-    device_breakdown(lambda: model.prefill(params, {"tokens": prompts}, window=window), "prefill", prefill_ms)
+    batch = {"tokens": prompts, **extra}
+    prefill_ms = cuda_ms(lambda: model.prefill(params, batch, window=window), iters=3, warmup=1)
+    print(f"  prefill {prefill_ms:.1f} ms (CUDA events, mean of 3" + (", the encoder's pass included)" if "frames" in
+                                                                      extra else ")"))
+    device_breakdown(lambda: model.prefill(params, batch, window=window), "prefill", prefill_ms)
     del res
-    cache = model.init_cache(b, t + new, window)
+    cache = model.init_cache(b, n_prefix + t + new, window)
     token = torch.zeros((b, 1), dtype=torch.long, device="cuda")
-    decode_ms = cuda_ms(lambda: model.decode_step(params, token, cache, t, window=window), iters=5, warmup=2)
-    device_breakdown(lambda: model.decode_step(params, token, cache, t, window=window), "one decode step", decode_ms)
-    del cache
-    layer_rel, flip_share = attention_layer_gaps(cfg, params, prompts, window)
+    enc_out = model.encode(params, extra["frames"]) if "frames" in extra else None
+    step = lambda: model.decode_step(params, token, cache, n_prefix + t, window=window, enc_out=enc_out)  # noqa: E731
+    decode_ms = cuda_ms(step, iters=5, warmup=2)
+    device_breakdown(step, "one decode step", decode_ms)
+    del cache, enc_out
+    layer_rel, flip_share = attention_layer_gaps(cfg, params, prompts, window, extra)
     print(f"  attention sub-block, kernel vs plain, each layer fed the same input: worst max|dy|/max|y| "
           f"{layer_rel:.3e} (bound {FAMILY_LAYER_TOL})"
           + (f"; tokens whose expert set differs between the two paths: {flip_share:.4%}" if flip_share is not None
@@ -2119,15 +2138,9 @@ def serve_qwen3_worker() -> dict:
     """`serve_family` of qwen3-moe-30b-a3b in a process of its own: a fresh
     CUDA context whose allocator grows its segments in place
     (PYTORCH_CUDA_ALLOC_CONF, set by the parent), for ~60 GB of weights."""
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    from repro_torch.kernels.attention import ops
-    from repro_torch.kernels.wkv import ops as wkv_ops
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    counters = _worker_counters()
     try:
-        return serve_family("qwen3-moe-30b-a3b", {"flash_attention": ops, "wkv6": wkv_ops})
+        return serve_family("qwen3-moe-30b-a3b", counters)
     finally:
         sys.stdout.flush()
 
@@ -2152,27 +2165,28 @@ def family_smoke_serving() -> None:
             raise AssertionError(f"{arch} smoke model: kernel path disagrees with the plain path")
 
 
-def train_family(arch: str, counters) -> dict:
-    """Phase 12d: one arch trained at full width and depth (FAMILY_TRAIN),
-    then the eval forward at the trained parameters held to the plain path:
-    ce and moe_aux within TRAIN_EVAL_RTOL, and each layer's attention
-    sub-block within FAMILY_LAYER_TOL (ce at random weights hardly depends
-    on the attention)."""
+def train_family(arch: str, counters, label: str = "12") -> dict:
+    """Phases 12d and 13d: one arch trained at full width and depth
+    (FAMILY_TRAIN), then the eval forward at the trained parameters held to
+    the plain path: ce and moe_aux within TRAIN_EVAL_RTOL, and each layer's
+    attention sub-block within FAMILY_LAYER_TOL (ce at random weights hardly
+    depends on the attention)."""
     import torch
     from repro_torch.models import build_model
 
     t = FAMILY_TRAIN
-    run = train_full_width("12", arch, t, counters)
+    run = train_full_width(label, arch, t, counters)
     cfg, rows, secs, per_step, peak_gb = run.cfg, run.rows, run.secs, run.per_step, run.peak_gb
     tokens = t["batch"] * t["seq"]
     launches = counters["flash_attention"].launches
     tok, tgt = run.data.batch_at(0)
-    batch = {"tokens": tok, "targets": tgt}
+    extra = frontend_inputs(cfg, t["batch"], 0)
+    batch = {"tokens": tok, "targets": tgt, **extra}
     plain = build_model(cfg.replace(use_kernels=False), "cuda")
     with torch.no_grad():
         (ce, aux), (ce_p, aux_p) = ((float(m["ce"]), float(m["moe_aux"])) for m in (
             model.loss_fn(run.state.params, batch)[1] for model in (run.model, plain)))
-    layer_rel, flip_share = attention_layer_gaps(cfg, run.state.params, tok, cfg.sliding_window)
+    layer_rel, flip_share = attention_layer_gaps(cfg, run.state.params, tok, cfg.sliding_window, extra)
     ce_gap = abs(ce - ce_p) / abs(ce_p)
     aux_gap = abs(aux - aux_p) / abs(aux_p) if cfg.family == "moe" else 0.0
     step_ms = 1e3 * sum(secs[1:]) / len(secs[1:])
@@ -2203,10 +2217,6 @@ def train_family(arch: str, counters) -> dict:
 
 def family_phase(counters) -> dict:
     """Phase 12: the MoE and hybrid families."""
-    import multiprocessing
-    import os
-    from concurrent.futures import ProcessPoolExecutor
-
     import torch
 
     phase_t0 = time.perf_counter()
@@ -2219,16 +2229,7 @@ def family_phase(counters) -> dict:
         out[key][arch] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
     torch.cuda.empty_cache()
-    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # for the spawned process only
-    try:
-        with ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn")) as pool:
-            out["serve"]["qwen3-moe-30b-a3b"] = pool.submit(serve_qwen3_worker).result()
-    finally:
-        if conf is None:
-            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    out["serve"]["qwen3-moe-30b-a3b"] = in_spawned_process(serve_qwen3_worker)
     for arch in ("granite-moe-1b-a400m", "hymba-1.5b"):
         out["serve"][arch] = serve_family(arch, counters)
     family_smoke_serving()
@@ -2249,6 +2250,203 @@ def family_phase(counters) -> dict:
           f"k equal, max rel gap sim_time {worst[0]:.3e} (bound {TRAIN_SMOKE_TIME_RTOL}), ce {worst[1]:.3e} "
           f"(bound {TRAIN_SMOKE_CE_RTOL}); kernel launches on the card (flash, wkv6): {smoke_launches}")
     print(f"  phase 12 took {time.perf_counter() - phase_t0:.1f} s")
+    return out
+
+
+# The vlm and encdec families and the large dense archs (phase 13).  The
+# flash-attention kernel at head dims 192 and 256, both routes: the shapes
+# of tests/test_kernels.py at those head dims and ragged T = S, and the f32
+# route at hd 48 (nemotron-4-340b's smoke config), each held to the plain
+# version at TOL; then at the four archs' prefill shapes and the two train
+# steps' eval shapes (bf16), held and timed in turns with SDPA.  Then each
+# arch served at full width, bf16, random weights from seed 0, batch 4,
+# prompt 1024, 32 greedy tokens, with seeded random frames or patches (zero
+# ones would leave the encoder's memory 0 and the cross-attention inert):
+# qwen1.5-110b at 8 of its 80 layers and nemotron-4-340b at 2 of its 96
+# (CUT_DEPTH: all of either holds 222 or 680 GB of bf16 weights), all four
+# in one process of their own with expandable segments; each layer's
+# attention sub-block held to the plain path as in phase 12.  Then
+# seamless-m4t-medium and paligemma-3b trained at full width (FAMILY_TRAIN,
+# in a process of their own), the eval forward at the trained parameters
+# held to the plain path; and the four smoke configs in f32 on the card
+# against the CPU: greedy tokens equal, prefill logits within 1e-4, the
+# train step's k equal, sim_time within 1e-6 and ce within 1e-5.
+NEW_ARCHS = ("seamless-m4t-medium", "paligemma-3b", "qwen1.5-110b", "nemotron-4-340b")
+CUT_DEPTH = {"qwen1.5-110b": 8, "nemotron-4-340b": 2}
+NEW_SHAPES = {
+    "seamless-m4t-medium": (4, 1024, 1024, 16, 16, 64, True, 0),  # the decoder's self-attention
+    "paligemma-3b": (4, 1280, 1280, 8, 1, 256, True, 0),  # 256 patches + 1024 tokens, MQA
+    "qwen1.5-110b": (4, 1024, 1024, 64, 8, 128, True, 0),
+    "nemotron-4-340b": (4, 1024, 1024, 96, 8, 192, True, 0),
+}
+NEW_SERVE = {arch: (4, 1024, 32, 0) for arch in NEW_ARCHS}
+NEW_TRAIN_SHAPES = {
+    "seamless-m4t-medium": (8, 512, 512, 16, 16, 64, True, 0),
+    "paligemma-3b": (8, 768, 768, 8, 1, 256, True, 0),  # 256 patches + 512 tokens
+}
+NEW_HEAD_DIM_SHAPES = ([sh[:5] + (hd,) + sh[6:] for hd in (192, 256) for sh in ATTN_SHAPES]
+                       + [(1, t, t, 4, 2, hd, True, 0) for hd in (192, 256) for t in (65, 100, 129, 200)])
+HD48_SHAPES = [(2, 128, 128, 8, 2, 48, True, 0), (1, 100, 100, 4, 2, 48, True, 0), (1, 256, 256, 4, 2, 48, True, 64)]
+NEW_SMOKE_LOGIT_ATOL = 1e-4
+
+
+def full_width_config(arch: str):
+    """The arch's published config, at CUT_DEPTH's depth where one card
+    cannot hold all of it (every width as published)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg.replace(n_layers=CUT_DEPTH[arch]) if arch in CUT_DEPTH else cfg
+
+
+def frontend_inputs(cfg, batch: int, seed: int, device="cuda") -> dict:
+    """Seeded random vlm patches or encdec frames, (B, P or F, D) f32, drawn
+    on the CPU so that the card and the CPU get the same ones ({} for the
+    other families).  Never zeros: zero frames leave every encoder layer at
+    0 and the cross-attention adds exactly 0."""
+    import torch
+
+    n = {"vlm": cfg.vlm_patches, "encdec": cfg.encoder_frames}.get(cfg.family)
+    if n is None:
+        return {}
+    x = torch.randn((batch, n, cfg.d_model), generator=torch.Generator().manual_seed(1000 + seed))
+    return {"patches" if cfg.family == "vlm" else "frames": x.to(device)}
+
+
+def _worker_counters():
+    """The kernel wrappers' counters in a spawned process (TF32 off)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.kernels.attention import ops
+    from repro_torch.kernels.wkv import ops as wkv_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return {"flash_attention": ops, "wkv6": wkv_ops}
+
+
+def serve_new_worker() -> dict:
+    """Phase 13b in a process of its own (expandable segments, set by the
+    parent): the four archs served at full width, one after another."""
+    counters = _worker_counters()
+    try:
+        return {arch: serve_family(arch, counters, "13") for arch in NEW_ARCHS}
+    finally:
+        sys.stdout.flush()
+
+
+def train_new_worker() -> dict:
+    """Phase 13c in a process of its own: seamless-m4t-medium and
+    paligemma-3b trained at full width."""
+    counters = _worker_counters()
+    try:
+        return {arch: train_family(arch, counters, "13") for arch in NEW_TRAIN_SHAPES}
+    finally:
+        sys.stdout.flush()
+
+
+def in_spawned_process(fn):
+    """fn() in a spawned process whose allocator grows its segments in place."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"  # for the spawned process only
+    try:
+        with ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            return pool.submit(fn).result()
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+
+
+def new_smoke_vs_cpu() -> dict:
+    """Phase 13d: each new arch's smoke config in f32 on the card against
+    the CPU, from the same weights (drawn on the CPU), prompts and random
+    patches or frames, 128 positions (vlm: 16 patches + 112 tokens): the
+    serving loop (greedy tokens equal, prefill logits within
+    NEW_SMOKE_LOGIT_ATOL, one flash launch a decoder layer on the card) and
+    the train step (sync, train_smoke_run)."""
+    import torch
+    from torch.utils._pytree import tree_map
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    worst_logit, worst_train, launches = 0.0, (0.0, 0.0), {}
+    for arch in NEW_ARCHS:
+        cfg = get_smoke_config(arch)
+        t = 128 - (cfg.vlm_patches if cfg.family == "vlm" else 0)
+        params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        prompts = torch.randint(0, cfg.vocab_size, (2, t), generator=torch.Generator().manual_seed(3))
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            before = ops.launches
+            runs[dev] = serve.generate(build_model(cfg, dev), tree_map(lambda a: a.to(dev), params),
+                                       prompts.to(dev), 8, **frontend_inputs(cfg, 2, 0, dev))
+            launches[arch] = ops.launches - before
+        d = (runs["cuda"].prefill_logits.cpu() - runs["cpu"].prefill_logits).abs().max().item()
+        worst_logit = max(worst_logit, d)
+        if not (d <= NEW_SMOKE_LOGIT_ATOL and torch.equal(runs["cuda"].tokens.cpu(), runs["cpu"].tokens)
+                and launches[arch] == cfg.n_layers):
+            raise AssertionError(f"{arch} smoke serving, card vs CPU: max|dlogits| {d:.3e}, tokens "
+                                 f"{runs['cuda'].tokens.tolist()} vs {runs['cpu'].tokens.tolist()}, "
+                                 f"{launches[arch]} flash launches")
+        card, counts = train_smoke_run(arch, "sync", 1, "cuda")
+        cpu, _ = train_smoke_run(arch, "sync", 1, "cpu")
+        for (k, st, ce), (k0, st0, ce0) in zip(card, cpu):
+            t_gap, c_gap = abs(st - st0) / abs(st0), abs(ce - ce0) / abs(ce0)
+            worst_train = (max(worst_train[0], t_gap), max(worst_train[1], c_gap))
+            if k != k0 or not (t_gap <= TRAIN_SMOKE_TIME_RTOL and c_gap <= TRAIN_SMOKE_CE_RTOL):
+                raise AssertionError(f"card vs CPU, {arch} sync: {card} against {cpu}")
+        if counts != (3 * cfg.n_layers, 0):
+            raise AssertionError(f"{arch} smoke train step: kernel launches {counts}, expected one a layer a step")
+    print(f"[13] smoke configs card vs CPU (f32, 128 positions; {', '.join(NEW_ARCHS)}): serving greedy tokens equal, "
+          f"max|dlogits| {worst_logit:.3e} (atol {NEW_SMOKE_LOGIT_ATOL}), flash launches a serve run {launches}; "
+          f"train step (sync, 3 steps) k equal, max rel gap sim_time {worst_train[0]:.3e} (bound "
+          f"{TRAIN_SMOKE_TIME_RTOL}), ce {worst_train[1]:.3e} (bound {TRAIN_SMOKE_CE_RTOL})")
+    return {"logit_gap": worst_logit, "ce_gap": worst_train[1]}
+
+
+def new_families_phase() -> dict:
+    """Phase 13: the vlm and encdec families, qwen1.5-110b and nemotron-4-340b."""
+    import torch
+
+    phase_t0 = time.perf_counter()
+    out = {"kernel": {}, "train_kernel": {}}
+    print("[13] flash attention at head dims 192 and 256 (tests/test_kernels.py's shapes and ragged T, both routes) "
+          "and the f32 route at head dim 48")
+    errs = {dt: 0.0 for dt in ("float32", "bfloat16")}
+    for i, shape in enumerate(NEW_HEAD_DIM_SHAPES):
+        for dt in errs:
+            errs[dt] = max(errs[dt], check_attention(shape, dt, seed=500 + i))
+    for i, shape in enumerate(HD48_SHAPES):
+        check_attention(shape, "float32", seed=540 + i)
+    print(f"  worst max_abs_err at hd 192/256: f32 {errs['float32']:.3e}, bf16 {errs['bfloat16']:.3e}")
+    print("[13] flash attention at the new archs' prefill shapes and train-step eval shapes (bf16)")
+    for i, (key, arch, shape) in enumerate([("kernel", a, sh) for a, sh in NEW_SHAPES.items()]
+                                           + [("train_kernel", a, sh) for a, sh in NEW_TRAIN_SHAPES.items()]):
+        err = check_attention(shape, "bfloat16", seed=560 + i)
+        kernel_ms, plain_ms, library_ms, bound_ms, bound_by = report_attention_times(arch, shape)
+        out[key][arch] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+    for arch in ("paligemma-3b", "nemotron-4-340b"):
+        check_attention(NEW_SHAPES[arch], "float32", seed=580)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["serve"] = in_spawned_process(serve_new_worker)
+    serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"] = in_spawned_process(train_new_worker)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["smoke"] = new_smoke_vs_cpu()
+    print(f"  phase 13 took {time.perf_counter() - phase_t0:.1f} s: serving {serve_s:.1f} s, training {train_s:.1f} "
+          f"s, smoke configs {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2292,6 +2490,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    script_t0 = time.perf_counter()
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -2312,6 +2511,11 @@ def main() -> int:
         if regs:
             print(f"    {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers a thread, "
                   f"spill stores up to {max(spills, default=0)} bytes")
+        if name.startswith("flash_attn"):  # each head dim's instantiation: hd 192 and 256 are this slice's
+            for hd, body in re.findall(r"Compiling entry function '[^']*kernelILi(\d+)EE[^']*'(.*?)(?=Compiling|\Z)",
+                                       log, flags=re.S):
+                lines = [ln.strip() for ln in body.splitlines() if "registers" in ln or "spill" in ln]
+                print(f"      hd {hd}: {'; '.join(lines)}")
     sass = sass_counts(_build, "flash_attn_sm90", ("HGMMA", "UTMALDG"))
     print(f"[2] flash_attn_sm90 SASS (cuobjdump -sass): {sass}")
     if not all(sass.values()):
@@ -2447,7 +2651,12 @@ def main() -> int:
     sys.stdout.flush()
     p12 = family_phase(counters)
 
-    # 13. summary
+    # 13. the vlm and encdec families and the large dense archs: the kernel at head dims 192 and 256, serving and
+    # training at full width
+    sys.stdout.flush()
+    p13 = new_families_phase()
+
+    # 14. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2469,6 +2678,12 @@ def main() -> int:
         "family_train_shapes": {arch: {**p12["train_kernel"][arch], "shape": list(FAMILY_TRAIN_SHAPES[arch]),
                                        "launches": p12["train"][arch]["launches"]}
                                 for arch in FAMILY_TRAIN_SHAPES},
+        "new_arch_shapes": {arch: {**p13["kernel"][arch], "shape": list(NEW_SHAPES[arch]),
+                                   "launches": p13["serve"][arch]["launches"]}
+                            for arch in NEW_SHAPES},
+        "new_arch_train_shapes": {arch: {**p13["train_kernel"][arch], "shape": list(NEW_TRAIN_SHAPES[arch]),
+                                         "launches": p13["train"][arch]["launches"]}
+                                  for arch in NEW_TRAIN_SHAPES},
     }, {
         "name": "wkv6",
         "route": "cuda",
@@ -2487,6 +2702,7 @@ def main() -> int:
         "scalar_bound_by": scalar_bound_by,
         "train_launches": p11["smoke"]["rwkv_sync_wkv_launches"],
     }]
+    print(f"[14] chip_smoke.py took {time.perf_counter() - script_t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -14,7 +14,10 @@ The tree is the JAX package's (`repro/models/model.py::build_model().init`):
      hybrid: {"ln1": {"scale"}, "mix": {"attn": {...}, "ssm": {"w_xs","w_dt","dt_bias",
              "a_log","w_b","w_c","w_os","skip_d"}, "norm_attn" (L,D), "norm_ssm" (L,D)},
              "ln2": {"scale"}, "mlp": {...}},
-   "final_norm": {"scale"}}
+     encdec (the decoder): dense's, with {"ln_x": {"scale"}, "xattn": {...}}
+     vlm: dense's,
+   "final_norm": {"scale"},
+   encdec only: "encoder": a dense stack of encoder_layers, "enc_norm": {"scale"}}
 as plain dicts of torch tensors with the same names, shapes and dtypes.
 """
 
@@ -61,14 +64,21 @@ def init(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> dict:
     lerp weights (0.5), decay bias (-1) and groupnorm scale (1), with the
     decay LoRA and bonus u N(0, 1/fan_in) in f32; for moe an f32 router;
     for hybrid the SSM branch's zero dt bias and log-decay, unit skip and
-    branch-norm scales, and an f32 step-size projection.  JAX's bits cannot be
-    reproduced; use `params_from_jax` for that."""
+    branch-norm scales, and an f32 step-size projection; for encdec the
+    decoder's cross-attention and a dense encoder stack.  JAX's bits cannot
+    be reproduced; use `params_from_jax` for that."""
     dev = resolve_device(device)
-    return {
+    is_encdec = cfg.family == "encdec"
+    params = {
         **layers.embed_init(generator, cfg, dev),
-        "layers": transformer.init_layer_stack(generator, cfg, cfg.n_layers, dev),
+        "layers": transformer.init_layer_stack(generator, cfg, cfg.n_layers, dev, cross=is_encdec),
         "final_norm": layers.rmsnorm_init(cfg, dev),
     }
+    if is_encdec:
+        params["encoder"] = transformer.init_layer_stack(generator, cfg.replace(family="dense"), cfg.encoder_layers,
+                                                         dev)
+        params["enc_norm"] = layers.rmsnorm_init(cfg, dev)
+    return params
 
 
 def engine_inputs(keys, params0, X, y, device="cuda"):

@@ -1,14 +1,12 @@
-"""Architecture registry of the port: --arch <id> -> ModelConfig.
-
-Only the ported architectures are listed; any other id of the JAX package
-raises with a pointer to ROADMAP.md."""
+"""Architecture registry of the port: --arch <id> -> ModelConfig, for every
+architecture of the JAX package."""
 
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
 
 _MODULES: Dict[str, str] = {
     "llama3.2-3b": "llama3_2_3b",
@@ -17,10 +15,11 @@ _MODULES: Dict[str, str] = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "hymba-1.5b": "hymba_1_5b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "paligemma-3b": "paligemma_3b",
+    "nemotron-4-340b": "nemotron_4_340b",
 }
-
-# Architectures of the JAX package that the port does not run yet.
-_NOT_PORTED = ("qwen1.5-110b", "seamless-m4t-medium", "paligemma-3b", "nemotron-4-340b")
 
 
 def list_archs() -> List[str]:
@@ -28,8 +27,6 @@ def list_archs() -> List[str]:
 
 
 def _module(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise ValueError(f"arch {arch_id!r} is not yet ported; see ROADMAP.md")
     if arch_id not in _MODULES:
         raise ValueError(f"unknown arch {arch_id!r}; options: {list_archs()}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

@@ -3,14 +3,15 @@
 A copy of the JAX package's `ModelConfig` (`repro/configs/base.py`), kept
 here so that the port imports nothing of that package.  Each ported
 `repro_torch/configs/<arch>.py` exports `CONFIG` (the published shape) and
-`smoke_config()` (the reduced variant the CPU tests run).
+`smoke_config()` (the reduced variant the CPU tests run).  `INPUT_SHAPES`
+are the JAX package's named input shapes (`launch/specs.py` reads them).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "InputShape", "INPUT_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +88,19 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -244,8 +244,11 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, void*
   switch (hd) {
     case 16: return (int)launch<16>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
     case 32: return (int)launch<32>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
+    case 48: return (int)launch<48>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
     case 64: return (int)launch<64>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
     case 128: return (int)launch<128>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
+    case 192: return (int)launch<192>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
+    case 256: return (int)launch<256>(q, k, v, o, B, H, KV, T_len, S_len, st, causal, window, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

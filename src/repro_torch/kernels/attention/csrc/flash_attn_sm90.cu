@@ -15,8 +15,8 @@
 // written once are 67 MB, 20 us at 3.35 TB/s.  The tensor cores bound it.
 //
 // Design.
-// - Work item: 128 query rows of one (head, batch) and the tiles of 128
-//   keys that its rows can see.  The grid is persistent, one block per SM;
+// - Work item: 128 query rows of one (head, batch) and the tiles of BK keys
+//   (128; 64 at hd 192 and 256, see Tile) that its rows can see.  The grid is persistent, one block per SM;
 //   block c takes items c, c + gridDim.x, ..., numbered so that under
 //   causal masking the q blocks that see the most keys come first and the
 //   short ones fill the tail.
@@ -24,7 +24,7 @@
 //   item; the third is the producer, whose one thread issues TMA loads and
 //   whose registers go to the consumers (setmaxnreg 24 / 240).
 // - The producer loads each q tile into its buffer and the k and v tiles
-//   into a ring of three stages, each under a "full" mbarrier that counts
+//   into a ring of stages (three; two at hd 256), each under a "full" mbarrier that counts
 //   the tile's bytes; it refills a buffer or stage once all eight consumer
 //   warps have arrived on its "empty" mbarrier.  The ring runs on across
 //   items, so the next item's k/v loads overlap this item's tail.
@@ -33,9 +33,9 @@
 //   copy, GQA reads kv head h/(H/KV), and rows past T or S are zero-filled
 //   by TMA, never read from the next head.
 // - Tiles sit in shared memory as TMA writes them: rows of hd bf16 cut into
-//   boxes of 64 columns (128 B, 128-B swizzle) or, for hd 32, one box of
-//   64 B (64-B swizzle).  The wgmma descriptors name the same swizzle.
-// - S = Q K^T: wgmma m64n128k16, both operands K-major in shared memory,
+//   boxes of 64 columns (128 B, 128-B swizzle; hd 192 is three boxes) or,
+//   for hd 32, one box of 64 B (64-B swizzle).  The wgmma descriptors name the same swizzle.
+// - S = Q K^T: wgmma m64n{BK}k16, both operands K-major in shared memory,
 //   f32 accumulator in registers.
 // - Softmax on the accumulator fragment: each thread holds two rows; row max
 //   and sum by shuffles within the quad that shares a row; exp2 with the
@@ -44,8 +44,9 @@
 //   tiles that straddle a boundary; a warpgroup skips the tiles none of its
 //   rows can see.
 // - O += P V: P rounded to bf16 in registers is the A operand of the
-//   register-sourced wgmma m64n{hd}k16; V is the B operand, MN-major in
-//   shared memory (transpose bit set).  The plain version rounds its
+//   register-sourced wgmma m64n{hd}k16 (above hd 128, two of them, over
+//   columns 0-127 and the rest); V is the B operand, MN-major in shared
+//   memory (transpose bit set).  The plain version rounds its
 //   probabilities to bf16 too (ref.py, `.to(v.dtype)`).
 // - Within a warpgroup the scores of tile i are issued beside the P V of
 //   tile i - 1, and the softmax of tile i runs while that P V finishes.
@@ -69,9 +70,9 @@
 namespace {
 
 constexpr int BQ = 128;                     // query rows per work item
-constexpr int BK = 128;                     // keys per k/v tile
-// k/v ring depth and q buffers: 3 and 1 fill shared memory at hd 128
-// (224 KB), and measured faster there than 2 and 2 (PERF.md)
+// k/v ring depth (but 2 at hd 256, see Tile) and q buffers: 3 and 1 fill
+// shared memory at hd 128 (224 KB), and measured faster there than 2 and 2
+// (PERF.md)
 constexpr int STAGES = 3;
 constexpr int QBUF = 1;
 constexpr int NCONSUMER = 256;              // two consumer warpgroups
@@ -80,16 +81,22 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of a block: the q buffers, a ring of k tiles and of v tiles,
 // and the mbarriers (full and empty per q buffer; full k, full v and empty
-// per stage).
+// per stage).  Keys per k/v tile and ring depth by head dim: 128 keys in
+// STAGES stages up to hd 128; 64 keys at hd 192 (STAGES stages) and 256 (2
+// stages), where 128-key tiles would need 337 and 449 KB of the 227 KB a
+// block may have, and a 128-key score fragment beside hd 256's accumulator
+// (128 registers a thread) would spill.  Both come to 193 KB.
 template <int HD>
 struct Tile {
+  static constexpr int BK = HD >= 192 ? 64 : 128;      // keys per k/v tile
+  static constexpr int RING = HD == 256 ? 2 : STAGES;  // k/v ring depth
   static constexpr int BOXW = HD < 64 ? HD : 64;      // columns per TMA box (one swizzle span)
   static constexpr int ROWB = BOXW * 2;               // bytes of a box row: 64 or 128
   static constexpr int NBOX = HD / BOXW;
   static constexpr int LAYOUT = ROWB == 128 ? 1 : 2;  // descriptor layout: 1 = 128-B swizzle, 2 = 64-B
   static constexpr int Q_BYTES = BQ * HD * 2;
   static constexpr int KV_BYTES = BK * HD * 2;
-  static constexpr int SMEM = 1024 + QBUF * Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (2 * QBUF + 3 * STAGES);
+  static constexpr int SMEM = 1024 + QBUF * Q_BYTES + 2 * RING * KV_BYTES + 8 * (2 * QBUF + 3 * RING);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -168,6 +175,37 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
 
 __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal, int window) {
   return kpos < S && (!causal || kpos <= qpos) && (window <= 0 || qpos - kpos < window);
+}
+
+// d(64x64, f32) = A(64x16) * B(64x16)^T, A and B K-major in smem; d is only
+// written, so nothing that defined it before counts as an input.
+__device__ __forceinline__ void wgmma_ss_zero(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// d(64x64, f32) += A(64x16) * B(64x16)^T, A and B K-major in smem.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // d(64x128, f32) = A(64x16) * B(128x16)^T, A and B K-major in smem; d is only
@@ -261,12 +299,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// The columns [OFF, OFF + N/2) of an accumulator fragment: the fragment of
+// columns [2 OFF, 2 OFF + N) of the tile, since each 8 columns are 4
+// registers a thread in column order.
+template <int OFF, int N, int M>
+__device__ __forceinline__ float (&columns(float (&a)[M]))[N] {
+  static_assert(OFF + N <= M, "columns past the fragment");
+  return *reinterpret_cast<float(*)[N]>(&a[OFF]);
+}
+
 // What one consumer warpgroup computes on one k/v tile of BK keys.  S and O
 // are accumulator fragments: thread (warp w, lane) of the warpgroup holds
 // rows 16 w + lane / 4 (+ 8) and columns 8 j + 2 (lane % 4) (+ 1).
 template <int HD>
 struct Consumer {
   using L = Tile<HD>;
+  static constexpr int BK = L::BK;
   uint32_t sQ;  // this warpgroup's 64 q rows
   int row0, col0, S_len, causal, window;
   float scale_log2;
@@ -289,12 +337,21 @@ struct Consumer {
 
   // O += P V over the tile at `v_tile`, V MN-major: k-steps of 16 keys
   // (rows); the next 64-column box of V is BK rows on (LBO), the next
-  // 8-row group 8 rows on (SBO).
+  // 8-row group 8 rows on (SBO).  Above hd 128 a k-step is two products,
+  // columns 0-127 (boxes 0 and 1) and the rest (box 2, or boxes 2 and 3),
+  // each into its own columns of the accumulator.
   __device__ __forceinline__ void pv(float (&acc)[HD / 2], const uint32_t (&p)[BK / 4], uint32_t v_tile) const {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3]};
-      wgmma_rs(acc, a, make_desc(v_tile + kk * 16 * L::ROWB, BK * L::ROWB, 8 * L::ROWB, L::LAYOUT));
+      const uint32_t rows = v_tile + kk * 16 * L::ROWB;
+      if constexpr (HD <= 128) {
+        wgmma_rs(acc, a, make_desc(rows, BK * L::ROWB, 8 * L::ROWB, L::LAYOUT));
+      } else {
+        wgmma_rs(columns<0, 64>(acc), a, make_desc(rows, BK * L::ROWB, 8 * L::ROWB, L::LAYOUT));
+        wgmma_rs(columns<64, HD / 2 - 64>(acc), a,
+                 make_desc(rows + 2 * BK * L::ROWB, BK * L::ROWB, 8 * L::ROWB, L::LAYOUT));
+      }
     }
   }
 
@@ -359,7 +416,8 @@ struct Consumer {
 struct Item {
   int h, b, q0, kt_begin, n_tiles;
 
-  __device__ __forceinline__ Item(int k, int H, int B, int nq, int T_len, int S_len, int causal, int window) {
+  __device__ __forceinline__ Item(int k, int H, int B, int nq, int T_len, int S_len, int causal, int window,
+                                  int BK) {
     const int bh = k % (H * B), rank = k / (H * B);
     h = bh % H;
     b = bh / H;
@@ -382,15 +440,16 @@ flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
                        int64_t o_b, int64_t o_t, int64_t o_h, int H, int B, int T_len, int S_len, int group,
                        int causal, int window, float scale_log2) {
   using L = Tile<HD>;
+  constexpr int BK = L::BK, RING = L::RING;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // buffer j at sQ + j * Q_BYTES
   const uint32_t sK = sQ + QBUF * L::Q_BYTES;        // stage s at sK + s * KV_BYTES
-  const uint32_t sV = sK + STAGES * L::KV_BYTES;     // stage s at sV + s * KV_BYTES
-  const uint32_t bar_q = sV + STAGES * L::KV_BYTES;  // buffer j at + 8 j: q tile landed
+  const uint32_t sV = sK + RING * L::KV_BYTES;     // stage s at sV + s * KV_BYTES
+  const uint32_t bar_q = sV + RING * L::KV_BYTES;  // buffer j at + 8 j: q tile landed
   const uint32_t bar_q_empty = bar_q + 8 * QBUF;     // every consumer warp is done with the q buffer
   const uint32_t bar_k = bar_q_empty + 8 * QBUF;     // stage s at + 8 s: k tile landed
-  const uint32_t bar_v = bar_k + 8 * STAGES;         // v tile landed
-  const uint32_t bar_empty = bar_v + 8 * STAGES;     // every consumer warp is done with the stage
+  const uint32_t bar_v = bar_k + 8 * RING;         // v tile landed
+  const uint32_t bar_empty = bar_v + 8 * RING;     // every consumer warp is done with the stage
 
   const int nq = (T_len + BQ - 1) / BQ;
   const int n_items = nq * H * B;
@@ -400,7 +459,7 @@ flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       mbar_init(bar_q + 8 * j, 1);
       mbar_init(bar_q_empty + 8 * j, NCONSUMER / 32);  // lane 0 of each consumer warp
     }
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < RING; ++s) {
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
       mbar_init(bar_empty + 8 * s, NCONSUMER / 32);
@@ -416,7 +475,7 @@ flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     if (tid == NCONSUMER) {
       int g = 0;  // k/v tiles loaded so far by this block
       for (int k = blockIdx.x, it = 0; k < n_items; k += gridDim.x, ++it) {
-        const Item w(k, H, B, nq, T_len, S_len, causal, window);
+        const Item w(k, H, B, nq, T_len, S_len, causal, window, BK);
         const int j = it % QBUF;
         if (it >= QBUF) mbar_wait(bar_q_empty + 8 * j, ((it / QBUF) - 1) & 1);
         mbar_expect_tx(bar_q + 8 * j, L::Q_BYTES);
@@ -424,8 +483,8 @@ flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
           tma_load_4d(sQ + j * L::Q_BYTES + c * BQ * L::ROWB, &tm_q, bar_q + 8 * j, c * L::BOXW, w.h, w.q0, w.b);
         const int kvh = w.h / group;
         for (int i = 0; i < w.n_tiles; ++i, ++g) {
-          const int s = g % STAGES;
-          if (g >= STAGES) mbar_wait(bar_empty + 8 * s, ((g / STAGES) - 1) & 1);
+          const int s = g % RING;
+          if (g >= RING) mbar_wait(bar_empty + 8 * s, ((g / RING) - 1) & 1);
           const int k0 = (w.kt_begin + i) * BK;
           mbar_expect_tx(bar_k + 8 * s, L::KV_BYTES);
           for (int c = 0; c < L::NBOX; ++c)
@@ -448,7 +507,7 @@ flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
     };
     int g = 0;  // k/v tiles consumed so far by this block
     for (int k = blockIdx.x, it = 0; k < n_items; k += gridDim.x, ++it) {
-      const Item w(k, H, B, nq, T_len, S_len, causal, window);
+      const Item w(k, H, B, nq, T_len, S_len, causal, window, BK);
       const int j = it % QBUF;
       // warpgroup wg owns rows r_lo .. r_hi (at most 64) of the item
       const int r_lo = w.q0 + 64 * wg;
@@ -468,11 +527,11 @@ flash_attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_co
       auto need_mask = [&](int k0) {
         return (causal && k0 + BK - 1 > r_lo) || (window > 0 && r_hi - k0 >= window) || k0 + BK > S_len;
       };
-      auto k_tile = [&](int i) { return sK + ((g + i) % STAGES) * L::KV_BYTES; };
-      auto v_tile = [&](int i) { return sV + ((g + i) % STAGES) * L::KV_BYTES; };
-      auto wait_k = [&](int i) { mbar_wait(bar_k + 8 * ((g + i) % STAGES), parity(g + i, STAGES)); };
-      auto wait_v = [&](int i) { mbar_wait(bar_v + 8 * ((g + i) % STAGES), parity(g + i, STAGES)); };
-      auto release = [&](int i) { arrive(bar_empty + 8 * ((g + i) % STAGES)); };
+      auto k_tile = [&](int i) { return sK + ((g + i) % RING) * L::KV_BYTES; };
+      auto v_tile = [&](int i) { return sV + ((g + i) % RING) * L::KV_BYTES; };
+      auto wait_k = [&](int i) { mbar_wait(bar_k + 8 * ((g + i) % RING), parity(g + i, RING)); };
+      auto wait_v = [&](int i) { mbar_wait(bar_v + 8 * ((g + i) % RING), parity(g + i, RING)); };
+      auto release = [&](int i) { arrive(bar_empty + 8 * ((g + i) % RING)); };
 
       float acc[HD / 2];
 #pragma unroll
@@ -604,8 +663,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H, i
   int err;
   // st in elements: q (b, t, h), k (b, s, h), v (b, s, h), o (b, t, h)
   if ((err = encode(fn, &tq, q, HD, H, T_len, B, 2 * st[2], 2 * st[1], 2 * st[0], L::BOXW, BQ))) return err;
-  if ((err = encode(fn, &tk, k, HD, KV, S_len, B, 2 * st[5], 2 * st[4], 2 * st[3], L::BOXW, BK))) return err;
-  if ((err = encode(fn, &tv, v, HD, KV, S_len, B, 2 * st[8], 2 * st[7], 2 * st[6], L::BOXW, BK))) return err;
+  if ((err = encode(fn, &tk, k, HD, KV, S_len, B, 2 * st[5], 2 * st[4], 2 * st[3], L::BOXW, L::BK))) return err;
+  if ((err = encode(fn, &tv, v, HD, KV, S_len, B, 2 * st[8], 2 * st[7], 2 * st[6], L::BOXW, L::BK))) return err;
   auto kernel = flash_attn_sm90_kernel<HD>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (e != cudaSuccess) return (int)e;
@@ -636,6 +695,8 @@ extern "C" int flash_attn_sm90_fwd(const void* q, const void* k, const void* v, 
     case 32: return launch<32>(q, k, v, o, B, H, KV, T_len, S_len, strides, causal, window, sm_scale, s);
     case 64: return launch<64>(q, k, v, o, B, H, KV, T_len, S_len, strides, causal, window, sm_scale, s);
     case 128: return launch<128>(q, k, v, o, B, H, KV, T_len, S_len, strides, causal, window, sm_scale, s);
+    case 192: return launch<192>(q, k, v, o, B, H, KV, T_len, S_len, strides, causal, window, sm_scale, s);
+    case 256: return launch<256>(q, k, v, o, B, H, KV, T_len, S_len, strides, causal, window, sm_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

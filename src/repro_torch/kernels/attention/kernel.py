@@ -27,9 +27,10 @@ from repro_torch.kernels import _build
 
 # dtype -> the CUDA source (and library) that computes it
 ROUTES = {torch.float32: "flash_attn", torch.bfloat16: "flash_attn_sm90"}
-# route -> the head dims it is instantiated for; the f32 route also takes 16,
-# the head dim of the MoE archs' smoke configs
-ROUTE_HEAD_DIMS = {"flash_attn": (16, 32, 64, 128), "flash_attn_sm90": (32, 64, 128)}
+# route -> the head dims it is instantiated for: 192 is nemotron-4-340b's and
+# 256 paligemma-3b's; the f32 route also takes 16 and 48, the head dims of
+# the MoE archs' and nemotron-4-340b's smoke configs
+ROUTE_HEAD_DIMS = {"flash_attn": (16, 32, 48, 64, 128, 192, 256), "flash_attn_sm90": (32, 64, 128, 192, 256)}
 # TMA reads a tile from a base address, and through strides, that are
 # multiples of 16 bytes; a stride must also be below 2^40 bytes.
 TMA_ALIGN = 16

@@ -8,13 +8,16 @@ The port of `examples/serve_decode.py`, on the card by default:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 1024
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b --batch 4 --prompt-len 2048 --window 1024
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b --smoke --device cpu --prompt-len 112
 
 Weights are random, drawn on the device from `--seed`; prompts from
-`--seed + 1`.  For the attention families (llama3.2-3b, qwen1.5-0.5b, the
-MoE archs and hymba-1.5b's attention heads), prompt lengths that are a
-multiple of 128 run every prefill layer's attention through the
-flash-attention kernel; for rwkv6-3b every prefill layer of more than one
-token runs its wkv scan through the wkv6 kernel, and decode steps the
+`--seed + 1`.  vlm's patches and encdec's frames are the frontend stubs,
+zeros as the JAX package's example feeds them (`specs.stub_inputs`).  For
+the attention families, every prefill layer's causal self-attention over a
+multiple of 128 positions (vlm: patches and prompt) runs through the
+flash-attention kernel; encdec's encoder and cross-attention take the plain
+path, as in the JAX package.  For rwkv6-3b every prefill layer of more than
+one token runs its wkv scan through the wkv6 kernel, and decode steps the
 recurrent state.
 """
 
@@ -29,6 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import convert
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config, list_archs
+from repro_torch.launch.specs import stub_inputs
 from repro_torch.models import Model, build_model
 
 
@@ -68,21 +72,31 @@ def _grow_kv_cache(model: Model, cache: dict, batch: int, total: int, window: in
 
 @torch.inference_mode()
 def generate(model: Model, params: dict, prompts: torch.Tensor, new_tokens: int,
-             *, window: int = 0) -> ServeResult:
+             *, window: int = 0, patches: torch.Tensor | None = None,
+             frames: torch.Tensor | None = None) -> ServeResult:
     """Prefill `prompts` (B, T), then take new_tokens - 1 greedy decode steps.
 
-    A KV cache (dense, moe, hybrid) is copied into a cache preallocated for
-    all T + new_tokens positions (or the ring of `window` slots), which the
-    decode steps then update in place; hybrid's SSM state goes through as
-    it is.  The ssm family's prefill state is its decode cache as it is,
-    and `window` has no effect on it, as in the JAX package.  argmax takes the first of equal maxima, as jnp.argmax does."""
+    A KV cache (dense, moe, hybrid, vlm, encdec) is copied into a cache
+    preallocated for all P + T + new_tokens positions (P the vlm patches
+    put before the prompt, else 0; or the ring of `window` slots), which
+    the decode steps then update in place, step i at position P + T + i;
+    hybrid's SSM state goes through as it is.  encdec's frames are encoded
+    once, and that memory serves the prefill and every decode step.  The
+    ssm family's prefill state is its decode cache as it is, and `window`
+    has no effect on it, as in the JAX package.  argmax takes the first of
+    equal maxima, as jnp.argmax does."""
     dev = model.device
     b, t = prompts.shape
+    batch = {"tokens": prompts}
+    if patches is not None:
+        batch["patches"] = patches
+    n_prefix = patches.shape[1] if patches is not None and model.cfg.family == "vlm" else 0
 
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts}, window=window)
+    enc_out = model.encode(params, frames.to(dev)) if frames is not None and model.cfg.family == "encdec" else None
+    logits, cache = model.prefill(params, batch, window=window, enc_out=enc_out)
     if model.cfg.family != "ssm":
-        cache = _grow_kv_cache(model, cache, b, t + new_tokens, window)
+        cache = _grow_kv_cache(model, cache, b, n_prefix + t + new_tokens, window)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -90,7 +104,8 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, new_tokens: int,
     generated = [token]
     t0 = time.perf_counter()
     for i in range(new_tokens - 1):
-        step_logits, cache = model.decode_step(params, token, cache, t + i, window=window)
+        step_logits, cache = model.decode_step(params, token, cache, n_prefix + t + i, window=window,
+                                               enc_out=enc_out)
         token = torch.argmax(step_logits, dim=-1)[:, None]
         generated.append(token)
     _sync(dev)
@@ -99,12 +114,14 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, new_tokens: int,
 
 
 def serve(cfg: ModelConfig, *, batch: int, prompt_len: int, new_tokens: int, window: int = 0,
-          seed: int = 0, device="cuda") -> ServeResult:
-    """Build the model, draw weights from `seed` and prompts from `seed + 1`, and generate."""
+          seed: int = 0, device="cuda", patches: torch.Tensor | None = None,
+          frames: torch.Tensor | None = None) -> ServeResult:
+    """Build the model, draw weights from `seed` and prompts from `seed + 1`,
+    and generate (with vlm's `patches` or encdec's `frames`, if given)."""
     model = build_model(cfg, device)
     params = convert.init(cfg, _generator(seed, model.device), model.device)
     prompts = random_prompts(cfg, batch, prompt_len, seed + 1, model.device)
-    return generate(model, params, prompts, new_tokens, window=window)
+    return generate(model, params, prompts, new_tokens, window=window, patches=patches, frames=frames)
 
 
 def main(argv=None):
@@ -122,7 +139,8 @@ def main(argv=None):
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len, new_tokens=args.new_tokens,
-                window=args.window, seed=args.seed, device=args.device)
+                window=args.window, seed=args.seed, device=args.device,
+                **stub_inputs(cfg, args.batch, resolve_device(args.device)))
     b, steps = args.batch, args.new_tokens - 1
     print(f"prefill {b}x{args.prompt_len}: {res.prefill_s:.2f}s")
     print(f"decoded {steps} steps x batch {b} in {res.decode_s:.2f}s "

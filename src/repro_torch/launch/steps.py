@@ -36,11 +36,14 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import aggregation, execmode
+from repro_torch.launch.specs import window_for
 from repro_torch.models.model import Model, build_model
 from repro_torch.optim.optimizers import Optimizer
 
-__all__ = ["TrainState", "init_train_state", "per_row_loss_fn", "make_train_step"]
+__all__ = ["TrainState", "init_train_state", "per_row_loss_fn", "make_train_step", "make_prefill_step",
+           "make_decode_step"]
 
 
 class TrainState(NamedTuple):
@@ -252,3 +255,26 @@ def make_train_step(
         return new_state, out_metrics
 
     return train_step
+
+
+def make_prefill_step(model: Model, cfg: ModelConfig, shape: InputShape):
+    """``prefill_step(params, batch)``: the model's prefill at the input
+    shape's attention window (`specs.window_for`)."""
+    w = window_for(cfg, shape)
+
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, window=w)
+
+    return prefill_step
+
+
+def make_decode_step(model: Model, cfg: ModelConfig, shape: InputShape):
+    """``decode_step(params, token, cache, pos, **extras)``: one decode step
+    at the input shape's attention window; ``extras`` are encdec's
+    ``enc_out`` or ``frames``."""
+    w = window_for(cfg, shape)
+
+    def decode_step(params, token, cache, pos, **extras):
+        return model.decode_step(params, token, cache, pos, window=w, **extras)
+
+    return decode_step

@@ -7,7 +7,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-1b-a400m --batch 8 --seq 512
 
 Every registered arch trains: dense, moe (each row's loss carries the
-router's load-balance term, as in the JAX package), ssm and hybrid.
+router's load-balance term, as in the JAX package), ssm, hybrid, vlm and
+encdec (fed zero patches or frames of the reference CLI's shapes,
+`specs.stub_inputs`; the async modes refuse them, as the reference's do).
 
 Each step is `launch.steps.make_train_step`: the same per-mode builders the
 simulation engines run, around the model's loss, so ``--mode kasync`` and
@@ -41,6 +43,7 @@ from repro_torch.core.controller import get_controller
 from repro_torch.core.straggler import get_straggler_model
 from repro_torch.data import TokenStream
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.specs import stub_inputs
 from repro_torch.models import build_model
 from repro_torch.optim import get_optimizer
 
@@ -156,11 +159,12 @@ def main(argv=None):
             start = latest
             print(f"restored step {latest} from {args.ckpt_dir}")
 
+    stubs = stub_inputs(cfg, args.batch, dev)
     t0 = time.time()
     for step in range(start, args.steps):
         tokens, targets = data.batch_at(step)
         key, sub = prng.split(key).unbind(0)
-        state, metrics = train_step(state, {"tokens": tokens, "targets": targets}, sub)
+        state, metrics = train_step(state, {"tokens": tokens, "targets": targets, **stubs}, sub)
         if step % args.log_every == 0 or step == args.steps - 1:
             print(json.dumps({
                 "step": step,

@@ -1,7 +1,7 @@
 """Shared layers of the port: norms, RoPE, GQA attention (prefill and
-KV-cache decode), MLP variants, embeddings.
+KV-cache decode, self- and cross-attention), MLP variants, embeddings.
 
-A port of `repro/models/layers.py` for the dense serving path.  Functions
+A port of `repro/models/layers.py`.  Functions
 are pure over plain dicts of tensors whose leaf names and layouts are the
 JAX package's: activations (B, T, H, hd), `wq` (d, h, hd), `wo` (h, hd, d).
 The JAX package's sharding hints (`constrain`, `constrain_alt`) are no-ops
@@ -99,10 +99,13 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple =
     return p
 
 
-def _qkv(params, cfg: ModelConfig, x: torch.Tensor):
+def _qkv(params, cfg: ModelConfig, x: torch.Tensor, kv_x: torch.Tensor | None = None):
+    """Project to q, k, v.  kv_x (if given) is the cross-attention memory
+    that k and v are projected from."""
+    src = x if kv_x is None else kv_x
     q = torch.einsum("btd,dhk->bthk", x, params["wq"])
-    k = torch.einsum("bsd,dnk->bsnk", x, params["wk"])
-    v = torch.einsum("bsd,dnk->bsnk", x, params["wv"])
+    k = torch.einsum("bsd,dnk->bsnk", src, params["wk"])
+    v = torch.einsum("bsd,dnk->bsnk", src, params["wv"])
     if "bq" in params:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
@@ -167,17 +170,22 @@ def attention_full(
     *,
     causal: bool = True,
     window: int = 0,
+    kv_x: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
     return_kv: bool = False,
 ):
-    """Full-sequence self-attention (prefill).  Prompts whose length is a
-    multiple of 128 go through the flash-attention kernel when
-    `cfg.use_kernels`, as the JAX package's `use_pallas` path does."""
-    q, k, v = _qkv(params, cfg, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    if cfg.use_kernels and causal and x.shape[1] % 128 == 0:
+    """Full-sequence attention: training, prefill, the bidirectional encoder
+    (``causal=False``) and cross-attention over the memory ``kv_x`` (no RoPE,
+    no mask).  Causal self-attention over a multiple of 128 positions goes
+    through the flash-attention kernel when `cfg.use_kernels`, as the JAX
+    package's `use_pallas` path does; the rest takes the plain path."""
+    q, k, v = _qkv(params, cfg, x, kv_x)
+    if kv_x is None:  # self-attention: RoPE on both sides
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions if kv_positions is None else kv_positions, cfg.rope_theta)
+    if cfg.use_kernels and kv_x is None and causal and x.shape[1] % 128 == 0:
         out = attn_ops.flash_attention(q, k, v, causal=True, window=window)
-    elif cfg.attention_impl == "blocked" and x.shape[1] > 1:
+    elif cfg.attention_impl == "blocked" and kv_x is None and x.shape[1] > 1:
         raise NotImplementedError("attention_impl='blocked' (_sdpa_blocked) is not yet ported; see ROADMAP.md")
     else:
         mask = causal_window_mask(x.shape[1], k.shape[1], 0, window, x.device) if causal else None
@@ -197,6 +205,7 @@ def attention_decode(
     pos: int,  # number of tokens already in the cache
     *,
     window: int = 0,
+    kv_x: torch.Tensor | None = None,
 ):
     """Single-token decode against a KV cache.
 
@@ -206,7 +215,11 @@ def attention_decode(
     k, v into `cache_k`, `cache_v` in place (saving a copy of the cache per
     layer and step) and returns them.  A slot past the cache's end raises,
     where jax.lax.dynamic_update_slice would clamp it to the last slot.
+    With ``kv_x`` (cross-attention over a static memory) the token attends to
+    the memory and the cache is returned untouched.
     """
+    if kv_x is not None:
+        return _cross_decode(params, cfg, x, kv_x), cache_k, cache_v
     pos = int(pos)
     q, k, v = _qkv(params, cfg, x)
     posv = torch.tensor([pos], device=x.device)
@@ -230,6 +243,14 @@ def attention_decode(
     y = _sdpa(cfg, q, cache_k, cache_v, mask)
     y = torch.einsum("bthk,hkd->btd", y, params["wo"])
     return y, cache_k, cache_v
+
+
+def _cross_decode(params, cfg: ModelConfig, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    """One token's cross-attention over the whole memory: k and v are
+    projected from it on every call, as the JAX package does."""
+    q, k, v = _qkv(params, cfg, x, memory)
+    out = _sdpa(cfg, q, k, v, None)
+    return torch.einsum("bthk,hkd->btd", out, params["wo"])
 
 
 # ----------------------------------------------------------------------------

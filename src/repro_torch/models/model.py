@@ -1,14 +1,20 @@
 """Top-level model API of the port: build_model(cfg, device) ->
-Model(init, loss_fn, prefill, decode_step, init_cache).
+Model(init, loss_fn, prefill, decode_step, init_cache, encode).
 
-A port of `repro/models/model.py::build_model` for the families in
-`transformer.PORTED_FAMILIES` (dense, moe, ssm and hybrid).  Parameters come from
-`init` (random, on the card) or `repro_torch.checkpoint.params_from_jax`.
+A port of `repro/models/model.py::build_model` for every family
+(`transformer.PORTED_FAMILIES`).  Parameters come from `init` (random, on
+the card) or `repro_torch.checkpoint.params_from_jax`.
 
-Batch contract, as in the JAX package:
+Batch contract, as in the JAX package (`launch/specs.py` gives the shapes):
   train:   {tokens (B,T) int, targets (B,T) int}
-  prefill: {tokens (B,T) int}
-  decode:  token (B,1) int, cache, pos (int) = number of tokens already cached
+           + vlm:    patches (B,P,D): stub frontend embeddings, put before
+                     the tokens; the loss is over the token positions
+           + encdec: frames (B,F,D): stub frontend embeddings, encoded into
+                     the memory the decoder's cross-attention reads
+  prefill: {tokens (B,T) int} (+ patches / frames)
+  decode:  token (B,1) int, cache, pos (int) = number of positions already
+           cached (for vlm the P patches count); for encdec the memory as
+           enc_out (`encode(params, frames)`, once per request) or frames
 
 `loss_fn` returns per-batch-row losses (B,): the fastest-k aggregation
 turns them into the masked weighted mean of eq. (2), so the model never
@@ -39,6 +45,7 @@ class Model(NamedTuple):
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
+    encode: Callable
 
 
 def _masked_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -87,10 +94,12 @@ def _ce_per_row_chunked(params, cfg: ModelConfig, x: torch.Tensor, targets: torc
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """Raises if `device` names CUDA and there is no card, or the family is
-    not ported.  `device` is where `init`, `prefill` and `init_cache` put
+    unknown.  `device` is where `init`, `prefill` and `init_cache` put
     their tensors; `loss_fn` runs on its inputs' device."""
     dev = resolve_device(device)
     transformer.check_family(cfg)
+    is_encdec, is_vlm = cfg.family == "encdec", cfg.family == "vlm"
+    enc_cfg = cfg.replace(family="dense")
 
     def init(generator: torch.Generator):
         """Random parameters on the model's device (`convert.init`)."""
@@ -98,14 +107,41 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
 
         return convert.init(cfg, generator, dev)
 
+    def encode(params, frames: torch.Tensor) -> torch.Tensor:
+        """The bidirectional encoder over stub frame embeddings (B, F, D):
+        a dense stack of `cfg.encoder_layers`, then `enc_norm`.  Runs where
+        ``frames`` lie."""
+        x = frames.to(layers._dtype(cfg.compute_dtype))
+        pos = torch.arange(x.shape[1], device=x.device)
+        x, _ = transformer.run_stack_full(params["encoder"], enc_cfg, x, pos, causal=False,
+                                          n_layers=cfg.encoder_layers)
+        return layers.rmsnorm(params["enc_norm"], x)
+
+    def prefix_embed(params, batch, device, enc_out=None):
+        """Embed the tokens, put vlm's patches before them, and encode
+        encdec's frames unless ``enc_out`` is given.  Returns (x, enc_out or
+        None, number of patches)."""
+        x = layers.embed(params, cfg, batch["tokens"].to(device))
+        n_prefix = 0
+        if is_vlm and "patches" in batch:
+            patches = batch["patches"].to(device=device, dtype=x.dtype)
+            x = torch.cat([patches, x], dim=1)
+            n_prefix = patches.shape[1]
+        if is_encdec and enc_out is None and "frames" in batch:
+            enc_out = encode(params, batch["frames"].to(device))
+        return x, enc_out, n_prefix
+
     def loss_fn(params, batch):
         """(per-row losses (B,) f32, {"ce": the mean CE, "moe_aux": the
         layers' summed load-balance loss}).  For moe every row also carries
         router_aux_weight * aux / B, as in the JAX package."""
-        x = layers.embed(params, cfg, batch["tokens"])
+        x, enc_out, n_prefix = prefix_embed(params, batch, batch["tokens"].device)
         pos = torch.arange(x.shape[1], device=x.device)
-        x, aux = transformer.run_stack_full(params["layers"], cfg, x, pos, window=cfg.sliding_window)
+        x, aux = transformer.run_stack_full(params["layers"], cfg, x, pos, window=cfg.sliding_window,
+                                            enc_out=enc_out)
         x = layers.rmsnorm(params["final_norm"], x)
+        if n_prefix:
+            x = x[:, n_prefix:]
         per_row = _ce_per_row_chunked(params, cfg, x, batch["targets"])
         metrics = {"ce": per_row.mean(), "moe_aux": aux}
         if cfg.family == "moe":
@@ -113,23 +149,30 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         return per_row, metrics
 
     @torch.inference_mode()
-    def prefill(params, batch, *, window: Optional[int] = None):
-        """Returns (last-position logits (B, Vpad) f32, cache)."""
+    def prefill(params, batch, *, window: Optional[int] = None, enc_out: Optional[torch.Tensor] = None):
+        """Returns (last-position logits (B, Vpad) f32, cache).  vlm's
+        cache holds the patches' positions before the tokens'.  encdec reads
+        its memory from ``enc_out`` when the caller has encoded the frames
+        (as serving does, once for prefill and every decode step), else
+        from ``batch["frames"]``."""
         w = cfg.sliding_window if window is None else window
-        tokens = batch["tokens"].to(dev)
-        x = layers.embed(params, cfg, tokens)
+        x, enc_out, _ = prefix_embed(params, batch, dev, enc_out)
         pos = torch.arange(x.shape[1], device=dev)
-        x, cache = transformer.run_stack_prefill(params["layers"], cfg, x, pos, window=w)
+        x, cache = transformer.run_stack_prefill(params["layers"], cfg, x, pos, window=w, enc_out=enc_out)
         x = layers.rmsnorm(params["final_norm"], x)
         lg = layers.logits(params, cfg, x[:, -1:])
         return lg[:, 0], cache
 
     @torch.inference_mode()
-    def decode_step(params, token, cache, pos: int, *, window: int = 0):
+    def decode_step(params, token, cache, pos: int, *, window: int = 0, enc_out: Optional[torch.Tensor] = None,
+                    frames: Optional[torch.Tensor] = None):
         """One token: token (B,1) int.  Returns (logits (B, Vpad) f32, cache),
-        the cache updated in place."""
+        the cache updated in place.  encdec reads its memory from
+        ``enc_out``, or encodes ``frames`` when ``enc_out`` is not given."""
+        if is_encdec and enc_out is None and frames is not None:
+            enc_out = encode(params, frames.to(dev))
         x = layers.embed(params, cfg, token.to(dev))
-        x, cache = transformer.run_stack_decode(params["layers"], cache, cfg, x, pos, window=window)
+        x, cache = transformer.run_stack_decode(params["layers"], cache, cfg, x, pos, window=window, enc_out=enc_out)
         x = layers.rmsnorm(params["final_norm"], x)
         lg = layers.logits(params, cfg, x)
         return lg[:, 0], cache
@@ -138,4 +181,4 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         return transformer.init_cache(cfg, batch, cache_len, window, device=dev)
 
     return Model(cfg=cfg, device=dev, init=init, loss_fn=loss_fn, prefill=prefill, decode_step=decode_step,
-                 init_cache=init_cache)
+                 init_cache=init_cache, encode=encode)

@@ -1,19 +1,22 @@
 """Layer stacks: the training forward, prefill, and decode against a cache.
 
-A port of the dense, moe, ssm and hybrid parts of
-`repro/models/transformer.py`:
+A port of `repro/models/transformer.py`:
 
-  dense / moe : [RMSNorm -> GQA attention] + [RMSNorm -> MLP | MoE],
-                KV-cache decode
-  ssm         : [RMSNorm -> time-mix] + [RMSNorm -> channel-mix] (RWKV-6),
-                decode against the recurrent state
-  hybrid      : [RMSNorm -> parallel attention + SSM mix] + [RMSNorm -> MLP]
-                (Hymba), decode against the KV cache and the SSM state
+  dense / moe / vlm : [RMSNorm -> GQA attention] + [RMSNorm -> MLP | MoE],
+                      KV-cache decode
+  encdec (decoder)  : adds [RMSNorm -> cross-attention] over the encoder's
+                      memory between the two (the encoder is a dense stack
+                      run with causal=False)
+  ssm               : [RMSNorm -> time-mix] + [RMSNorm -> channel-mix]
+                      (RWKV-6), decode against the recurrent state
+  hybrid            : [RMSNorm -> parallel attention + SSM mix] + [RMSNorm
+                      -> MLP] (Hymba), decode against the KV cache and the
+                      SSM state
 
 Layer parameters stay stacked over a leading L axis, as in the JAX package,
 and the layers run as a Python loop (there is no scan): over views `a[i]`
 when serving, over `unbind` when training, whose backward writes each
-stacked gradient once.  encdec and vlm raise.
+stacked gradient once.
 """
 
 from __future__ import annotations
@@ -27,13 +30,13 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, layers, moe, rwkv
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet."""
+    """Raise for a family that is none of the JAX package's six."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} is not yet ported; see ROADMAP.md")
+        raise ValueError(f"unknown family {cfg.family!r}; options {PORTED_FAMILIES}")
 
 
 def layer_params(stacked: dict, i: int) -> dict:
@@ -41,8 +44,10 @@ def layer_params(stacked: dict, i: int) -> dict:
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
 
 
-def init_layer_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int, device) -> dict:
-    """Stacked (L, ...) parameters of n_layers blocks."""
+def init_layer_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int, device, cross: bool = False) -> dict:
+    """Stacked (L, ...) parameters of n_layers blocks; with ``cross`` each
+    block also has a cross-attention (``ln_x``, ``xattn``), as encdec's
+    decoder does."""
     check_family(cfg)
     lead = (n_layers,)
     if cfg.family == "ssm":
@@ -68,6 +73,9 @@ def init_layer_stack(gen: torch.Generator, cfg: ModelConfig, n_layers: int, devi
         p["moe"] = moe.moe_init(gen, cfg, device, lead)
     else:
         p["mlp"] = layers.mlp_init(gen, cfg, device, lead)
+    if cross:
+        p["ln_x"] = layers.rmsnorm_init(cfg, device, lead)
+        p["xattn"] = layers.attention_init(gen, cfg, device, lead)
     return p
 
 
@@ -98,11 +106,14 @@ def ffn_input(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *, window: int,
-               capture_cache: bool = False):
+               causal: bool = True, enc_out: torch.Tensor | None = None, capture_cache: bool = False):
     """One layer over the whole sequence.  Returns (x_out, aux, cache_l):
     aux the MoE load-balance loss (f32), None for other families; cache_l
     with ``capture_cache`` the per-layer decode cache, whose leaves are
-    init_cache's without the L axis, else None (the training forward)."""
+    init_cache's without the L axis, else None (the training forward).
+    ``causal=False`` is the encoder's bidirectional attention; with
+    ``enc_out`` a block that has ``xattn`` attends to that memory after its
+    self-attention."""
     if cfg.family == "ssm":
         h = layers.rmsnorm(p["ln1"], x)
         y, x_att, s = rwkv.time_mix(p["tmix"], cfg, h)
@@ -116,8 +127,11 @@ def block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
         y, cache_l["ssm"], (k, v) = hybrid.hymba_mix_full(p["mix"], cfg, h, positions, window=window,
                                                          return_kv=True)
     else:
-        y, (k, v) = layers.attention_full(attn, cfg, h, positions, causal=True, window=window, return_kv=True)
+        y, (k, v) = layers.attention_full(attn, cfg, h, positions, causal=causal, window=window, return_kv=True)
     x = x + y
+    if enc_out is not None and "xattn" in p:
+        x = x + layers.attention_full(p["xattn"], cfg, layers.rmsnorm(p["ln_x"], x), positions, causal=False,
+                                      kv_x=enc_out)
     h = ffn_input(p, x)
     if cfg.family == "moe":
         y, aux = moe.moe_layer(p["moe"], cfg, h)
@@ -141,11 +155,13 @@ def checkpointed(fn: Callable, *args):
 
 
 def run_stack_full(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
-                   window: int = 0):
-    """The training forward through the layer stack (causal, no decode
-    cache).  Returns (x, aux_sum): the layers' MoE load-balance losses
-    summed in f32 (zero for other families).  With ``cfg.remat`` and grad
-    mode on, each block is recomputed in the backward pass (`checkpointed`)."""
+                   window: int = 0, causal: bool = True, enc_out: torch.Tensor | None = None,
+                   n_layers: int | None = None):
+    """The forward through the layer stack with no decode cache: training,
+    and the encoder (``causal=False``, ``n_layers=cfg.encoder_layers``).
+    Returns (x, aux_sum): the layers' MoE load-balance losses summed in f32
+    (zero for other families).  With ``cfg.remat`` and grad mode on, each
+    block is recomputed in the backward pass (`checkpointed`)."""
     check_family(cfg)
     if cfg.remat and cfg.remat_policy == "dots":
         raise NotImplementedError("remat_policy='dots' (save the matmul outputs) is not yet ported; see "
@@ -153,11 +169,12 @@ def run_stack_full(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: 
     remat = cfg.remat and torch.is_grad_enabled()
 
     def body(x, p):
-        return block_full(p, cfg, x, positions, window=window)[:2]
+        return block_full(p, cfg, x, positions, window=window, causal=causal, enc_out=enc_out)[:2]
 
+    n_layers = cfg.n_layers if n_layers is None else n_layers
     leaves, spec = tree_flatten(stacked)
     unbound = [a.unbind(0) for a in leaves]
-    per_layer = [tree_unflatten([u[i] for u in unbound], spec) for i in range(cfg.n_layers)]
+    per_layer = [tree_unflatten([u[i] for u in unbound], spec) for i in range(n_layers)]
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in per_layer:
         x, aux = checkpointed(body, x, p) if remat else body(x, p)
@@ -167,7 +184,7 @@ def run_stack_full(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: 
 
 
 def run_stack_prefill(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                      *, window: int = 0):
+                      *, window: int = 0, enc_out: torch.Tensor | None = None):
     """Prefill: full-sequence forward that also captures the decode cache.
     Returns (x, cache) with cache leaves stacked over layers: k, v (L, B, S,
     KV, hd) for dense and moe, and for hybrid with ssm (L, B, H, N, hd) f32;
@@ -176,7 +193,7 @@ def run_stack_prefill(stacked: dict, cfg: ModelConfig, x: torch.Tensor, position
     check_family(cfg)
     cache = None
     for i in range(cfg.n_layers):
-        x, _, cache_l = block_full(layer_params(stacked, i), cfg, x, positions, window=window,
+        x, _, cache_l = block_full(layer_params(stacked, i), cfg, x, positions, window=window, enc_out=enc_out,
                                     capture_cache=True)
         if cache is None:
             cache = {kk: a.new_empty((cfg.n_layers,) + tuple(a.shape)) for kk, a in cache_l.items()}
@@ -186,9 +203,10 @@ def run_stack_prefill(stacked: dict, cfg: ModelConfig, x: torch.Tensor, position
 
 
 def _block_decode(p: dict, cache_l: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
-                  pos: int, *, window: int):
+                  pos: int, *, window: int, enc_out: torch.Tensor | None = None):
     """One layer of single-token decode; updates cache_l's leaves in place
-    (views of the stacked cache), where the JAX package returns new ones."""
+    (views of the stacked cache), where the JAX package returns new ones.
+    With ``enc_out`` a block that has ``xattn`` attends to that memory."""
     if cfg.family == "ssm":
         y, xp, s = rwkv.time_mix(
             p["tmix"], cfg, layers.rmsnorm(p["ln1"], x), cache_l["x_att"], cache_l["s"]
@@ -212,6 +230,9 @@ def _block_decode(p: dict, cache_l: Dict[str, torch.Tensor], cfg: ModelConfig, x
         p["attn"], cfg, h, cache_l["k"], cache_l["v"], pos, window=window
     )
     x = x + y
+    if enc_out is not None and "xattn" in p:
+        x = x + layers.attention_decode(p["xattn"], cfg, layers.rmsnorm(p["ln_x"], x), cache_l["k"], cache_l["v"],
+                                        pos, kv_x=enc_out)[0]
     h = layers.rmsnorm(p["ln2"], x)
     if cfg.family == "moe":
         return x + moe.moe_layer(p["moe"], cfg, h)[0]
@@ -219,7 +240,7 @@ def _block_decode(p: dict, cache_l: Dict[str, torch.Tensor], cfg: ModelConfig, x
 
 
 def run_stack_decode(stacked: dict, cache: Dict[str, torch.Tensor], cfg: ModelConfig,
-                     x: torch.Tensor, pos: int, *, window: int = 0):
+                     x: torch.Tensor, pos: int, *, window: int = 0, enc_out: torch.Tensor | None = None):
     """Single-token decode through the stack.  Returns (x, cache): the
     stacked cache (KV for dense and moe, KV and SSM state for hybrid,
     token-shift carries and wkv state for ssm) is updated in place and
@@ -227,7 +248,7 @@ def run_stack_decode(stacked: dict, cache: Dict[str, torch.Tensor], cfg: ModelCo
     check_family(cfg)
     for i in range(cfg.n_layers):
         cache_l = {kk: a[i] for kk, a in cache.items()}
-        x = _block_decode(layer_params(stacked, i), cache_l, cfg, x, pos, window=window)
+        x = _block_decode(layer_params(stacked, i), cache_l, cfg, x, pos, window=window, enc_out=enc_out)
     return x, cache
 
 

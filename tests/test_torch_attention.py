@@ -26,6 +26,8 @@ ATTN_SHAPES = [
     (2, 128, 256, 8, 2, 32, False, 0),  # cross-ish (no mask), longer kv
     (1, 128, 128, 8, 1, 64, True, 0),  # MQA
     (1, 512, 512, 2, 2, 128, True, 128),  # long window
+    (1, 256, 256, 8, 1, 256, True, 0),  # MQA at hd 256, paligemma-3b's group of 8
+    (1, 128, 128, 12, 1, 192, True, 0),  # hd 192 and a group of 12, nemotron-4-340b's
 ]
 # f32: the two sides differ only in summation order (and the Pallas kernel's
 # online softmax), the tolerance tests/test_kernels.py holds the kernel to.
@@ -78,9 +80,9 @@ def test_port_attention_matches_jax(shape, dtype, fn):
 @pytest.mark.parametrize("dtype, hd", [(dt, hd) for dt, route in kernel.ROUTES.items()
                                        for hd in kernel.ROUTE_HEAD_DIMS[route]], ids=str)
 def test_port_attention_matches_jax_at_each_route_head_dim(dtype, hd):
-    """Every head dim a route is instantiated for (the f32 route's 16 too,
-    the MoE smoke configs'), GQA causal with a window, against the Pallas
-    kernel in interpret mode."""
+    """Every head dim a route is instantiated for (192 and 256 in both, and
+    the f32 route's 16 and 48, the MoE and nemotron-4-340b smoke configs'),
+    GQA causal with a window, against the Pallas kernel in interpret mode."""
     shape = (1, 128, 128, 4, 2, hd, True, 64)
     name = str(dtype).removeprefix("torch.")
     xs = _inputs(shape, seed=hd)
@@ -120,8 +122,8 @@ def test_rows_that_see_no_key_are_zero():
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     b, t, h, kv, hd = 1, 128, 4, 2, 64
     q, k, v = torch.zeros(b, t, h, hd), torch.zeros(b, t, kv, hd), torch.zeros(b, t, kv, hd)
-    if case == "head_dim_48":
-        q, k, v = q[..., :48], k[..., :48], v[..., :48]
+    if case == "head_dim_48":  # taken by the f32 route (nemotron-4-340b's smoke config), not by bf16
+        q, k, v = (x[..., :48].to(torch.bfloat16) for x in (q, k, v))
     elif case == "float16":
         q, k, v = q.half(), k.half(), v.half()
     elif case == "mixed_dtypes":

@@ -6,9 +6,11 @@ async modes graph-replayed against eager, faults and robust aggregation
 stable sort's signed zeros), and the LM training path (the train step
 against its CPU run, no per-worker snapshots in a sync step, the kernels'
 guard under `torch.func.grad`, `quickstart --setup lm` graph-replayed
-against eager), and the MoE and hybrid families (the kernel at their
+against eager), the MoE and hybrid families (the kernel at their
 prefill shapes, the MoE layer and the SSM scan against their CPU runs),
-on the card.  Flash attention
+and the vlm, encdec and large dense archs (the kernel at head dims 192 and
+256 and at their prefill shapes, serving and the train step against their
+CPU runs), on the card.  Flash attention
 has two routes, by dtype: f32 the scalar kernel, bf16 the wgmma + TMA
 kernel; every attention case runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
 tensor-core kernel, every other shape the scalar one; each wkv case asserts
@@ -73,6 +75,20 @@ ATTN_SHAPES = [
     (4, 1024, 1024, 32, 4, 64, True, 0),
     (4, 1024, 1024, 16, 8, 64, True, 0),
     (4, 2048, 2048, 25, 5, 64, True, 1024),
+    # head dims 192 and 256 (the bf16 route's 64-key tiles): ragged T = S,
+    # MQA, non-causal with S ragged, a window across tiles
+    *[(1, t, t, 4, 2, hd, True, 0) for hd in (192, 256) for t in (65, 100, 129, 200)],
+    *[(2, 256, 256, 8, 1, hd, True, 0) for hd in (192, 256)],
+    *[(1, 128, 300, 4, 2, hd, False, 0) for hd in (192, 256)],
+    *[(1, 512, 512, 4, 2, hd, True, 96) for hd in (192, 256)],
+    # the prefill attention at batch 4 of seamless-m4t-medium's decoder
+    # (prompt 1024), paligemma-3b (256 patches + prompt 1024, MQA, hd 256),
+    # qwen1.5-110b (hd 128, 64 heads over 8) and nemotron-4-340b (hd 192, 96
+    # heads over 8)
+    (4, 1024, 1024, 16, 16, 64, True, 0),
+    (4, 1280, 1280, 8, 1, 256, True, 0),
+    (4, 1024, 1024, 64, 8, 128, True, 0),
+    (4, 1024, 1024, 96, 8, 192, True, 0),
 ]
 # f32 differs from the plain version only in summation order; bf16 also in
 # where the plain version rounds scores and probabilities (2^-8 relative).
@@ -676,9 +692,20 @@ def test_run_monte_carlo_on_cuda_without_a_card_raises():
 # --------------------------------------------------------- the training path
 
 
+def _frontend_inputs(cfg, batch, seed, device):
+    """Seeded random vlm patches or encdec frames ({} for the other
+    families); never zeros, which would leave the cross-attention inert."""
+    n = {"vlm": cfg.vlm_patches, "encdec": cfg.encoder_frames}.get(cfg.family)
+    if n is None:
+        return {}
+    x = np.random.default_rng(1000 + seed).standard_normal((batch, n, cfg.d_model), dtype=np.float32)
+    return {"patches" if cfg.family == "vlm" else "frames": torch.from_numpy(x).to(device)}
+
+
 def _train_run(arch, mode, n_micro, device, seq, n_steps=3):
     """3 train steps of a smoke config (f32) from weights drawn on the CPU
-    from seed 0: [(k, sim_time, ce)] and the kernels' launches."""
+    from seed 0 (vlm and encdec fed `_frontend_inputs`): [(k, sim_time, ce)]
+    and the kernels' launches."""
     cfg = get_smoke_config(arch)
     model = build_model(cfg, device)
     params = tree_map(lambda a: a.to(device), build_model(cfg, "cpu").init(torch.Generator().manual_seed(0)))
@@ -693,7 +720,7 @@ def _train_run(arch, mode, n_micro, device, seq, n_steps=3):
     for i in range(n_steps):
         tokens, targets = stream.batch_at(i)
         key, sub = prng.split(key).unbind(0)
-        state, m = step(state, {"tokens": tokens, "targets": targets}, sub)
+        state, m = step(state, {"tokens": tokens, "targets": targets, **_frontend_inputs(cfg, 8, i, device)}, sub)
         out.append((int(m["k"]), float(m["sim_time"]), float(m["ce"])))
     return out, (ops.launches - before[0], wkv_ops.launches - before[1])
 
@@ -830,3 +857,56 @@ def test_ssm_chunked_on_the_card_follows_the_cpu(cuda_device, chunk):
     for got, want in ((y, y0), (s, s0)):
         want = want.numpy()
         np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+# ------------------------------------- the vlm, encdec and large dense archs
+
+# nemotron-4-340b's smoke config's head dim 48 (the f32 route only)
+HD48_SHAPES = [(2, 128, 128, 8, 2, 48, True, 0), (1, 100, 100, 4, 2, 48, True, 0), (1, 256, 256, 4, 2, 48, True, 64)]
+NEW_ARCHS = ["seamless-m4t-medium", "paligemma-3b", "qwen1.5-110b", "nemotron-4-340b"]
+
+
+@pytest.mark.parametrize("shape", HD48_SHAPES, ids=str)
+def test_f32_route_takes_head_dim_48(cuda_device, shape):
+    test_flash_attention_kernel_matches_plain_version(cuda_device, shape, "float32")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_serving_on_the_card_follows_the_cpu(cuda_device, arch):
+    """The smoke config in f32 served on the card and on the CPU from the
+    same weights, prompts and random patches or frames (paligemma at 112 +
+    16 patches = 128 positions, the others at 128: every prefill layer's
+    self-attention on the kernel): prefill logits within 1e-4, greedy tokens
+    equal, one flash launch a decoder layer."""
+    from repro_torch.launch import serve
+
+    cfg = get_smoke_config(arch)
+    t = 128 - (cfg.vlm_patches if cfg.family == "vlm" else 0)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, t)))
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        extra = _frontend_inputs(cfg, 2, 0, dev)
+        before = ops.launches
+        runs[str(dev)] = serve.generate(build_model(cfg, dev), tree_map(lambda a: a.to(dev), params), prompts.to(dev),
+                                        8, **extra), ops.launches - before
+    (cpu, _), (card, launches) = runs["cpu"], runs[str(cuda_device)]
+    assert launches == cfg.n_layers
+    np.testing.assert_allclose(card.prefill_logits.cpu().numpy(), cpu.prefill_logits.numpy(), rtol=1e-4, atol=1e-4)
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_train_step_on_the_card_follows_the_cpu(cuda_device, arch):
+    """Sync (the async modes refuse patches and frames): k equal, sim_time
+    within 1e-6 and ce within 1e-5 relative; one flash launch a decoder
+    layer in each step's eval forward (paligemma's T = 112 + 16 patches)."""
+    cfg = get_smoke_config(arch)
+    seq = 128 - (cfg.vlm_patches if cfg.family == "vlm" else 0)
+    card, launches = _train_run(arch, "sync", 1, cuda_device, seq)
+    cpu, _ = _train_run(arch, "sync", 1, "cpu", seq)
+    for (k, t, ce), (k0, t0, ce0) in zip(card, cpu):
+        assert k == k0
+        np.testing.assert_allclose(t, t0, rtol=1e-6)
+        np.testing.assert_allclose(ce, ce0, rtol=1e-5)
+    assert launches == (3 * cfg.n_layers, 0)

@@ -1,6 +1,8 @@
 """The port's serving path (prefill + cache decode of the smoke configs of
-llama3.2-3b, granite-moe-1b-a400m, qwen3-moe-30b-a3b and hymba-1.5b)
-against the JAX package, with the same weights.
+llama3.2-3b, granite-moe-1b-a400m, qwen3-moe-30b-a3b, hymba-1.5b,
+qwen1.5-110b and nemotron-4-340b) against the JAX package, with the same
+weights.  The vlm and encdec archs' serving is held in tests/test_torch_vlm.py
+and tests/test_torch_encdec.py.
 
 Weights come from the JAX `model.init` and cross through `params_from_jax`.
 At T=128 the JAX side runs the Pallas flash-attention kernel (interpret mode
@@ -39,9 +41,13 @@ ARCH = "llama3.2-3b"
 TOL = dict(rtol=1e-4, atol=1e-4)
 BATCH, DECODE_STEPS = 2, 8
 NEW_ARCHS = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "hymba-1.5b"]
+# dense archs at other shapes: QKV bias and a group of 4 (qwen1.5-110b's
+# smoke config); squared ReLU, hd 48 and a group of 4 (nemotron-4-340b's)
+DENSE_ARCHS = ["qwen1.5-110b", "nemotron-4-340b"]
 # (arch, prompt length, window); llama3.2-3b's ids stay "T{t}_window{w}"
 CASES = [(ARCH, 128, 0), (ARCH, 128, 64), (ARCH, 32, 0)] + [
-    (arch, t, w) for arch in NEW_ARCHS for t, w in ((128, 0), (128, 32 if arch == "hymba-1.5b" else 64), (32, 0))]
+    (arch, t, w) for arch in NEW_ARCHS + DENSE_ARCHS
+    for t, w in ((128, 0), (128, 32 if arch == "hymba-1.5b" else 64), (32, 0))]
 _WEIGHTS = {}
 
 
@@ -182,7 +188,8 @@ def test_decode_past_the_cache_end_raises(weights):
 
 
 @pytest.mark.parametrize("which", ["full", "smoke"])
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b", "qwen1.5-0.5b"] + NEW_ARCHS)
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "rwkv6-3b", "qwen1.5-0.5b"] + NEW_ARCHS + DENSE_ARCHS
+                         + ["seamless-m4t-medium", "paligemma-3b"])
 def test_config_is_a_copy_of_the_jax_config(arch, which):
     """Field for field the JAX package's config, with use_pallas renamed use_kernels."""
     port = get_config(arch) if which == "full" else get_smoke_config(arch)
@@ -195,13 +202,19 @@ def test_config_is_a_copy_of_the_jax_config(arch, which):
 
 
 def test_registry_lists_only_ported_archs():
-    assert list_archs() == ["granite-moe-1b-a400m", "hymba-1.5b", "llama3.2-3b", "qwen1.5-0.5b",
-                            "qwen3-moe-30b-a3b", "rwkv6-3b"]
-    for arch in ("qwen1.5-110b", "seamless-m4t-medium", "paligemma-3b", "nemotron-4-340b"):
-        with pytest.raises(ValueError, match="not yet ported; see ROADMAP.md"):
-            get_config(arch)
+    """Every arch of the JAX package is ported: the two registries list the
+    same ten, and each family's model builds."""
+    from repro.configs import list_archs as jax_list_archs
+    from repro_torch.models import transformer
+
+    assert list_archs() == sorted(jax_list_archs()) == [
+        "granite-moe-1b-a400m", "hymba-1.5b", "llama3.2-3b", "nemotron-4-340b", "paligemma-3b", "qwen1.5-0.5b",
+        "qwen1.5-110b", "qwen3-moe-30b-a3b", "rwkv6-3b", "seamless-m4t-medium"]
+    assert {get_config(arch).family for arch in list_archs()} == set(transformer.PORTED_FAMILIES)
     with pytest.raises(ValueError, match="unknown arch"):
         get_smoke_config("gpt-2")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(get_smoke_config(ARCH).replace(family="rnn"), device="cpu")
 
 
 def test_params_from_jax_keeps_bf16_bits():
