@@ -126,7 +126,20 @@
    width (phase 12's recipe), the eval forward at the trained parameters
    held to the plain path; the four smoke configs in f32 on the card
    against the CPU (serving and the train step).
-14. Print one `kernels` JSON line, the card again, and, as the last line,
+14. The paper's experiment entry points (no kernel of the port on their
+   path): `train --simulate` at fig2's widths (m = 2000, d = 100, n = 50,
+   R = 32, 2000 iterations, every controller x exp(1) and Pareto, 10
+   cells) and a mixed grid (sync and kasync x n 10, 20 x no fault and 10%
+   sign flips x the weighted mean and the geometric median x Pflug and
+   fixed k x exp(1) and Pareto, 64 cells, m = 400, d = 20), through
+   `train.main`, every cell line checked; each grid at R = 4, 300
+   iterations on the card against the CPU; then the figure functions
+   (`launch/figures.py`): fig1, fig_hetero at its size (5 cells x R = 32
+   x 12 000 iterations) and fig3 at 4000 iterations with one seed of its
+   host loop, each one's wall time and `derived` line, the host loop's
+   events a second on the card and on the CPU over the same horizon, and
+   fig_hetero's cells at 300 iterations card against CPU.
+15. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -2450,6 +2463,199 @@ def new_families_phase() -> dict:
     return out
 
 
+# The experiments phase: the paper's experiment entry points of the port on
+# the card.  The train CLI's --simulate at fig2's widths (m = 2000, d = 100,
+# n = 50, R = 32, 2000 iterations; every controller x exp(1), Pareto: 10
+# cells, 320 lanes) and a mixed grid at m = 400, d = 20 (sync and kasync x
+# n 10, 20 x no fault and 10% sign flips x the weighted mean and the
+# geometric median x Pflug, fixed k x exp(1), Pareto: 64 cells x R = 16,
+# 1000 iterations; k0 = fixed k = 4, fig_async's K, at which K-async stays
+# stable at the sync step 0.5/L where K = 1 diverges).  Each grid is held at
+# R = 4, 300 iterations against the same CLI on the CPU at phase 8's bounds,
+# the mixed grid's loss only below the loss at w = 0 (its sign-flip cells
+# under the weighted mean may diverge: phase 10's hold).  Then the figure
+# functions: fig1, fig_hetero at its size (5 cells x R = 32 x 12 000
+# iterations) and fig3 cut to 4000 iterations and one seed of its host
+# loop, whose events a second are measured on the card and (over the same
+# horizon) on the CPU; fig_hetero's cells at 300 iterations held card
+# against CPU.  The CPU runs go to worker processes that overlap the card's.
+SIM_FIG2 = ["--simulate", "--sim-m", "2000", "--sim-d", "100", "--n-workers", "50", "--replicas", "32",
+            "--steps", "2000", "--sim-controllers", "pflug,fixed,variance_ratio,schedule,sketched_pflug",
+            "--sim-stragglers", "exponential,pareto"]
+SIM_MIXED = ["--simulate", "--sim-m", "400", "--sim-d", "20", "--n-workers", "20", "--steps", "1000",
+             "--sim-mode", "sync,kasync", "--sim-fault", "none,sign_flip:0.1:0", "--sim-agg", "mean,geomedian",
+             "--sim-n-grid", "10,20", "--k0", "4", "--fixed-k", "4"]
+SIM_HOLD = ["--replicas", "4", "--steps", "300", "--sim-eval-every", "100"]
+FIG3_SMOKE_ITERS, HETERO_HOLD_ITERS = 4000, 300
+
+
+def simulate_run(argv: list, eta, device: str, threads: int = 2):
+    """`train --simulate` through `run_simulation` at ``eta`` (None: its
+    own), its printed lines dropped; in a worker process for the CPU:
+    ({label: (time, loss, k) numpy}, wall seconds, eta, the labels of the
+    cells whose controller adapts from the gradients)."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch import train
+
+    torch.set_num_threads(threads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import controller
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = train.run_simulation(train.parse_args(argv + ["--device", device]), eta=eta)
+    adaptive = {c.label for c in out["cases"] if isinstance(c.controller, (
+        controller.PflugController, controller.SketchedPflugController, controller.VarianceRatioController))}
+    return cells_of(out["result"]), time.perf_counter() - t0, out["eta"], adaptive
+
+
+def hetero_run(eta: float, t1_times: list, device: str, threads: int = 2):
+    """fig_hetero's grid at HETERO_HOLD_ITERS in a worker process."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch import figures
+
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    out = figures.hetero_grid(iters=HETERO_HOLD_ITERS, device=device, eta=eta, t1_times=t1_times)
+    arrays = {lb: tuple(getattr(r, f).cpu().numpy() for f in ("time", "loss", "k")) for lb, r in out["results"].items()}
+    return arrays, time.perf_counter() - t0
+
+
+def fig3_async_rate(eta_async: float, horizon: float, device: str, threads: int = 2) -> dict:
+    """One seed of fig3's host loop up to ``horizon`` in a worker process:
+    its events, seconds and events a second."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.straggler import Exponential
+    from repro_torch.data import make_linreg_data
+    from repro_torch.launch import figures
+
+    torch.set_num_threads(threads)
+    data = make_linreg_data(prng.PRNGKey(0, device=device), m=figures.FIG3["m"], d=figures.FIG3["d"], device=device)
+    t0 = time.perf_counter()
+    h = figures.async_host_loop(data, figures.FIG3["n"], eta_async, Exponential(rate=1.0), horizon,
+                                prng.PRNGKey(2, device=device), figures.FIG3["async_eval_every"])
+    seconds = time.perf_counter() - t0
+    return {"events": h["updates"][-1], "seconds": seconds, "events_per_s": h["updates"][-1] / seconds,
+            "final_loss": h["loss"][-1]}
+
+
+def simulate_on_card(argv: list) -> dict:
+    """`train.main` on the card, its lines captured: the header and the
+    cell lines checked (one a cell, every clock finite, and the excess of
+    every synchronous cell without a fault: the weighted mean under sign
+    flips may diverge, as fig_byzantine's does, and so may stale updates
+    under heavy tails), three of them printed."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = train.main(argv)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    header, cells = lines[0], lines[1:]
+    if header["grid_cells"] != len(cells) or [c["cell"] for c in cells] != list(out["result"].labels):
+        raise AssertionError(f"--simulate printed {len(cells)} cell lines for {header['grid_cells']} cells")
+    clean = [c for c in cells if ("--sim-fault" not in argv or "|none" in c["cell"])
+             and not any(f"|{mode}" in c["cell"] for mode in ("kasync", "kbatch"))]
+    if not all(math.isfinite(c["sim_time"]) for c in cells) or not all(math.isfinite(c["final_excess"])
+                                                                     for c in clean):
+        raise AssertionError("--simulate: a cell's time, or a fault-free cell's final excess, is not finite")
+    diverged = [c["cell"] for c in cells if not math.isfinite(c["final_excess"])]
+    print(f"  {json.dumps(header)} ({wall:.2f} s with the data and the cases; {len(diverged)} cells "
+          f"diverged{': ' + ', '.join(diverged[:4]) if diverged else ''})")
+    for c in cells[:3]:
+        print(f"    {json.dumps(c)}")
+    return out
+
+
+def experiments_phase() -> dict:
+    """Phase 14: `train --simulate` and the figure functions on the card,
+    held against the CPU in worker processes."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core import prng
+    from repro_torch.data import make_linreg_data
+    from repro_torch.launch import figures
+
+    phase_t0 = time.perf_counter()
+    grids = {"fig2-width grid": SIM_FIG2, "mixed grid": SIM_MIXED}
+    print(f"[14] experiments: train --simulate, {' and '.join(grids)}, each held at R=4, 300 iterations against "
+          f"the CPU; fig1, fig_hetero, fig3 at {FIG3_SMOKE_ITERS} iterations")
+    out = {}
+    with ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing.get_context("spawn")) as pool:
+        held, jobs = {}, {}
+        for name, argv in grids.items():  # the card's small runs first, so that the CPU's start early
+            arrays, _, eta, adaptive = simulate_run(argv + SIM_HOLD, None, "cuda")
+            held[name] = arrays, adaptive
+            jobs[name] = pool.submit(simulate_run, argv + SIM_HOLD, eta, "cpu")
+        hetero_card = figures.hetero_grid(iters=HETERO_HOLD_ITERS)
+        jobs["fig_hetero"] = pool.submit(hetero_run, hetero_card["eta"], hetero_card["t1_times"], "cpu")
+        # fig3's adaptive arm fixes its host loop's horizon: the CPU's seed starts now
+        fig3_arm = figures.fig3_adaptive(iters=FIG3_SMOKE_ITERS)
+        horizon = float(fig3_arm["stats"]["time_mean"][-1])
+        jobs["fig3 async"] = pool.submit(fig3_async_rate, fig3_arm["eta"] / 10.0, horizon, "cpu")
+
+        for name, argv in grids.items():
+            print(f"  {name}: train.main({' '.join(argv)})")
+            t0 = time.perf_counter()
+            res = simulate_on_card(argv)
+            out[name] = {"wall_s": time.perf_counter() - t0, "cells": len(res["cases"]),
+                         "lanes": len(res["cases"]) * res["header"]["replicas"]}
+
+        rows = {}
+        for name, fn in (("fig1", figures.run_fig1), ("fig_hetero", figures.run_fig_hetero),
+                         ("fig3", lambda: figures.run_fig3(iters=FIG3_SMOKE_ITERS, async_seeds=1))):
+            t0 = time.perf_counter()
+            rows[name] = fn()
+            out[name] = {"wall_s": time.perf_counter() - t0}
+            print(f"  {name}: {out[name]['wall_s']:.2f} s; {rows[name]['name']},{rows[name]['us_per_call']:.1f},"
+                  f"{rows[name]['derived']}")
+        runs = {name: job.result() for name, job in jobs.items()}
+
+    rate = rows["fig3"]["async_rate"]
+    if rate["horizon"] != horizon:
+        raise AssertionError(f"fig3's adaptive arm ended at t = {rate['horizon']} in the figure, {horizon} alone")
+    print(f"  fig3's host loop, one seed to t = {rate['horizon']:.2f}: {rate['events']} events in "
+          f"{rate['seconds']:.2f} s on the card, {rate['events_per_s']:.1f} events/s; on the CPU (2 threads, a worker "
+          f"process) {runs['fig3 async']['events']} events in {runs['fig3 async']['seconds']:.2f} s, "
+          f"{runs['fig3 async']['events_per_s']:.1f} events/s")
+    if runs["fig3 async"]["events"] != rate["events"]:
+        raise AssertionError(f"fig3's host loop ran {rate['events']} events on the card, "
+                             f"{runs['fig3 async']['events']} on the CPU")
+    out["fig3"]["async_rate"] = {"card": rate["events_per_s"], "cpu": runs["fig3 async"]["events_per_s"],
+                                 "events": rate["events"]}
+    arrays, adaptive = held["fig2-width grid"]
+    hold("fig2-width grid (R=4, 300 iterations) vs the CPU", arrays, runs["fig2-width grid"][0], adaptive)
+    # the mixed grid's sign-flip cells under the weighted mean may diverge:
+    # held as phase 10 holds fig_byzantine's, below the loss at w = 0
+    y = make_linreg_data(prng.PRNGKey(0, device="cuda"), m=400, d=20, device="cuda").y
+    arrays, adaptive = held["mixed grid"]
+    hold_byzantine("mixed grid (R=4, 300 iterations) vs the CPU", arrays, runs["mixed grid"][0], adaptive,
+                   bar=float((y * y).mean()), time_rtol=ENGINE_TIME_RTOL, loss_rtol=ENGINE_LOSS_RTOL)
+    card_hetero = {lb: tuple(getattr(r, f).cpu().numpy() for f in ("time", "loss", "k"))
+                   for lb, r in hetero_card["results"].items()}
+    hold(f"fig_hetero at {HETERO_HOLD_ITERS} iterations vs the CPU", card_hetero, runs["fig_hetero"][0],
+         {"adaptive", "adaptive_mixed"})
+    print("  CPU runs in worker processes: " + ", ".join(
+        f"{name} {runs[name][1]:.1f} s" for name in (*grids, "fig_hetero")))
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"  phase 14 took {out['phase_s']:.1f} s: " + ", ".join(
+        f"{name} {v['wall_s']:.1f} s" for name, v in out.items() if isinstance(v, dict)))
+    return out
+
+
 def prng_key(seed: int):
     from repro_torch.core import prng
 
@@ -2656,7 +2862,11 @@ def main() -> int:
     sys.stdout.flush()
     p13 = new_families_phase()
 
-    # 14. summary
+    # 14. the experiment entry points: train --simulate and the figure functions (no kernel of the port on their path)
+    sys.stdout.flush()
+    experiments_phase()
+
+    # 15. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2702,7 +2912,7 @@ def main() -> int:
         "scalar_bound_by": scalar_bound_by,
         "train_launches": p11["smoke"]["rwkv_sync_wkv_launches"],
     }]
-    print(f"[14] chip_smoke.py took {time.perf_counter() - script_t0:.1f} s")
+    print(f"[15] chip_smoke.py took {time.perf_counter() - script_t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -195,24 +195,27 @@ def headline(out: dict) -> dict:
             "gm_recovered_b30": math.isfinite(gm_b30) and gm_b30 < RECOVERED_BELOW}
 
 
-def run_case(setup: str, case: SweepCase, data, keys, iters: int | None = None, capture: bool = True):
+def run_case(setup: str, case: SweepCase, data, keys, iters: int | None = None, capture: bool = True,
+             eval_every: int | None = None):
     """One cell of ``setup`` as a looped `run_monte_carlo` call on ``data``
     (a `LinRegData`) and replica keys."""
     cfg = SETUPS[setup]
     dev = data.X.device
     return run_monte_carlo(squared_error, torch.zeros(cfg["d"], device=dev), data.X, data.y, n_workers=cfg["n"],
                            controller=case.controller, straggler=case.straggler, eta=case.eta,
-                           num_iters=iters or cfg["iters"], keys=keys, eval_every=cfg["eval_every"], device=dev,
-                           capture=capture, mode=case.mode, fault=case.fault, agg=case.agg, agg_param=case.agg_param)
+                           num_iters=iters or cfg["iters"], keys=keys, eval_every=eval_every or cfg["eval_every"],
+                           device=dev, capture=capture, mode=case.mode, fault=case.fault, agg=case.agg,
+                           agg_param=case.agg_param)
 
 
-def run_grid(setup: str, grid: list, data, keys, iters: int | None = None, capture: bool = True):
+def run_grid(setup: str, grid: list, data, keys, iters: int | None = None, capture: bool = True,
+             eval_every: int | None = None):
     """The cells ``grid`` of ``setup`` as one `run_sweep` call."""
     cfg = SETUPS[setup]
     dev = data.X.device
     return run_sweep(squared_error, torch.zeros(cfg["d"], device=dev), data.X, data.y, n_workers=cfg["n"],
-                     cases=grid, num_iters=iters or cfg["iters"], keys=keys, eval_every=cfg["eval_every"],
-                     device=dev, capture=capture)
+                     cases=grid, num_iters=iters or cfg["iters"], keys=keys,
+                     eval_every=eval_every or cfg["eval_every"], device=dev, capture=capture)
 
 
 def inputs(setup: str, replicas: int | None = None, device="cuda"):
@@ -224,13 +227,13 @@ def inputs(setup: str, replicas: int | None = None, device="cuda"):
 
 
 def run(setup: str = "quickstart", iters: int | None = None, replicas: int | None = None, device="cuda",
-        capture: bool = True, eta: float | None = None, looped: bool = False) -> dict:
+        capture: bool = True, eta: float | None = None, looped: bool = False, eval_every: int | None = None) -> dict:
     """Run every case of ``setup``, as one grid or (``looped``) case by case;
     returns {"f_star", "f0_excess" (the loss at w = 0 less f*), "eta",
     "wall_s", "cases": {label: summarize(result)}, "results": {label:
     result}}.  ``eta`` overrides the setup's step (the parity tests pass
     one float to both packages, whose eigensolvers differ in the last
-    ulps)."""
+    ulps); ``eval_every`` the setup's."""
     data, keys = inputs(setup, replicas, device)
     eta = step_size(data.X, SETUPS[setup].get("edge_fraction", 0.25)) if eta is None else eta
     grid = cases(setup, data, eta)
@@ -238,9 +241,9 @@ def run(setup: str = "quickstart", iters: int | None = None, replicas: int | Non
     out = {"f_star": data.f_star, "f0_excess": f0 - data.f_star, "eta": eta, "cases": {}, "results": {}}
     t0 = time.perf_counter()
     if looped:
-        results = {c.label: run_case(setup, c, data, keys, iters, capture) for c in grid}
+        results = {c.label: run_case(setup, c, data, keys, iters, capture, eval_every) for c in grid}
     else:
-        res = run_grid(setup, grid, data, keys, iters, capture)
+        res = run_grid(setup, grid, data, keys, iters, capture, eval_every)
         results = {label: res.cell(g) for g, label in enumerate(res.labels)}
     for label, r in results.items():
         out["results"][label] = r
@@ -249,11 +252,11 @@ def run(setup: str = "quickstart", iters: int | None = None, replicas: int | Non
     return out
 
 
-def time_to_target(out: dict, factor: float = 1e-3) -> dict:
+def time_to_target(out: dict, factor: float = 1e-3, target: float | None = None) -> dict:
     """{label: the first replica-mean simulated time at which the mean excess
-    loss is at most ``factor`` times the initial excess, or None}: the
-    target of `benchmarks/fig_async.py`."""
-    target = factor * out["f0_excess"]
+    loss is at most ``target`` (default ``factor`` times the initial excess:
+    the target of `benchmarks/fig_async.py`), or None}."""
+    target = factor * out["f0_excess"] if target is None else target
     return {label: next((float(t) for t, loss in zip(s["time_mean"], s["loss_mean"])
                          if loss - out["f_star"] <= target), None)
             for label, s in out["cases"].items()}
@@ -318,24 +321,27 @@ def lm_cases(t1_times: list) -> list:
 
 
 def run_lm(iters: int | None = None, replicas: int | None = None, device="cuda", capture: bool = True,
-           looped: bool = False) -> dict:
+           looped: bool = False, eval_every: int | None = None, params0=None) -> dict:
     """fig_lm's four arms as one `run_sweep_source` grid, or (``looped``)
     one `run_monte_carlo_source` call each.  Returns {"t1_times",
     "wall_s", "cases": {label: summarize(result)}, "results": {label:
-    result}}; the loss is the CE over the token batch."""
-    source, params0, data, keys = lm_inputs(replicas, device)
+    result}}; the loss is the CE over the token batch.  ``params0``
+    overrides the weights drawn from key 0 (the parity tests pass the JAX
+    package's, `LMSource.params_from_jax`)."""
+    source, own_params, data, keys = lm_inputs(replicas, device)
+    params0 = own_params if params0 is None else params0
     t1_times = theorem1_times(source, params0, data, Exponential(rate=1.0))
     grid = lm_cases(t1_times)
-    num_iters, dev = iters or LM["iters"], data[0].device
+    num_iters, dev, eval_every = iters or LM["iters"], data[0].device, eval_every or LM["eval_every"]
     t0 = time.perf_counter()
     if looped:
         results = {c.label: run_monte_carlo_source(
             source, params0, data, n_workers=LM["n"], controller=c.controller, straggler=c.straggler, eta=c.eta,
-            num_iters=num_iters, keys=keys, eval_every=LM["eval_every"], device=dev, capture=capture)
+            num_iters=num_iters, keys=keys, eval_every=eval_every, device=dev, capture=capture)
             for c in grid}
     else:
         res = run_sweep_source(source, params0, data, n_workers=LM["n"], cases=grid, num_iters=num_iters, keys=keys,
-                               eval_every=LM["eval_every"], device=dev, capture=capture)
+                               eval_every=eval_every, device=dev, capture=capture)
         results = {label: res.cell(g) for g, label in enumerate(res.labels)}
     out = {"t1_times": t1_times, "cases": {}, "results": results}
     for label, r in results.items():

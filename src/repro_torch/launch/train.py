@@ -21,10 +21,19 @@ package's format.  Parameters are random, drawn on the device from
 straggler key splits once a step from `prng.PRNGKey(seed)`, so k and the
 simulated clock follow the reference's CLI bit for bit.
 
-Not ported yet (each flag raises, naming its ROADMAP item): ``--simulate``
-(the controller x straggler sweep entry, item 18) with its ``--sim-*``
-flags, ``--production-mesh`` and ``--distributed`` (item 13),
-``--cache-dir`` (item 12).
+``--simulate`` switches to the paper-scale simulation entry instead of LM
+training: a controller x straggler (x n x mode x fault x aggregator) grid
+of Monte-Carlo replicas on the synthetic linear regression, run as one
+`core.sweep.run_sweep` program, one JSON line a cell and an optional CSV,
+as the reference's CLI prints them:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --simulate --device cpu \\
+        --sim-controllers pflug,fixed --sim-stragglers exponential,pareto \\
+        --steps 300 --replicas 4 --n-workers 20
+
+Not ported yet (each flag raises, naming its ROADMAP item):
+``--production-mesh`` and ``--distributed`` (item 13), ``--cache-dir``
+(item 12).
 """
 
 from __future__ import annotations
@@ -38,22 +47,213 @@ import torch
 from repro_torch import checkpoint, resolve_device
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import execmode, prng, theory
-from repro_torch.core.aggregation import CommModel
+from repro_torch.core.aggregation import AGG_KINDS, CommModel
 from repro_torch.core.controller import get_controller
-from repro_torch.core.straggler import get_straggler_model
-from repro_torch.data import TokenStream
+from repro_torch.core.faults import byzantine_plan
+from repro_torch.core.straggler import Exponential, RateSchedule, WorkerFleet, get_straggler_model
+from repro_torch.core.sweep import SweepCase, run_sweep, summarize_cells
+from repro_torch.data import TokenStream, make_linreg_data
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.quickstart import squared_error, step_size
 from repro_torch.launch.specs import stub_inputs
 from repro_torch.models import build_model
 from repro_torch.optim import get_optimizer
 
 # Flags of the reference's CLI whose machinery is not ported, and where it waits.
 NOT_PORTED = {
-    "simulate": "the sweep entry of the train CLI (ROADMAP Queue 1 item 18)",
     "production_mesh": "distribution (ROADMAP Queue 1 item 13)",
     "distributed": "distribution (ROADMAP Queue 1 item 13)",
     "cache_dir": "the persistent compilation cache (ROADMAP Queue 1 item 12)",
 }
+
+
+def _parse_pair(spec, flag, cast=float):
+    try:
+        a, b = spec.split(":")
+        return cast(a), cast(b)
+    except ValueError:
+        raise SystemExit(f"{flag} expects 'A:B', got {spec!r}")
+
+
+def _n_values(args) -> list:
+    if args.sim_n_grid:
+        return sorted({int(v) for v in args.sim_n_grid.split(",") if v})
+    return [args.n_workers]
+
+
+def simulation_cases(args, eta: float) -> list:
+    """The ``--simulate`` grid as `SweepCase`s, in the reference's order
+    (mode, n, straggler, controller, fault, aggregator) and with its labels
+    ``ctrl|strag[|nN][|mode][|fault][|agg]``; every check of the reference
+    raises `SystemExit` with its message.
+
+    ``--sim-n-grid`` makes the worker count a grid axis (cells are padded to
+    the largest n; smaller-n cells hold the extra slots inactive).
+    ``--sim-hetero FRAC:FACTOR`` swaps the straggler axis for a two-speed
+    exponential fleet (a FRAC fraction of each cell's workers FACTOR x
+    slower), ``--sim-drift T:SCALE`` multiplies every rate by SCALE from
+    simulated time T, ``--sim-fault FAMILY:FRAC:ONSET[:PARAM]`` gives a FRAC
+    fraction of each cell's workers a fault from ONSET on, and ``--sim-mode``
+    and ``--sim-agg`` pick the execution modes and aggregators; a comma list
+    sweeps any of them as a grid axis.
+    """
+    n_values = _n_values(args)
+    n_slots = max(n_values)
+    ctrl_names = [c for c in args.sim_controllers.split(",") if c]
+
+    drift = None
+    if args.sim_drift:
+        t_drift, scale = _parse_pair(args.sim_drift, "--sim-drift")
+        drift = RateSchedule(times=(t_drift,), scales=(scale,))
+
+    def stragglers_for(n):
+        """{label: straggler spec} for an n-active-worker cell."""
+        if args.sim_hetero:
+            frac, factor = _parse_pair(args.sim_hetero, "--sim-hetero")
+            if not 0.0 <= frac <= 1.0 or factor <= 0:
+                raise SystemExit(f"--sim-hetero: bad FRAC:FACTOR {args.sim_hetero!r}")
+            n_slow = int(round(frac * n))
+            fleet = WorkerFleet(models=(Exponential(rate=1.0),) * (n - n_slow)
+                                + (Exponential(rate=1.0 / factor),) * n_slow, schedule=drift)
+            return {f"two_speed{args.sim_hetero}": fleet}
+        out = {}
+        for sname in (s for s in args.sim_stragglers.split(",") if s):
+            model = get_straggler_model(sname)
+            out[sname] = WorkerFleet(models=(model,) * n, schedule=drift) if drift is not None else model
+        return out
+
+    def make_sim_controller(name, straggler, n):
+        if name == "pflug":
+            return get_controller("pflug", n, k0=args.k0, step=args.k_step, thresh=args.thresh, burnin=args.burnin)
+        if name == "sketched_pflug":
+            return get_controller("sketched_pflug", n, k0=args.k0, step=args.k_step, thresh=args.thresh,
+                                  burnin=args.burnin, sketch_dim=args.sketch_dim)
+        if name == "fixed":
+            if args.fixed_k > n:
+                raise SystemExit(f"--fixed-k {args.fixed_k} > n={n}")
+            return get_controller("fixed", n, k=args.fixed_k)
+        if name == "variance_ratio":
+            return get_controller("variance_ratio", n, k0=args.k0, step=args.k_step, burnin=args.burnin)
+        if name == "schedule":
+            sysm = theory.SGDSystem(
+                eta=eta, L=args.schedule_smoothness, c=args.schedule_strong_convexity,
+                sigma2=args.schedule_sigma2, s=args.sim_m // n_slots, F0_gap=args.schedule_f0_gap, n=n,
+                straggler=straggler,
+            )
+            times = theory.switching_times(sysm, list(range(args.k0, n, args.k_step)), step=args.k_step)
+            return get_controller("schedule", n, switch_times=times, k0=args.k0, step=args.k_step)
+        raise SystemExit(f"--sim-controllers: unknown controller {name!r}")
+
+    comm = CommModel(alpha=args.comm_alpha, beta=args.comm_beta)
+    modes = [mm for mm in args.sim_mode.split(",") if mm]
+    for mm in modes:
+        if mm not in execmode.MODES:
+            raise SystemExit(f"--sim-mode: unknown mode {mm!r}; options {sorted(execmode.MODES)}")
+    if not modes:
+        raise SystemExit("--sim-mode: need at least one mode")
+
+    # each --sim-fault spec is FAMILY:FRAC:ONSET[:PARAM] or "none" (a
+    # Byzantine sweep's fault-free arm)
+    fault_specs = [s for s in args.sim_fault.split(",") if s] if args.sim_fault else ["none"]
+    parsed_faults = []
+    for spec in fault_specs:
+        if spec == "none":
+            parsed_faults.append((spec, None))
+            continue
+        parts = spec.split(":")
+        if len(parts) not in (3, 4):
+            raise SystemExit(f"--sim-fault expects FAMILY:FRAC:ONSET[:PARAM] or 'none', got {spec!r}")
+        try:
+            cfg = (parts[0], float(parts[1]), float(parts[2]), float(parts[3]) if len(parts) == 4 else 1.0)
+        except ValueError:
+            raise SystemExit(f"--sim-fault: bad numbers in {spec!r}")
+        parsed_faults.append((spec, cfg))
+
+    def make_plan(cfg, n):
+        if cfg is None:
+            return None
+        family, frac, onset, param = cfg
+        try:
+            return byzantine_plan(n, frac, family, onset=onset, param=param)
+        except ValueError as e:
+            raise SystemExit(f"--sim-fault: {e}")
+
+    aggs = [a for a in args.sim_agg.split(",") if a]
+    for a in aggs:
+        if a not in AGG_KINDS:
+            raise SystemExit(f"--sim-agg: unknown aggregator {a!r}; options {sorted(AGG_KINDS)}")
+    if not aggs:
+        raise SystemExit("--sim-agg: need at least one aggregator")
+    if "kbatch" in modes and any(a != "mean" for a in aggs):
+        raise SystemExit("--sim-agg: robust aggregation is not supported in kbatch mode (drop kbatch from "
+                         "--sim-mode)")
+
+    def tag(value, axis):
+        return f"|{value}" if len(axis) > 1 else ""
+
+    return [
+        SweepCase(make_sim_controller(cname, strag, n), strag, eta=eta, comm=comm,
+                  label=(f"{cname}|{sname}{tag(f'n{n}', n_values)}{tag(mm, modes)}"
+                         f"{tag(ftag, parsed_faults)}{tag(agg, aggs)}"),
+                  mode=mm, fault=make_plan(fcfg, n), agg=agg)
+        for mm in modes
+        for n in n_values
+        for sname, strag in stragglers_for(n).items()
+        for cname in ctrl_names
+        for ftag, fcfg in parsed_faults
+        for agg in aggs
+    ]
+
+
+def run_simulation(args, eta: float | None = None) -> dict:
+    """The train CLI's simulation entry: the grid of `simulation_cases` as
+    one `run_sweep` on ``args.device``, data from ``PRNGKey(seed)`` and the
+    replicas' keys split from ``PRNGKey(seed + 1)``.  Prints the reference's
+    header line and one JSON line a cell, and writes ``--sim-csv``.
+    ``eta`` overrides 0.5 / L (the parity tests pass the reference's: the
+    two packages' eigensolvers differ in the last ulps).  Returns {"header",
+    "cells" (the printed lines), "f_star", "eta", "cases", "result" (the
+    `SweepResult`), "stats" (`summarize_cells`)}."""
+    m, d = args.sim_m, args.sim_d
+    n_slots = max(_n_values(args))
+    if m % n_slots:
+        raise SystemExit(f"--sim-m {m} must be divisible by the largest n ({n_slots})")
+    dev = resolve_device(args.device)
+    data = make_linreg_data(prng.PRNGKey(args.seed, device=dev), m=m, d=d, device=dev)
+    eta = step_size(data.X) if eta is None else eta
+    cases = simulation_cases(args, eta)
+    t0 = time.perf_counter()
+    result = run_sweep(squared_error, torch.zeros(d, device=dev), data.X, data.y, n_workers=n_slots, cases=cases,
+                       num_iters=args.steps, key=prng.PRNGKey(args.seed + 1, device=dev), n_replicas=args.replicas,
+                       eval_every=args.sim_eval_every, device=dev)
+    stats = summarize_cells(result)
+    wall = time.perf_counter() - t0
+    # the port has no sweep mesh (ROADMAP item 13): one device, as the
+    # reference's mesh is on one
+    header = {"grid_cells": len(cases), "replicas": args.replicas, "iters": args.steps, "dispatches": 1,
+              "devices": torch.cuda.device_count() if dev.type == "cuda" else 1, "processes": 1,
+              "mesh_shape": [1, 1], "wall_s": round(wall, 2)}
+    print(json.dumps(header))
+    cells = []
+    for label, s in stats.items():
+        cells.append({
+            "cell": label,
+            "final_excess": float(s["loss_mean"][-1] - data.f_star),
+            "final_excess_ci95": float(s["loss_ci95"][-1]),
+            "sim_time": round(float(s["time_mean"][-1]), 2),
+            "k_final": round(float(s["k_mean"][-1]), 2),
+        })
+        print(json.dumps(cells[-1]), flush=True)
+    if args.sim_csv:
+        with open(args.sim_csv, "w") as f:
+            f.write("cell,iteration,time_mean,time_ci95,loss_mean,loss_ci95,k_mean\n")
+            for label, s in stats.items():
+                for i in range(len(s["iteration"])):
+                    f.write(f"{label},{s['iteration'][i]},{s['time_mean'][i]:.3f},{s['time_ci95'][i]:.4f},"
+                            f"{s['loss_mean'][i]:.6g},{s['loss_ci95'][i]:.6g},{s['k_mean'][i]:.2f}\n")
+        print(f"wrote {args.sim_csv}")
+    return {"header": header, "cells": cells, "f_star": data.f_star, "eta": eta, "cases": cases,
+            "result": result, "stats": stats}
 
 
 def make_controller(args, n_workers: int, straggler):
@@ -81,7 +281,8 @@ def make_controller(args, n_workers: int, straggler):
     return get_controller(args.controller, n_workers, **ckw)
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The reference CLI's flags, and ``--device``."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="llama3.2-3b", choices=list_archs())
     ap.add_argument("--smoke", action="store_true", help="use the reduced smoke config (CPU-runnable)")
@@ -118,14 +319,53 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--simulate", action="store_true", help="not ported: raises")
+    # --- simulation entry (the paper-scale linreg sweep instead of LM training)
+    ap.add_argument("--simulate", action="store_true",
+                    help="run a controller x straggler Monte-Carlo sweep on the paper's synthetic linreg task (one "
+                         "core.sweep program) instead of LM training")
+    ap.add_argument("--sim-controllers", default="pflug,fixed",
+                    help="comma list from {pflug,sketched_pflug,fixed,schedule,variance_ratio}")
+    ap.add_argument("--sim-stragglers", default="exponential,pareto",
+                    help="comma list of registered straggler models")
+    ap.add_argument("--sim-hetero", default=None, metavar="FRAC:FACTOR",
+                    help="simulate: replace the straggler axis with a two-speed exponential fleet: FRAC of each "
+                         "cell's workers run FACTOR x slower (e.g. 0.3:4)")
+    ap.add_argument("--sim-drift", default=None, metavar="T:SCALE",
+                    help="simulate: fleet-wide rate drift: multiply every worker's rate by SCALE at simulated "
+                         "time T (e.g. 500:0.4)")
+    ap.add_argument("--sim-mode", default="sync", metavar="MODE[,MODE..]",
+                    help="simulate: execution mode(s) from {sync,kasync,kbatch}; a comma list sweeps mode as a "
+                         "grid axis (async modes apply stale gradients, k = arrivals per master update)")
+    ap.add_argument("--sim-fault", default=None, metavar="FAMILY:FRAC:ONSET[:PARAM]",
+                    help="simulate: per-worker fault plan: FRAC of each cell's workers turns faulty (family from "
+                         "{sign_flip,rescale,random_gauss,crash}) once sim time reaches ONSET; PARAM is the "
+                         "rescale factor / gauss scale (e.g. sign_flip:0.3:0). A comma list (entries may be "
+                         "'none') sweeps the fault plan as a grid axis")
+    ap.add_argument("--sim-agg", default="mean", metavar="AGG[,AGG..]",
+                    help="simulate: gradient aggregator from {mean,trimmed,median,geomedian}; a comma list sweeps "
+                         "the aggregator as a grid axis (robust options aggregate per-worker gradient rows; not "
+                         "available with kbatch mode)")
+    ap.add_argument("--sim-n-grid", default=None, metavar="N1,N2,...",
+                    help="simulate: sweep the worker count as a grid axis; cells are padded to the largest n "
+                         "(overrides --n-workers)")
+    ap.add_argument("--replicas", type=int, default=16, help="simulate: Monte-Carlo replicas per grid cell")
+    ap.add_argument("--sim-m", type=int, default=400, help="simulate: number of examples")
+    ap.add_argument("--sim-d", type=int, default=20, help="simulate: problem dimension")
+    ap.add_argument("--sim-eval-every", type=int, default=500)
+    ap.add_argument("--sim-csv", default=None, help="simulate: write per-cell trajectories to this CSV")
     ap.add_argument("--production-mesh", action="store_true", help="not ported: raises")
     ap.add_argument("--distributed", action="store_true", help="not ported: raises")
     ap.add_argument("--cache-dir", default=None, metavar="DIR", help="not ported: raises")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     for flag, what in NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not ported yet")
+    if args.simulate:
+        return run_simulation(args)
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

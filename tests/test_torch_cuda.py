@@ -10,7 +10,8 @@ against eager), the MoE and hybrid families (the kernel at their
 prefill shapes, the MoE layer and the SSM scan against their CPU runs),
 and the vlm, encdec and large dense archs (the kernel at head dims 192 and
 256 and at their prefill shapes, serving and the train step against their
-CPU runs), on the card.  Flash attention
+CPU runs), and the experiment entry points (`train --simulate` and
+fig_hetero's grid against their CPU runs), on the card.  Flash attention
 has two routes, by dtype: f32 the scalar kernel, bf16 the wgmma + TMA
 kernel; every attention case runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
 tensor-core kernel, every other shape the scalar one; each wkv case asserts
@@ -910,3 +911,56 @@ def test_new_arch_train_step_on_the_card_follows_the_cpu(cuda_device, arch):
         np.testing.assert_allclose(t, t0, rtol=1e-6)
         np.testing.assert_allclose(ce, ce0, rtol=1e-5)
     assert launches == (3 * cfg.n_layers, 0)
+
+
+# ------------------------------------------------------------------- experiments
+
+# The engine's card-against-CPU bounds (chip_smoke.py phases 8 and 14): k
+# equal but in at most 2 replicas of a cell whose controller adapts from the
+# gradients (a near-zero test statistic can flip on the card's rounding),
+# `time` within 1e-5 and the loss within 1e-4 relative in the other replicas.
+ADAPTIVE_CONTROLLERS = (ctl.PflugController, ctl.SketchedPflugController, ctl.VarianceRatioController)
+SIM_GRIDS = {
+    "controllers_x_stragglers": ["--sim-controllers", "pflug,fixed,variance_ratio,schedule,sketched_pflug",
+                                 "--sim-stragglers", "exponential,pareto"],
+    "mixed": ["--sim-mode", "sync,kasync", "--sim-fault", "none,sign_flip:0.1:0", "--sim-agg", "mean,geomedian",
+              "--sim-n-grid", "10,20", "--k0", "4", "--fixed-k", "4"],
+}
+
+
+def _hold_cells(got: dict, want: dict, adaptive: set):
+    """{label: MonteCarloResult} on the card against the CPU's."""
+    for label, g in got.items():
+        w = want[label]
+        gk, wk = g.k.cpu().numpy(), w.k.numpy()
+        forked = np.nonzero((gk != wk).any(axis=1))[0]
+        assert len(forked) <= (2 if label in adaptive else 0), (label, forked.tolist())
+        keep = np.setdiff1d(np.arange(gk.shape[0]), forked)
+        np.testing.assert_allclose(g.time.cpu().numpy()[keep], w.time.numpy()[keep], rtol=1e-5, err_msg=label)
+        np.testing.assert_allclose(g.loss.cpu().numpy()[keep], w.loss.numpy()[keep], rtol=1e-4, err_msg=label)
+
+
+@pytest.mark.parametrize("grid", list(SIM_GRIDS))
+def test_simulate_on_the_card_follows_the_cpu(cuda_device, grid):
+    from repro_torch.launch import train
+
+    argv = ["--simulate", "--steps", "300", "--replicas", "4", "--sim-eval-every", "100", "--n-workers", "20"]
+    argv += SIM_GRIDS[grid]
+    card = train.run_simulation(train.parse_args(argv + ["--device", "cuda"]))
+    cpu = train.run_simulation(train.parse_args(argv + ["--device", "cpu"]), eta=card["eta"])
+    assert card["header"]["devices"] == torch.cuda.device_count() and card["header"]["mesh_shape"] == [1, 1]
+    labels = card["result"].labels
+    assert labels == cpu["result"].labels
+    adaptive = {c.label for c in card["cases"] if isinstance(c.controller, ADAPTIVE_CONTROLLERS)}
+    _hold_cells({lb: card["result"].cell(g) for g, lb in enumerate(labels)},
+                {lb: cpu["result"].cell(g) for g, lb in enumerate(labels)}, adaptive)
+
+
+def test_fig_hetero_on_the_card_follows_the_cpu(cuda_device):
+    from repro_torch.launch import figures
+
+    card = figures.hetero_grid(iters=300, n_replicas=4, device="cuda")
+    cpu = figures.hetero_grid(iters=300, n_replicas=4, device="cpu", eta=card["eta"], t1_times=card["t1_times"])
+    own = figures.hetero_grid(iters=1, n_replicas=1, device="cpu", eta=card["eta"])["t1_times"]
+    np.testing.assert_allclose(card["t1_times"], own, rtol=1e-5)  # the card's lstsq (gels) against the CPU's
+    _hold_cells(card["results"], cpu["results"], {"adaptive", "adaptive_mixed"})

@@ -45,7 +45,7 @@ def test_port_files_were_found():
             "chip_smoke.py", "prng.py", "straggler.py", "aggregation.py", "controller.py", "theory.py",
             "gradsource.py", "montecarlo.py", "simulate.py", "async_sim.py", "synthetic.py",
             "quickstart.py", "sweep.py", "execmode.py", "faults.py", "optimizers.py", "steps.py", "train.py",
-            "lm_source.py", "io.py"} <= names
+            "lm_source.py", "io.py", "figures.py"} <= names
 
 
 def _no_card():
@@ -140,6 +140,18 @@ def _training_entry_points():
         "LMSource.init_params": lambda: LMSource().init_params(prng.PRNGKey(0)),
         "LMSource.make_data": lambda: LMSource().make_data(4, 8),
         "quickstart.main[--setup lm]": lambda: quickstart.main(["--setup", "lm", "--iters", "2", "--replicas", "2"]),
+        **_experiment_entry_points(),
+    }
+
+
+def _experiment_entry_points():
+    from repro_torch.launch import figures, train
+
+    return {
+        "train.main[--simulate]": lambda: train.main(["--simulate", "--steps", "2", "--replicas", "2"]),
+        "figures.main[--only fig1]": lambda: figures.main(["--smoke", "--only", "fig1", "--out-dir", "unused"]),
+        "figures.run_fig_hetero": lambda: figures.run_fig_hetero(iters=2, n_replicas=2),
+        "figures.run_fig3": lambda: figures.run_fig3(iters=2, n_replicas=2, async_seeds=1),
     }
 
 
@@ -152,7 +164,8 @@ def _training_entry_points():
      "convert.engine_inputs", "montecarlo.run_monte_carlo[kbatch]", "sweep.run_sweep[kasync]",
      "quickstart.main[--setup async]", "montecarlo.run_monte_carlo[fault]", "sweep.run_sweep[geomedian]",
      "quickstart.main[--setup byzantine]", "train.main", "train.main[--mode kbatch]", "TokenStream.batch_at",
-     "LMSource.init_params", "LMSource.make_data", "quickstart.main[--setup lm]"],
+     "LMSource.init_params", "LMSource.make_data", "quickstart.main[--setup lm]", "train.main[--simulate]",
+     "figures.main[--only fig1]", "figures.run_fig_hetero", "figures.run_fig3"],
 )
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     _no_card()

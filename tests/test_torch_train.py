@@ -498,7 +498,7 @@ def test_train_cli_async_mode_resumes(tmp_path, capsys):
     assert "restored step 2" in out and [r["step"] for r in _json_lines(out)] == [0, 1, 2]
 
 
-@pytest.mark.parametrize("flag", [["--simulate"], ["--production-mesh"], ["--distributed"], ["--cache-dir", "x"]])
+@pytest.mark.parametrize("flag", [["--production-mesh"], ["--distributed"], ["--cache-dir", "x"]])
 def test_train_cli_flags_not_ported_raise(flag):
     with pytest.raises(SystemExit, match="not ported"):
         ttrain.main(CLI + flag)
