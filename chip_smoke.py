@@ -2,6 +2,7 @@
 """Run the PyTorch port on one NVIDIA GPU and check it, phase by phase.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only 15   # phases 1, 2 and 15 alone: no kernels line, no last line
 
 1. Print the device, and its name and power limit from nvidia-smi.
 2. Build every CUDA kernel of the port from the sources in this checkout,
@@ -139,7 +140,30 @@
    host loop, each one's wall time and `derived` line, the host loop's
    events a second on the card and on the CPU over the same horizon, and
    fig_hetero's cells at 300 iterations card against CPU.
-15. Print one `kernels` JSON line, the card again, and, as the last line,
+15. Distribution and blocked attention.  Blocked attention
+   (`attention_impl="blocked"`, plain PyTorch) at one llama3.2-3b layer
+   (B=4, T=1024) in f32 and bf16, blocks 1024 and 256, against the naive
+   path at the kernels' tolerances, timed beside the naive path and the
+   flash kernel.  A world of one NCCL rank in a spawned process, on a
+   (1, 1) ("data", "model") mesh: llama3.2-3b's prefill at full width and
+   depth with DTensor parameters (its 28 flash launches through the
+   wrapper's local-shard path) against the mesh-free prefill, then three
+   sync train steps at phase 11's recipe.
+   Four gloo ranks sharing the card (NCCL takes one rank a GPU), each
+   running its lane block on the card and gathering the small results
+   over gloo: fig2's grid (160 lanes, 2000 iterations) on ("cells",
+   "replicas") meshes (1, 4) and (2, 2), then repopulated on (1, 4) with
+   no new capture, and five cells of phase 14's mixed grid on (2, 2) (cells pad
+   5 -> 6), each against the one-device grid (time and k bitwise; the
+   loss within 1e-6 for fig2's grid and within the engine's 1e-4 for the
+   mixed grid, whose moded step rounds differently for another lane count
+   on the card (up to 4.9e-5 measured), below the loss at w = 0, a
+   diverging lane's gap reported), each rank's ms an iteration and the
+   wall time, and the
+   `train --simulate` header in that world.  The world-1 train steps run
+   mesh-free and then on the mesh in the same process: k and sim_time
+   equal, ce within 1e-5, ms a step and peak memory of both.
+16. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -152,6 +176,7 @@ to.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -1641,7 +1666,7 @@ class TrainRun(NamedTuple):
     n_params: int
 
 
-def train_full_width(label: str, arch: str, t: dict, counters) -> TrainRun:
+def train_full_width(label: str, arch: str, t: dict, counters, mesh=None) -> TrainRun:
     """t["steps"] sync train steps of `arch` at full width and depth on the
     card: bf16, remat, random weights from seed 0, AdamW at t["lr"], Pflug
     at the train CLI's defaults, Exponential(1) stragglers, t["n_workers"]
@@ -1666,8 +1691,9 @@ def train_full_width(label: str, arch: str, t: dict, counters) -> TrainRun:
     opt = adamw(t["lr"])
     ctrl = get_controller("pflug", t["n_workers"], **PFLUG_CLI)
     step_fn = steps.make_train_step(model, opt, ctrl, get_straggler_model("exponential"), t["n_workers"],
-                                    CommModel(0.0, 0.0))
-    state = steps.init_train_state(opt, ctrl, params)
+                                    CommModel(0.0, 0.0), mesh=mesh)
+    state = steps.init_train_state(opt, ctrl, params, mesh=mesh)
+    del params
     data = TokenStream(cfg.vocab_size, t["seq"], t["batch"], seed=0, device="cuda")
     print(f"[{label}] train {cfg.arch_id}: {cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} G parameters, {cfg.param_dtype}, remat {cfg.remat}; sync fastest-k, AdamW lr "
@@ -2656,6 +2682,354 @@ def experiments_phase() -> dict:
     return out
 
 
+# The distribution phase (15).  Blocked attention (`layers._sdpa_blocked`:
+# the model's own online-softmax algorithm in plain PyTorch, not a kernel)
+# at one llama3.2-3b layer, B=4, T=1024, against the naive path within the
+# kernels' tolerances (PERF.md §2: 2e-5 f32, 2e-2 bf16, max |d| / max
+# |out|), timed beside the naive path and the flash kernel.  Then the
+# mesh, in two ways, since the card is one: a world of one NCCL rank in a
+# spawned process (so that its process group does not outlive it), where
+# every redistribute is a no-op, so the DTensor prefill gives the mesh-free
+# logits bit for bit and the train step the mesh-free step's k and sim_time
+# (its ce within MESH_CE_RTOL: the DTensor lookup's backward accumulates the
+# embedding's gradient in another order); and four gloo ranks sharing the
+# card (NCCL refuses two ranks on one GPU), each running its block of the
+# grid's lanes on the card and gathering time, loss and k over gloo as
+# CPU tensors.
+BLOCKED_B, BLOCKED_T, BLOCKED_BLOCKS = 4, 1024, (1024, 256)
+BLOCKED_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MESH_TRAIN_STEPS, MESH_CE_RTOL = 3, 1e-5
+SWEEP_RANKS, SWEEP_MESHES, MIXED_PICK = 4, ((1, 4), (2, 2)), slice(None, None, 13)  # 5 of the 64 mixed cells
+SWEEP_LOSS_RTOL = 1e-6
+SIM_WORLD = ["--simulate", "--steps", "200", "--replicas", "4", "--sim-eval-every", "100", "--n-workers", "20"]
+
+
+def blocked_attention(counters) -> dict:
+    """Phase 15a: blocked attention at one llama3.2-3b layer against the
+    naive path, timed beside it and the flash kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config("llama3.2-3b")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    p32 = layers.attention_init(gen, cfg.replace(param_dtype="float32"), "cuda")
+    x32 = torch.randn((BLOCKED_B, BLOCKED_T, cfg.d_model), generator=gen, device="cuda")
+    pos = torch.arange(BLOCKED_T, device="cuda")
+    print(f"[15] blocked attention at one {cfg.arch_id} layer (B={BLOCKED_B}, T={BLOCKED_T}, H={cfg.n_heads}, "
+          f"KV={cfg.n_kv_heads}, hd={cfg.resolved_head_dim}, causal), blocks {BLOCKED_BLOCKS}, against the naive path")
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        p = {k: v.to(getattr(torch, dt)) for k, v in p32.items()}
+        x = x32.to(getattr(torch, dt))
+        plain = cfg.replace(use_kernels=False)
+        with torch.no_grad():
+            naive = layers.attention_full(p, plain, x, pos)
+            row = {"naive_ms": cuda_ms(lambda: layers.attention_full(p, plain, x, pos), iters=5, warmup=1)}
+            reset_counts(counters)
+            kern = layers.attention_full(p, cfg, x, pos)
+            if counters["flash_attention"].launches != 1:
+                raise AssertionError("the kernel path did not launch flash attention")
+            row["kernel_ms"] = cuda_ms(lambda: layers.attention_full(p, cfg, x, pos), iters=5, warmup=1)
+            row["kernel_gap"] = rel_gap(naive, kern)
+            for blk in BLOCKED_BLOCKS:
+                bcfg = plain.replace(attention_impl="blocked", attention_block=blk)
+                gap = rel_gap(naive, layers.attention_full(p, bcfg, x, pos))
+                ms = cuda_ms(lambda: layers.attention_full(p, bcfg, x, pos), iters=5, warmup=1)
+                row[blk] = {"gap": gap, "ms": ms}
+                if not gap < BLOCKED_TOL[dt]:
+                    raise AssertionError(f"blocked attention ({dt}, block {blk}) differs from the naive path by "
+                                         f"{gap:.3e} of its max (> {BLOCKED_TOL[dt]})")
+        print(f"  {dt}: naive {row['naive_ms']:.3f} ms, flash kernel {row['kernel_ms']:.3f} ms (gap "
+              f"{row['kernel_gap']:.3e}), " + ", ".join(
+                  f"blocked {b}: {row[b]['ms']:.3f} ms, gap {row[b]['gap']:.3e}" for b in BLOCKED_BLOCKS)
+              + f" (bound {BLOCKED_TOL[dt]}; a layer: the projections and the attention)")
+        out[dt] = row
+        del p, x, naive, kern
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_world1_worker(store: str) -> dict:
+    """Phase 15b in a process of its own: a world of one NCCL rank and its
+    (1, 1) ("data", "model") mesh; llama3.2-3b's prefill at full width with
+    DTensor parameters against the mesh-free prefill, then three sync train
+    steps at phase 11's recipe, mesh-free and then on the mesh."""
+    counters = _worker_counters()
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import convert
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import serve, sharding, steps
+    from repro_torch.models import build_model
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        cfg = get_config("llama3.2-3b")
+        b, t = 4, 1024
+        model = build_model(cfg, "cuda")
+        params = convert.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        prompts = serve.random_prompts(cfg, b, t, seed=1)
+        shape = InputShape("prefill", t, b, "prefill")
+        free_step, mesh_step = steps.make_prefill_step(model, cfg, shape), steps.make_prefill_step(model, cfg, shape,
+                                                                                                      mesh=mesh)
+        free_logits, _ = free_step(params, {"tokens": prompts})
+        placed = sharding.place_state(params, mesh)
+        reset_counts(counters)
+        logits, cache = mesh_step(placed, {"tokens": prompts})
+        launches = counters["flash_attention"].launches
+        logits = logits.full_tensor()
+        gap = float((logits - free_logits).abs().max())
+        placements = {k: [str(p) for p in v.placements] for k, v in cache.items()}
+        del cache
+        free_ms = cuda_ms(lambda: free_step(params, {"tokens": prompts}), iters=3, warmup=1)
+        mesh_ms = cuda_ms(lambda: mesh_step(placed, {"tokens": prompts}), iters=3, warmup=1)
+        print(f"  world of 1 NCCL rank, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: {cfg.arch_id} prefill "
+              f"(B={b}, T={t}) with DTensor parameters: {launches} flash-attention launches through the wrapper's "
+              f"local-shard path (expected {cfg.n_layers}); max |dlogits| against the mesh-free prefill {gap:.3e} "
+              f"(bitwise: {gap == 0.0}); {mesh_ms:.1f} ms against {free_ms:.1f} ms mesh-free; cache {placements}",
+              flush=True)
+        if launches != cfg.n_layers or counters["wkv6"].launches != 0:
+            raise AssertionError(f"expected {cfg.n_layers} flash launches on the mesh, got {launches}")
+        if not gap <= 1e-6 * float(free_logits.abs().max()):
+            raise AssertionError(f"the mesh prefill's logits differ from the mesh-free ones by {gap:.3e}")
+        del params, placed, logits, free_logits, model
+        torch.cuda.empty_cache()
+
+        t_cfg = {**TRAIN, "steps": MESH_TRAIN_STEPS}
+        runs = {}
+        for name, m in (("mesh-free", None), ("mesh", mesh)):
+            run = train_full_width("15", "llama3.2-3b", t_cfg, counters, mesh=m)
+            runs[name] = {"rows": run.rows, "secs": run.secs, "per_step": run.per_step, "peak_gb": run.peak_gb,
+                          "step_ms": 1e3 * sum(run.secs[1:]) / len(run.secs[1:])}
+            del run
+            torch.cuda.empty_cache()
+        free, on = runs["mesh-free"], runs["mesh"]
+        for i, ((ce, k, st), (fce, fk, fst), sec) in enumerate(zip(on["rows"], free["rows"], on["secs"])):
+            print(f"  step {i} on the mesh: ce {ce:.6f} (mesh-free {fce:.6f}), k {k} ({fk}), sim_time {st:.4f} "
+                  f"({fst:.4f}), {sec * 1e3:.1f} ms" + (" (untimed: first step)" if i == 0 else ""))
+            if k != fk or st != fst or not abs(ce - fce) <= MESH_CE_RTOL * abs(fce):
+                raise AssertionError(f"step {i} on the mesh: (ce, k, sim_time) {(ce, k, st)} against the mesh-free "
+                                     f"{(fce, fk, fst)} (ce rtol {MESH_CE_RTOL})")
+        if any(n != cfg.n_layers for n in on["per_step"]):
+            raise AssertionError(f"expected {cfg.n_layers} flash launches a step on the mesh, got {on['per_step']}")
+        print(f"  {on['step_ms']:.1f} ms a step on the mesh against {free['step_ms']:.1f} ms mesh-free (mean of steps "
+              f"1-{MESH_TRAIN_STEPS - 1}); peak memory {on['peak_gb']:.2f} GB against {free['peak_gb']:.2f} GB; "
+              f"flash launches a step {on['per_step']}", flush=True)
+        return {"prefill_gap": gap, "prefill_launches": launches, "prefill_ms": mesh_ms, "free_prefill_ms": free_ms,
+                "step_ms": on["step_ms"], "free_step_ms": free["step_ms"], "peak_gb": on["peak_gb"],
+                "free_peak_gb": free["peak_gb"], "rows": on["rows"], "train_launches": on["per_step"]}
+    finally:
+        sys.stdout.flush()
+        dist.destroy_process_group()
+
+
+def _sweep_world_rank(rank: int, world: int, store: str, out_dir: str, eta: float) -> None:
+    """Phase 15c on one of SWEEP_RANKS gloo ranks sharing the card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        out = _sweep_world_body(rank, eta)
+        torch.save(out, f"{out_dir}/rank{rank}.pt")
+    finally:
+        sys.stdout.flush()
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _sweep_world_body(rank: int, eta: float) -> dict:
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import prng
+    from repro_torch.core.sweep import run_sweep, sweep_cache_stats
+    from repro_torch.data import make_linreg_data
+    from repro_torch.launch import quickstart, train
+
+    data, keys = quickstart.inputs("fig2", device="cuda")
+    fig2 = quickstart.cases("fig2", data, eta)
+    other = [dataclasses.replace(c, eta=eta * 0.8, controller=dataclasses.replace(
+        c.controller, **({"k": c.controller.k - 5} if hasattr(c.controller, "k") else {"k0": 5}))) for c in fig2]
+    cfg = quickstart.SETUPS["fig2"]
+
+    def fig2_grid(cases, mesh, partition="auto"):
+        return run_sweep(quickstart.squared_error, torch.zeros(cfg["d"], device="cuda"), data.X, data.y,
+                         n_workers=cfg["n"], cases=cases, num_iters=ENGINE_ITERS, keys=keys,
+                         eval_every=cfg["eval_every"], device="cuda", mesh=mesh, partition=partition)
+
+    def timed(fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def arrays(res):
+        return tuple(getattr(res, f).cpu().numpy() for f in ("time", "loss", "k"))
+
+    out = {}
+    for shape in SWEEP_MESHES:
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=("cells", "replicas"))
+        res, wall = timed(lambda: fig2_grid(fig2, mesh))
+        out[shape] = {"fig2": arrays(res), "wall": wall}
+    # the first mesh's grid repopulated: other eta and k, the same program
+    before = sweep_cache_stats()["traces"]
+    repop, repop_wall = timed(lambda: fig2_grid(other, init_device_mesh("cpu", SWEEP_MESHES[0],
+                                                                        mesh_dim_names=("cells", "replicas"))))
+    out["repop"] = {"grid": arrays(repop), "wall": repop_wall, "new_captures": sweep_cache_stats()["traces"] - before}
+
+    args = train.parse_args(SIM_MIXED + ["--device", "cuda"])
+    mdata = make_linreg_data(prng.PRNGKey(args.seed, device="cuda"), m=args.sim_m, d=args.sim_d, device="cuda")
+    mixed = train.simulation_cases(args, quickstart.step_size(mdata.X))[MIXED_PICK]
+    n_slots = max(train._n_values(args))
+
+    def mixed_grid(mesh, partition="auto"):
+        return run_sweep(quickstart.squared_error, torch.zeros(args.sim_d, device="cuda"), mdata.X, mdata.y,
+                         n_workers=n_slots, cases=mixed, num_iters=args.steps,
+                         key=prng.PRNGKey(args.seed + 1, device="cuda"), n_replicas=args.replicas,
+                         eval_every=args.sim_eval_every, device="cuda", mesh=mesh, partition=partition)
+
+    res, wall = timed(lambda: mixed_grid(init_device_mesh("cpu", (2, 2), mesh_dim_names=("cells", "replicas"))))
+    out["mixed"] = {"grid": arrays(res), "wall": wall, "labels": [c.label for c in mixed],
+                    "lanes": len(mixed) * args.replicas, "iters": args.steps, "bar": float((mdata.y * mdata.y).mean())}
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(SIM_WORLD + ["--device", "cuda"])
+    out["simulate"] = buf.getvalue()
+    if rank == 0:  # the one-device grids, after the timed runs
+        out["fig2_one"] = arrays(fig2_grid(fig2, None, "none"))
+        out["repop_one"] = arrays(fig2_grid(other, None, "none"))
+        out["mixed_one"] = arrays(mixed_grid(None, "none"))
+    return out
+
+
+def hold_lanes(what: str, got: tuple, want: tuple, bar: float = math.inf,
+               loss_rtol: float = SWEEP_LOSS_RTOL) -> str:
+    """time and k bitwise per lane, the loss within ``loss_rtol`` where the
+    one-device grid's loss is below ``bar`` (a diverging lane, past the loss
+    at w = 0, amplifies a rounding step by step: its gap is reported, not
+    held, as phase 10 holds fig_byzantine's); returns a line that says what
+    was equal."""
+    import numpy as np
+
+    (gt, gl, gk), (wt, wl, wk) = got, want
+    if not (np.array_equal(gt, wt) and np.array_equal(gk, wk)):
+        bad = np.argwhere((gt != wt) | (gk != wk))
+        raise AssertionError(f"{what}: time or k differ from the one-device grid at (cell, replica, eval) "
+                             f"{bad[:4].tolist()}")
+    fin = np.isfinite(wl)
+    if not np.array_equal(np.isfinite(gl), fin) or not np.array_equal(gl[~fin], wl[~fin]):
+        raise AssertionError(f"{what}: the loss is not finite where the one-device grid's is, or differs there")
+    rel = np.abs(gl - wl) / np.maximum(np.abs(wl), 1e-30)
+    held = fin & (wl < bar)
+    gap = float(np.max(rel[held], initial=0.0))
+    past = float(np.max(rel[fin & ~held], initial=0.0))
+    by_cell = ", ".join(f"{float(np.max(rel[g][held[g]], initial=0.0)):.2e}" for g in range(wl.shape[0]))
+    if not gap <= loss_rtol:
+        raise AssertionError(f"{what}: loss differs from the one-device grid by {gap:.3e} (> {loss_rtol}); by cell "
+                             f"{by_cell}")
+    line = (f"time and k bitwise; loss {'bitwise' if gap == 0.0 else f'within {gap:.3e}'} at {int(held.sum())} "
+            f"eval points (bound {loss_rtol}; by cell {by_cell})")
+    if held.sum() < fin.sum():
+        line += f", {int(fin.sum() - held.sum())} past the divergence bar {bar:.4g} within {past:.3e} (reported)"
+    return line
+
+
+def sweep_world(eta: float) -> dict:
+    """Phase 15c: SWEEP_RANKS gloo ranks sharing the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    print(f"[15] {SWEEP_RANKS} gloo ranks sharing the card: fig2's grid ({ENGINE_ITERS} iterations) on "
+          f"('cells', 'replicas') meshes {list(SWEEP_MESHES)}, repopulated; 5 cells of phase 14's mixed grid on "
+          f"(2, 2); each against the one-device grid", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(_sweep_world_rank, args=(SWEEP_RANKS, f"{tmp}/store", tmp, eta), nprocs=SWEEP_RANKS,
+                           start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(SWEEP_RANKS)]
+    zero = ranks[0]
+    bitwise = {}
+    for shape in SWEEP_MESHES:
+        bitwise[shape] = hold_lanes(f"fig2 grid on {shape}", zero[shape]["fig2"], zero["fig2_one"])
+        lanes = 160 // (shape[0] * shape[1])
+        print(f"  fig2 grid on mesh {shape} ({lanes} lanes a rank): ms an iteration by rank "
+              + ", ".join(f"{1e3 * r[shape]['wall'] / ENGINE_ITERS:.3f}" for r in ranks)
+              + f" (capture and the gather included); against the one-device grid: {bitwise[shape]}")
+    rp = zero["repop"]
+    if any(r["repop"]["new_captures"] for r in ranks):
+        raise AssertionError(f"the repopulated grid captured {[r['repop']['new_captures'] for r in ranks]} new "
+                             "programs")
+    bitwise["repop"] = hold_lanes("fig2 grid repopulated", rp["grid"], zero["repop_one"])
+    print(f"  fig2 grid repopulated on {SWEEP_MESHES[0]} (other eta and k), no new capture: ms an iteration by rank "
+          + ", ".join(f"{1e3 * r['repop']['wall'] / ENGINE_ITERS:.3f}" for r in ranks)
+          + f" (the gather included); against the one-device grid: {bitwise['repop']}")
+    for r in ranks[1:]:
+        if any(not all(np.array_equal(a, b) for a, b in zip(r[k]["fig2" if k != "repop" else "grid"],
+                                                             zero[k]["fig2" if k != "repop" else "grid"]))
+               for k in (*SWEEP_MESHES, "repop")):
+            raise AssertionError("the ranks gathered different grids")
+    m = zero["mixed"]
+    bitwise["mixed"] = hold_lanes("mixed grid on (2, 2)", m["grid"], zero["mixed_one"], bar=m["bar"],
+                                  loss_rtol=ENGINE_LOSS_RTOL)
+    print(f"  mixed grid, cells {m['labels']} ({m['lanes']} lanes, {m['iters']} iterations) on (2, 2), cells padded "
+          f"5 -> 6: wall by rank " + ", ".join(f"{r['mixed']['wall']:.2f} s" for r in ranks)
+          + f"; against the one-device grid: {bitwise['mixed']}")
+    header = json.loads(zero["simulate"].splitlines()[0])
+    if header["processes"] != SWEEP_RANKS or header["mesh_shape"] != [SWEEP_RANKS, 1] or any(
+            r["simulate"] for r in ranks[1:]):
+        raise AssertionError(f"train --simulate in the world printed {header} (and lines on other ranks)")
+    print(f"  train --simulate ({' '.join(SIM_WORLD)}) in the world, rank 0's header: {json.dumps(header)}")
+    print(f"  the world's wall time {wall:.1f} s, spawn and CUDA contexts included", flush=True)
+    return {"ranks": [{str(s): {"ms_iter": 1e3 * r[s]["wall"] / ENGINE_ITERS, "wall": r[s]["wall"]}
+                       for s in SWEEP_MESHES} for r in ranks], "bitwise": bitwise, "wall": wall, "header": header}
+
+
+def distribution_phase(counters, eta: float) -> dict:
+    """Phase 15: blocked attention, the world-1 mesh and the 4-rank sweep."""
+    import tempfile
+
+    import torch
+    from repro_torch.core import montecarlo, sweep
+
+    phase_t0 = time.perf_counter()
+    # the earlier phases' programs hold CUDA-graph pools; the full-width run needs the card
+    montecarlo.clear_program_cache()
+    sweep.clear_sweep_cache()
+    torch.cuda.empty_cache()
+    print(f"[15] this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of the card's memory before phase 15",
+          flush=True)
+    out = {"blocked": blocked_attention(counters)}
+    print("[15] a world of one NCCL rank in a spawned process: llama3.2-3b prefill and train steps on DTensors",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["world1"] = in_spawned_process(functools.partial(mesh_world1_worker, f"{tmp}/store"))
+    out["sweep"] = sweep_world(eta)
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"  phase 15 took {out['phase_s']:.1f} s")
+    return out
+
+
 def prng_key(seed: int):
     from repro_torch.core import prng
 
@@ -2675,8 +3049,14 @@ def count_kernels(fn) -> int:
     return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+
+    args = sys.argv[1:] if argv is None else argv
+    if args not in ([], ["--only", "15"]):
+        print(f"usage: {Path(__file__).name} [--only 15]", file=sys.stderr)
+        return 2
+    only_phase15 = args == ["--only", "15"]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2730,6 +3110,13 @@ def main() -> int:
     print(f"[2] wkv6_sm90 SASS (cuobjdump -sass): {wkv_sass}")
     if not all(wkv_sass.values()):
         raise AssertionError(f"the tensor-core wkv6 kernel lacks mma.sync, wgmma or cp.async instructions: {wkv_sass}")
+
+    if only_phase15:  # a check of phase 15 alone: no kernels line and no last line
+        from repro_torch.launch import quickstart
+
+        data, _ = quickstart.inputs("fig2", device="cuda")
+        distribution_phase({"flash_attention": ops, "wkv6": wkv_ops}, quickstart.step_size(data.X))
+        return 0
 
     # 3. kernel vs plain
     print("[3] flash attention, kernel vs plain version (f32: scalar route; bf16: wgmma + TMA route)")
@@ -2866,7 +3253,11 @@ def main() -> int:
     sys.stdout.flush()
     experiments_phase()
 
-    # 15. summary
+    # 15. distribution and blocked attention: the mesh's prefill and train step run the kernels on local shards
+    sys.stdout.flush()
+    p15 = distribution_phase(counters, p7["eta"])
+
+    # 16. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -2882,6 +3273,8 @@ def main() -> int:
         "f32_source": "src/repro_torch/kernels/attention/csrc/flash_attn.cu",
         "f32_ms": f32_ms,
         "train_launches": p11["llama"]["launches"],
+        "mesh_prefill_launches": p15["world1"]["prefill_launches"],
+        "mesh_train_launches": p15["world1"]["train_launches"],
         "family_shapes": {arch: {**p12["kernel"][arch], "shape": list(FAMILY_SHAPES[arch]),
                                  "launches": p12["serve"][arch]["launches"]}
                           for arch in FAMILY_SHAPES},
@@ -2912,7 +3305,7 @@ def main() -> int:
         "scalar_bound_by": scalar_bound_by,
         "train_launches": p11["smoke"]["rwkv_sync_wkv_launches"],
     }]
-    print(f"[15] chip_smoke.py took {time.perf_counter() - script_t0:.1f} s")
+    print(f"[16] chip_smoke.py took {time.perf_counter() - script_t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

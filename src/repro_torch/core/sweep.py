@@ -53,8 +53,21 @@ arithmetic is the looped step's, op for op.  Time and k agree bit for bit
 ulps, because the reduction of vmap's lane-minor per-example losses rounds
 differently for another lane count (PERF.md §6).
 
-A grid runs on one device: the mesh (with the inert zero-row cell padding
-and buffer donation it needs) waits for ROADMAP Queue 1 item 13.
+The grid is dispatched over a 2-D ``("cells", "replicas")`` mesh
+(`launch.mesh`), taken from the ``mesh=`` argument, else
+`shardctx.current_sweep_mesh()`, else `make_sweep_mesh(G, R)` over the
+ranks of the default process group (with none initialised, a 1 x 1
+stand-in: one device, no collective, the historical path).  Each axis pads
+to its mesh-axis multiple (cells with inert all-zero rows, replicas by
+repeating key 0), the padded grid flattens cell-major into one lane axis,
+and each rank runs its own contiguous block of Gp·Rp/(mc·mr) lanes through
+the one-device program above (captured as CUDA graphs on the card), then
+all-gathers time, loss and k over the mesh, outside any capture, and
+slices the padding off.  Lanes do no arithmetic across each other, so this
+is exactly the reference's ``shard_map`` dispatch, and ``"auto"`` takes
+the same path; ``partition="none"`` stays on one device.  The reference's
+buffer donation has no counterpart: the program holds its inputs in
+static buffers.
 
     cases = [SweepCase(PflugController(n_workers=50, k0=10, step=10, thresh=10),
                        Exponential(rate=1.0), eta=1e-2, label="adaptive"),
@@ -75,8 +88,9 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, shardctx
 from repro_torch.core import aggregation, execmode, faults, prng
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.core.controller import (
     FixedKController,
     PflugController,
@@ -766,8 +780,8 @@ def _lane_comm_time(cp: _CellParams, k):
 
 
 # (source token, n_workers, num_iters, eval_every, unroll, n_switch_slots,
-#  n_sched_slots, sketch_dim, partition, GridSignature, device, capture,
-#  threefry mode) -> program: the reference's key without the mesh, plus
+#  n_sched_slots, sketch_dim, partition, (mc, mr, n_proc), GridSignature,
+#  device, capture, threefry mode) -> program: the reference's key, plus
 # what decides a torch program.  Under each entry the program captures once
 # per shape signature of its inputs (grid size, params and data shapes), as
 # jit retraces on new shapes; a grid of a known signature loads into the
@@ -819,9 +833,10 @@ def run_sweep_source(
     replica r of every cell uses key r.  ``specialize``, ``unroll`` (None:
     `_auto_unroll`), ``n_switch_slots`` and ``n_sched_slots`` are the
     reference's.  ``partition`` takes the reference's values ("auto",
-    "shard_map", "none"); on one device all three run the same program, as
-    the reference's do.  ``mesh`` must be None: distribution is ROADMAP
-    Queue 1 item 13.  ``capture`` (CUDA only) replays CUDA graphs; False
+    "shard_map", "none"): the first two dispatch over the ``("cells",
+    "replicas")`` mesh (``mesh``, else `shardctx.current_sweep_mesh`, else
+    `launch.mesh.make_sweep_mesh`; see the module docstring), "none" runs on
+    one device.  ``capture`` (CUDA only) replays CUDA graphs; False
     runs the same step eagerly.  The threefry mode in force applies to the
     whole run.  Cell g, replica r is the looped engine's replica r of
     ``cases[g]`` with the same key.
@@ -847,10 +862,6 @@ def run_sweep_source(
         raise ValueError(f"num_iters must be positive, got {num_iters}")
     if partition not in ("auto", "shard_map", "none"):
         raise ValueError(f"unknown partition {partition!r}")
-    if mesh is not None:
-        raise NotImplementedError("a sweep mesh waits for the port of launch/mesh.py and launch/sharding.py "
-                                  "(ROADMAP Queue 1 item 13); the port runs a grid on one device")
-
     if n_switch_slots is None:
         n_switch_slots = max([1] + [len(list(c.controller.switch_times)) for c in cases
                                     if isinstance(c.controller, ScheduleController)])
@@ -869,24 +880,73 @@ def run_sweep_source(
         unroll = _auto_unroll(sig)
 
     g, r = len(cases), keys.shape[0]
+    if partition == "none":
+        mesh = mesh_lib.HostMesh(("cells", "replicas"))
+    else:
+        if mesh is None:
+            mesh = shardctx.current_sweep_mesh()
+        if mesh is None:
+            mesh = mesh_lib.make_sweep_mesh(g, r)
+        if mesh_lib.axis_names(mesh) != ("cells", "replicas"):
+            raise ValueError(f"sweep mesh must have axes ('cells', 'replicas'), got {mesh_lib.axis_names(mesh)}")
+    mc, mr = mesh_lib.axis_sizes(mesh).values()
+    n_proc = len(mesh_lib.mesh_ranks(mesh))
+
+    # Pad each grid axis to its mesh-axis multiple: cells with inert
+    # all-zero rows (zero-rate samplers draw +inf, n_active = 0 holds all
+    # data out, and whatever they compute stays in their own lanes), never
+    # copies of a real cell; replicas by repeating key 0.  The padded grid
+    # flattens cell-major, so each mesh position's lane block is contiguous.
+    gp, rp = g + (-g) % mc, r + (-r) % mr
     cells = _stack_cells(cells_np, dev)
-    cell_idx = torch.arange(g, device=dev).repeat_interleave(r)
-    rep_idx = torch.arange(r, device=dev).repeat(g)
+    if gp > g:
+        cells = tree_map(lambda a: torch.cat([a, a.new_zeros((gp - g,) + tuple(a.shape[1:]))]), cells)
+    if rp > r:
+        keys = keys[torch.cat([torch.arange(r, device=dev), torch.zeros(rp - r, dtype=torch.int64, device=dev)])]
+    n_lanes = gp * rp // (mc * mr)
+    first = mesh_lib.flat_index(mesh) * n_lanes
+    lane = torch.arange(first, first + n_lanes, device=dev)
+    cell_idx, rep_idx = lane // rp, lane % rp
     flat_cells = tree_map(lambda a: a[cell_idx], cells)
     inputs = _Inputs(params0=params0, data=data, keys=keys[rep_idx], lanes=_lanes_of(flat_cells, sig.modes))
 
     capture = bool(capture) and dev.type == "cuda"
     partitionable = prng.is_partitionable()
     cache_key = (source.cache_token(), n_workers, int(num_iters), int(eval_every), int(unroll), int(n_switch_slots),
-                 int(n_sched_slots), int(sketch_dim), partition, sig, str(dev), capture, partitionable)
+                 int(n_sched_slots), int(sketch_dim), partition, (mc, mr, n_proc), sig, str(dev), capture,
+                 partitionable)
     program = _PROGRAM_CACHE.get(cache_key)
     if program is None:
         program = _Program(_GridEngine(source, n_workers, sketch_dim, sig), int(num_iters), int(eval_every),
                            int(unroll), capture, partitionable, _count_build)
         _PROGRAM_CACHE[cache_key] = program
-    times, losses, ks = (a.reshape(g, r, -1) for a in program(inputs))
+    out = program(inputs)
+    if n_proc > 1:
+        out = _gather_lanes(out, mesh)
+    times, losses, ks = (a.reshape(gp, rp, -1)[:g, :r] for a in out)
     iteration = np.minimum(np.arange(1, times.shape[-1] + 1) * eval_every, num_iters).astype(np.int64)
     return SweepResult(time=times, loss=losses, k=ks, iteration=iteration, labels=tuple(labels))
+
+
+def _gather_lanes(blocks, mesh):
+    """Every rank's (n_lanes, ...) result blocks, all-gathered over the
+    mesh's ranks and joined in the mesh's row-major order (the lane order).
+    NCCL gathers the device tensors; gloo gathers CPU copies, the only
+    tensors it takes for every collective.  Runs after the program,
+    outside any graph capture."""
+    import torch.distributed as dist
+
+    ranks = mesh_lib.mesh_ranks(mesh)
+    group = None if sorted(ranks) == list(range(dist.get_world_size())) else mesh._flatten().get_group()
+    on_device = dist.get_backend(group) == "nccl"
+    order = [r if group is None else dist.get_group_rank(group, r) for r in ranks]
+    out = []
+    for x in blocks:
+        x = x.contiguous() if on_device else x.cpu().contiguous()
+        parts = [torch.empty_like(x) for _ in range(len(ranks))]
+        dist.all_gather(parts, x, group=group)
+        out.append(torch.cat([parts[i] for i in order]).to(blocks[0].device))
+    return out
 
 
 def run_sweep(

@@ -15,6 +15,8 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch.shardctx import is_dtensor
+
 __all__ = ["leaves_with_keys", "leaves_with_path", "tree_leaves", "tree_dot", "first_leaf", "map_with_index"]
 
 
@@ -68,11 +70,38 @@ def tree_dot(a, b) -> torch.Tensor:
     (`jax.tree.reduce(jnp.add, jax.tree.map(jnp.vdot, a, b))`)."""
     total = None
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
-        d = torch.dot(x.to(torch.float32).reshape(-1), y.to(torch.float32).reshape(-1))
+        if is_dtensor(x) or is_dtensor(y):
+            d = _sharded_dot(x, y)
+        else:
+            d = torch.dot(x.to(torch.float32).reshape(-1), y.to(torch.float32).reshape(-1))
         total = d if total is None else total + d
     if total is None:
         raise ValueError("tree_dot of an empty pytree")
     return total
+
+
+def _sharded_dot(x, y) -> torch.Tensor:
+    """<x, y> in float32 of two leaves, one at least a DTensor: y in x's
+    layout (a partial x summed first), each rank's dot of its shards, and
+    the shards' dots summed over the mesh dims that split them.  A plain
+    tensor, replicated on every rank.  On a world of one rank it is the
+    plain dot, bit for bit."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, distribute_tensor
+
+    if not is_dtensor(x):
+        x, y = y, x
+    placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    mesh = x.device_mesh
+    x = x.redistribute(mesh, placements) if tuple(x.placements) != placements else x
+    if is_dtensor(y):
+        y = y.redistribute(mesh, placements) if tuple(y.placements) != placements else y
+    else:
+        y = distribute_tensor(y, mesh, placements, src_data_rank=None)
+    d = torch.dot(x.to_local().to(torch.float32).reshape(-1), y.to_local().to(torch.float32).reshape(-1))
+    if not any(p.is_shard() for p in placements):
+        return d
+    sums = tuple(Partial() if p.is_shard() else Replicate() for p in placements)
+    return DTensor.from_local(d, mesh, sums, run_check=False).full_tensor()
 
 
 def first_leaf(tree) -> torch.Tensor:

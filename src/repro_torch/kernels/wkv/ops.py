@@ -9,6 +9,13 @@ CPU tensor, goes to the plain version in `ref.py`, which autograd can
 differentiate.  The kernels are forward-only: on CUDA tensors under grad
 mode with an input that requires grad the wrapper raises
 (`kernels.forbid_autograd`).
+
+Under a mesh it takes DTensors (u and s0 may be plain tensors that every
+rank holds whole).  A layout that shards T, K or V is first redistributed
+to one that shards only the batch and the heads (an explicit gather: the
+scan needs whole sequences and whole K x V states; rwkv6-3b's 40 heads on
+a model axis that does not divide them shard hd, which is gathered here),
+then the kernel runs on each rank's local shard, each launch counted.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 
 from repro_torch.kernels import forbid_autograd
 from repro_torch.kernels.wkv import kernel, ref
+from repro_torch.shardctx import is_dtensor, on_local_shards
 
 # Kernel launches since import or since a caller last set them to 0: all of
 # them, and by route.
@@ -44,6 +52,8 @@ def wkv6(
     chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
+    if is_dtensor(r):
+        return _wkv6_sharded(r, k, v, w, u, s0, chunk=chunk)
     run = min(chunk, r.shape[1])
     if run > kernel.MAX_DIM:
         # The JAX package caps the Pallas kernel's chunk at 64 for its VMEM
@@ -58,3 +68,11 @@ def wkv6(
     launches += 1
     route_launches[name] += 1
     return out
+
+
+def _wkv6_sharded(r, k, v, w, u, s0, *, chunk: int):
+    """`wkv6` on DTensor r: each rank's (batch, heads) shard through the
+    kernel (`shardctx.on_local_shards`); u (H, K) and s0 (B, H, K, V)
+    follow the layout r, k, v and w decide."""
+    return on_local_shards(lambda *xs: wkv6(*xs, chunk=chunk), (r, k, v, w, u, s0),
+                           [(0, 2)] * 4 + [(None, 0), (0, 1)], (r.shape[2],), [(0, 2), (0, 1)])

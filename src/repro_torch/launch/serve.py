@@ -32,6 +32,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint import convert
 from repro_torch.configs import ModelConfig, get_config, get_smoke_config, list_archs
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import is_device_mesh
 from repro_torch.launch.specs import stub_inputs
 from repro_torch.models import Model, build_model
 
@@ -57,23 +59,48 @@ def random_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int, dev
     return torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=_generator(seed, dev), device=dev)
 
 
-def _grow_kv_cache(model: Model, cache: dict, batch: int, total: int, window: int) -> dict:
+def _grow_kv_cache(model: Model, cache: dict, batch: int, total: int, window: int, mesh=None) -> dict:
     """The prefill KV cache copied into one of `total` positions (or the
     ring of `window` slots); the prefill cache itself when that is no longer.
-    Only k and v grow: hybrid's SSM state goes through as it is."""
+    Only k and v grow: hybrid's SSM state goes through as it is.  Under a
+    mesh the grown cache is the prefill cache and zeros joined along the
+    sequence, placed by `sharding.batch_shardings`."""
     s = cache["k"].shape[2]
     full = model.init_cache(batch, total, window)
     if full["k"].shape[2] <= s:
         return cache
+    if mesh is not None:
+        full = sharding.place_batch(full, mesh)
+        grown = {kk: torch.cat([cache[kk], full[kk][:, :, s:]], dim=2) for kk in ("k", "v")}
+        return sharding.place_batch({**cache, **grown}, mesh)
     for kk in ("k", "v"):
         full[kk][:, :, :s] = cache[kk]
     return {**cache, "k": full["k"], "v": full["v"]}
 
 
-@torch.inference_mode()
 def generate(model: Model, params: dict, prompts: torch.Tensor, new_tokens: int,
              *, window: int = 0, patches: torch.Tensor | None = None,
-             frames: torch.Tensor | None = None) -> ServeResult:
+             frames: torch.Tensor | None = None, mesh=None) -> ServeResult:
+    """`_generate` under `torch.inference_mode`; under a DeviceMesh
+    ``mesh``, with the parameters placed by `sharding.place_state` (every
+    rank passes the same whole ``params`` and prompts, or the placed
+    DTensors), the prompts, stubs and caches by `sharding.batch_shardings`,
+    all under `sharding.mesh_context` and `torch.no_grad`; the tokens and
+    logits come back whole on every rank."""
+    if not is_device_mesh(mesh):
+        with torch.inference_mode():
+            return _generate(model, params, prompts, new_tokens, window=window, patches=patches, frames=frames)
+    with torch.no_grad(), sharding.mesh_context(mesh):
+        placed = sharding.place_batch({"tokens": prompts, "patches": patches, "frames": frames}, mesh)
+        res = _generate(model, sharding.place_state(params, mesh), placed["tokens"], new_tokens, window=window,
+                        patches=placed["patches"], frames=placed["frames"], mesh=mesh)
+        return res._replace(tokens=sharding.gathered(res.tokens),
+                            prefill_logits=sharding.gathered(res.prefill_logits))
+
+
+def _generate(model: Model, params: dict, prompts: torch.Tensor, new_tokens: int,
+              *, window: int = 0, patches: torch.Tensor | None = None,
+              frames: torch.Tensor | None = None, mesh=None) -> ServeResult:
     """Prefill `prompts` (B, T), then take new_tokens - 1 greedy decode steps.
 
     A KV cache (dense, moe, hybrid, vlm, encdec) is copied into a cache
@@ -95,8 +122,10 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, new_tokens: int,
     t0 = time.perf_counter()
     enc_out = model.encode(params, frames.to(dev)) if frames is not None and model.cfg.family == "encdec" else None
     logits, cache = model.prefill(params, batch, window=window, enc_out=enc_out)
+    if mesh is not None:
+        cache = sharding.place_batch(cache, mesh)
     if model.cfg.family != "ssm":
-        cache = _grow_kv_cache(model, cache, b, n_prefix + t + new_tokens, window)
+        cache = _grow_kv_cache(model, cache, b, n_prefix + t + new_tokens, window, mesh)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 

@@ -38,12 +38,14 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import aggregation, execmode
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import is_device_mesh
 from repro_torch.launch.specs import window_for
 from repro_torch.models.model import Model, build_model
 from repro_torch.optim.optimizers import Optimizer
 
-__all__ = ["TrainState", "init_train_state", "per_row_loss_fn", "make_train_step", "make_prefill_step",
-           "make_decode_step"]
+__all__ = ["TrainState", "init_train_state", "place_train_state", "per_row_loss_fn", "make_train_step",
+           "make_prefill_step", "make_decode_step"]
 
 
 class TrainState(NamedTuple):
@@ -57,17 +59,32 @@ class TrainState(NamedTuple):
     exec_async: Any = None
 
 
-def init_train_state(opt: Optimizer, controller, params) -> TrainState:
+def init_train_state(opt: Optimizer, controller, params, mesh=None) -> TrainState:
     """The state at step 0 around ``params`` (``model.init(generator)``, or
-    the reference's weights through `params_from_jax`), on their device."""
+    the reference's weights through `params_from_jax`), on their device;
+    under a DeviceMesh ``mesh``, placed by `place_train_state`.  Every rank
+    passes the same whole ``params`` and keeps its own slice."""
     dev = tree_flatten(params)[0][0].device
-    return TrainState(
+    state = TrainState(
         params=params,
         opt_state=opt.init(params),
         ctrl_state=controller.init(params),
         sim_time=torch.zeros((), dtype=torch.float32, device=dev),
         step=torch.zeros((), dtype=torch.int32, device=dev),
     )
+    return state if mesh is None else place_train_state(state, mesh)
+
+
+def place_train_state(state: TrainState, mesh) -> TrainState:
+    """The state under ``mesh``: the parameters, the optimizer's moments,
+    the controller's parameter-shaped leaves (Pflug's prev_grad) and the
+    async modes' per-worker snapshots are DTensors placed by
+    `sharding.param_shardings`' leaf-name rules (`sharding.place_state`);
+    scalars stay plain.  A no-op on a `launch.mesh.HostMesh`."""
+    return state._replace(params=sharding.place_state(state.params, mesh),
+                          opt_state=sharding.place_state(state.opt_state, mesh),
+                          ctrl_state=sharding.place_state(state.ctrl_state, mesh),
+                          exec_async=sharding.place_state(state.exec_async, mesh))
 
 
 def per_row_loss_fn(model: Model) -> Callable:
@@ -128,6 +145,7 @@ def make_train_step(
     comm: Optional[aggregation.CommModel] = None,
     n_micro: int = 1,
     mode: str = "sync",
+    mesh=None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor], torch.Tensor], Tuple[TrainState, Dict]]:
     """``train_step(state, batch, key) -> (state, metrics)`` for a worker
     count and policy.  Workers are contiguous worker-major row shards of
@@ -139,12 +157,22 @@ def make_train_step(
     layout kept inside each, and the f32 sum is the single-shot gradient up
     to rounding.  The first async call builds the renewal state from the
     parameters (n_workers snapshots).
+
+    With a DeviceMesh ``mesh`` the step takes the state of
+    `init_train_state(..., mesh=mesh)`: the batch is placed by
+    `sharding.batch_shardings` and the step runs under
+    `sharding.mesh_context` (the activation resolver, as the reference's
+    train CLI installs it), so every product runs on DTensors and DTensor
+    inserts the collectives.  The straggler draw, the ranking and k are
+    plain tensors that every rank computes whole from the same key; the
+    metrics come back as plain tensors.
     """
     if mode not in execmode.MODES:
         raise ValueError(f"unknown mode {mode!r}; options {sorted(execmode.MODES)}")
     if mode != "sync" and n_micro != 1:
         raise ValueError("gradient accumulation (n_micro > 1) is sync-only")
     mode_idx = execmode.MODES[mode]
+    mesh = mesh if is_device_mesh(mesh) else None
     # Gradients take the plain path: the kernels are forward-only.
     grad_model = build_model(model.cfg.replace(use_kernels=False), model.device)
     per_row = per_row_loss_fn(grad_model)
@@ -166,6 +194,14 @@ def make_train_step(
         return straggler.sample(sub, n_workers)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], key: torch.Tensor):
+        if mesh is None:
+            return local_step(state, batch, key)
+        with sharding.mesh_context(mesh):
+            new_state, metrics = local_step(state, sharding.place_batch(batch, mesh), key)
+        new_state = new_state._replace(ctrl_state=sharding.gathered_scalars(new_state.ctrl_state))
+        return new_state, sharding.gathered(metrics)
+
+    def local_step(state: TrainState, batch: Dict[str, torch.Tensor], key: torch.Tensor):
         b = batch["tokens"].shape[0]
         if b % n_workers:
             raise ValueError(f"batch {b} is not divisible by n_workers {n_workers}")
@@ -257,24 +293,42 @@ def make_train_step(
     return train_step
 
 
-def make_prefill_step(model: Model, cfg: ModelConfig, shape: InputShape):
+def make_prefill_step(model: Model, cfg: ModelConfig, shape: InputShape, mesh=None):
     """``prefill_step(params, batch)``: the model's prefill at the input
-    shape's attention window (`specs.window_for`)."""
+    shape's attention window (`specs.window_for`).  Under a DeviceMesh
+    ``mesh`` the parameters are those of `sharding.place_state`, the batch
+    is placed by `sharding.batch_shardings`, the prefill runs under
+    `sharding.mesh_context`, and the returned cache is placed by
+    `batch_shardings` too (DTensor logits and cache)."""
     w = window_for(cfg, shape)
+    mesh = mesh if is_device_mesh(mesh) else None
 
     def prefill_step(params, batch):
-        return model.prefill(params, batch, window=w)
+        if mesh is None:
+            return model.prefill(params, batch, window=w)
+        with sharding.mesh_context(mesh):
+            logits, cache = model.prefill(params, sharding.place_batch(batch, mesh), window=w)
+            return logits, sharding.place_batch(cache, mesh)
 
     return prefill_step
 
 
-def make_decode_step(model: Model, cfg: ModelConfig, shape: InputShape):
+def make_decode_step(model: Model, cfg: ModelConfig, shape: InputShape, mesh=None):
     """``decode_step(params, token, cache, pos, **extras)``: one decode step
     at the input shape's attention window; ``extras`` are encdec's
-    ``enc_out`` or ``frames``."""
+    ``enc_out`` or ``frames``.  Under a DeviceMesh ``mesh`` the token,
+    the cache and the extras are placed by `sharding.batch_shardings` and
+    the step runs under `sharding.mesh_context`; the cache is updated in
+    place, shard by shard."""
     w = window_for(cfg, shape)
+    mesh = mesh if is_device_mesh(mesh) else None
 
     def decode_step(params, token, cache, pos, **extras):
-        return model.decode_step(params, token, cache, pos, window=w, **extras)
+        if mesh is None:
+            return model.decode_step(params, token, cache, pos, window=w, **extras)
+        with sharding.mesh_context(mesh):
+            placed = sharding.place_batch({"token": token, "cache": cache, **extras}, mesh)
+            token, cache = placed.pop("token"), placed.pop("cache")
+            return model.decode_step(params, token, cache, pos, window=w, **placed)
 
     return decode_step

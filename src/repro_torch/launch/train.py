@@ -31,9 +31,18 @@ as the reference's CLI prints them:
         --sim-controllers pflug,fixed --sim-stragglers exponential,pareto \\
         --steps 300 --replicas 4 --n-workers 20
 
-Not ported yet (each flag raises, naming its ROADMAP item):
-``--production-mesh`` and ``--distributed`` (item 13), ``--cache-dir``
-(item 12).
+``--distributed`` joins the default process group from torchrun's
+environment before anything builds a program (NCCL on CUDA, gloo on the
+CPU); the sweep then dispatches over a ("cells", "replicas") mesh of every
+rank, and the LM loop runs on the ("data", "model") mesh —
+``--production-mesh``'s (16, 16) over 256 ranks, else the (1, 1) host
+mesh — with its state placed by `launch.sharding` and its step under the
+activation resolver.  Only rank 0 prints and writes checkpoints:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --distributed --simulate --device cpu \
+        --steps 300 --replicas 4
+
+Not ported yet: ``--cache-dir`` (ROADMAP item 12) raises.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ from repro_torch.core.faults import byzantine_plan
 from repro_torch.core.straggler import Exponential, RateSchedule, WorkerFleet, get_straggler_model
 from repro_torch.core.sweep import SweepCase, run_sweep, summarize_cells
 from repro_torch.data import TokenStream, make_linreg_data
-from repro_torch.launch import steps as steps_lib
+from repro_torch.launch import mesh as mesh_lib, sharding, steps as steps_lib
 from repro_torch.launch.quickstart import squared_error, step_size
 from repro_torch.launch.specs import stub_inputs
 from repro_torch.models import build_model
@@ -61,10 +70,39 @@ from repro_torch.optim import get_optimizer
 
 # Flags of the reference's CLI whose machinery is not ported, and where it waits.
 NOT_PORTED = {
-    "production_mesh": "distribution (ROADMAP Queue 1 item 13)",
-    "distributed": "distribution (ROADMAP Queue 1 item 13)",
     "cache_dir": "the persistent compilation cache (ROADMAP Queue 1 item 12)",
 }
+
+# What torchrun sets for each process, and --distributed reads.
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def init_distributed(device) -> str:
+    """``--distributed``: the default process group from torchrun's
+    environment (NCCL for CUDA, with this process on ``cuda:LOCAL_RANK``;
+    gloo for the CPU), unless one is initialised already.  Returns the
+    device string this process runs on."""
+    import os
+
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        return str(dev)
+    missing = [v for v in TORCHRUN_ENV if v not in os.environ]
+    if missing:
+        raise SystemExit(f"--distributed: no process group is initialised and the torchrun environment lacks "
+                         f"{missing}; launch with torchrun --nproc-per-node N -m repro_torch.launch.train "
+                         "--distributed ...")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://")
+    return str(dev)
+
+
+def _is_rank0() -> bool:
+    return mesh_lib.world()[1] == 0
 
 
 def _parse_pair(spec, flag, cast=float):
@@ -228,12 +266,17 @@ def run_simulation(args, eta: float | None = None) -> dict:
                        eval_every=args.sim_eval_every, device=dev)
     stats = summarize_cells(result)
     wall = time.perf_counter() - t0
-    # the port has no sweep mesh (ROADMAP item 13): one device, as the
-    # reference's mesh is on one
+    # the sweep ran over make_sweep_mesh: the world of the default process
+    # group (one process per device), or one device without one
+    n_world, _ = mesh_lib.world()
+    one_process = n_world == 1 and not torch.distributed.is_initialized()
     header = {"grid_cells": len(cases), "replicas": args.replicas, "iters": args.steps, "dispatches": 1,
-              "devices": torch.cuda.device_count() if dev.type == "cuda" else 1, "processes": 1,
-              "mesh_shape": [1, 1], "wall_s": round(wall, 2)}
-    print(json.dumps(header))
+              "devices": (torch.cuda.device_count() if dev.type == "cuda" else 1) if one_process else n_world,
+              "processes": n_world,
+              "mesh_shape": list(mesh_lib.sweep_mesh_shape(n_world, len(cases), args.replicas)),
+              "wall_s": round(wall, 2)}
+    say = print if _is_rank0() else (lambda *a, **k: None)
+    say(json.dumps(header))
     cells = []
     for label, s in stats.items():
         cells.append({
@@ -243,15 +286,15 @@ def run_simulation(args, eta: float | None = None) -> dict:
             "sim_time": round(float(s["time_mean"][-1]), 2),
             "k_final": round(float(s["k_mean"][-1]), 2),
         })
-        print(json.dumps(cells[-1]), flush=True)
-    if args.sim_csv:
+        say(json.dumps(cells[-1]), flush=True)
+    if args.sim_csv and _is_rank0():
         with open(args.sim_csv, "w") as f:
             f.write("cell,iteration,time_mean,time_ci95,loss_mean,loss_ci95,k_mean\n")
             for label, s in stats.items():
                 for i in range(len(s["iteration"])):
                     f.write(f"{label},{s['iteration'][i]},{s['time_mean'][i]:.3f},{s['time_ci95'][i]:.4f},"
                             f"{s['loss_mean'][i]:.6g},{s['loss_ci95'][i]:.6g},{s['k_mean'][i]:.2f}\n")
-        print(f"wrote {args.sim_csv}")
+        say(f"wrote {args.sim_csv}")
     return {"header": header, "cells": cells, "f_star": data.f_star, "eta": eta, "cases": cases,
             "result": result, "stats": stats}
 
@@ -353,8 +396,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sim-d", type=int, default=20, help="simulate: problem dimension")
     ap.add_argument("--sim-eval-every", type=int, default=500)
     ap.add_argument("--sim-csv", default=None, help="simulate: write per-cell trajectories to this CSV")
-    ap.add_argument("--production-mesh", action="store_true", help="not ported: raises")
-    ap.add_argument("--distributed", action="store_true", help="not ported: raises")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="train on the (16, 16) ('data', 'model') mesh: needs a world of 256 ranks")
+    ap.add_argument("--distributed", action="store_true",
+                    help="initialise torch.distributed from torchrun's environment (NCCL on CUDA, gloo on the "
+                         "CPU): meshes — the LM mesh and the sweep engine's (cells, replicas) mesh alike — then "
+                         "span every process")
     ap.add_argument("--cache-dir", default=None, metavar="DIR", help="not ported: raises")
     return ap.parse_args(argv)
 
@@ -364,12 +411,21 @@ def main(argv=None):
     for flag, what in NOT_PORTED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not ported yet")
+    # before anything builds a program: the process group defines the world
+    # every mesh spans
+    if args.distributed:
+        args.device = init_distributed(args.device)
     if args.simulate:
         return run_simulation(args)
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, dev)
+    try:
+        mesh = mesh_lib.make_production_mesh() if args.production_mesh else mesh_lib.make_host_mesh()
+    except ValueError as e:
+        raise SystemExit(f"--production-mesh: {e}" if args.production_mesh else str(e))
+    say = print if _is_rank0() else (lambda *a, **k: None)
     n_workers = args.n_workers
     if args.batch % n_workers:
         raise SystemExit(f"--batch {args.batch} must be divisible by --n-workers {n_workers}")
@@ -378,7 +434,8 @@ def main(argv=None):
     straggler = get_straggler_model(args.straggler)
     controller = make_controller(args, n_workers, straggler)
     comm = CommModel(alpha=args.comm_alpha, beta=args.comm_beta)
-    train_step = steps_lib.make_train_step(model, opt, controller, straggler, n_workers, comm, mode=args.mode)
+    train_step = steps_lib.make_train_step(model, opt, controller, straggler, n_workers, comm, mode=args.mode,
+                                           mesh=mesh)
     data = TokenStream(vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch, seed=args.seed,
                        device=args.device)
 
@@ -397,7 +454,10 @@ def main(argv=None):
                 like = state._replace(exec_async=(c.worker_params, c.remaining, c.staleness, c.pending))
             state = checkpoint.restore(args.ckpt_dir, latest, like)
             start = latest
-            print(f"restored step {latest} from {args.ckpt_dir}")
+            say(f"restored step {latest} from {args.ckpt_dir}")
+    # the mesh's layout (a no-op on the one-device stand-in), as the
+    # reference's loop runs inside its mesh and activation resolver
+    state = steps_lib.place_train_state(state, mesh)
 
     stubs = stub_inputs(cfg, args.batch, dev)
     t0 = time.time()
@@ -406,7 +466,7 @@ def main(argv=None):
         key, sub = prng.split(key).unbind(0)
         state, metrics = train_step(state, {"tokens": tokens, "targets": targets, **stubs}, sub)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(json.dumps({
+            say(json.dumps({
                 "step": step,
                 "ce": round(float(metrics["ce"]), 4),
                 "k": int(metrics["k"]),
@@ -415,10 +475,17 @@ def main(argv=None):
                 "wall_s": round(time.time() - t0, 1),
             }), flush=True)
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            checkpoint.save(args.ckpt_dir, step + 1, state)
+            _save(args.ckpt_dir, step + 1, state)
     if args.ckpt_dir:
-        checkpoint.save(args.ckpt_dir, args.steps, state)
-        print(f"saved final checkpoint at step {args.steps}")
+        _save(args.ckpt_dir, args.steps, state)
+        say(f"saved final checkpoint at step {args.steps}")
+
+
+def _save(ckpt_dir: str, step: int, state) -> None:
+    """Every rank gathers the state whole (DTensor leaves), rank 0 writes it."""
+    state = sharding.gathered(state)
+    if _is_rank0():
+        checkpoint.save(ckpt_dir, step, state)
 
 
 if __name__ == "__main__":

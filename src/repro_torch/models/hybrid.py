@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, linear_scan
 from repro_torch.models.layers import _dense_init, _dtype
+from repro_torch.shardctx import constrain_alt
 
 
 def ssm_branch_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple = ()) -> dict:
@@ -43,7 +44,8 @@ def ssm_branch(params, cfg: ModelConfig, x: torch.Tensor,
                s0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,T,D) -> (y (B,T,D), final state (B,H,N,P) f32)."""
     h, hd, n = cfg.n_heads, cfg.resolved_head_dim, cfg.ssm_state
-    xs = torch.einsum("btd,dhp->bthp", x, params["w_xs"])
+    xs = constrain_alt(torch.einsum("btd,dhp->bthp", x, params["w_xs"]),
+                       ("batch", "none", "tp", "none"), ("batch", "none", "none", "tp"))
     dt = F.softplus(x.float() @ params["w_dt"] + params["dt_bias"])  # (B,T,H)
     a = -torch.exp(params["a_log"])
     bmat = torch.einsum("btd,dhn->bthn", x, params["w_b"])

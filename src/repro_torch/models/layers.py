@@ -4,9 +4,9 @@ KV-cache decode, self- and cross-attention), MLP variants, embeddings.
 A port of `repro/models/layers.py`.  Functions
 are pure over plain dicts of tensors whose leaf names and layouts are the
 JAX package's: activations (B, T, H, hd), `wq` (d, h, hd), `wo` (h, hd, d).
-The JAX package's sharding hints (`constrain`, `constrain_alt`) are no-ops
-without a mesh and are left out.  `_sdpa_blocked` is not ported yet (see
-ROADMAP.md); `attention_impl="blocked"` raises.
+The sharding hints (`shardctx.constrain`, `constrain_alt`) sit where the JAX
+package has them; without a resolver, or on a plain tensor, each returns
+its input.
 """
 
 from __future__ import annotations
@@ -15,9 +15,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.shardctx import constrain, constrain_alt, gather_dims, is_dtensor, on_local_shards
 
 # ----------------------------------------------------------------------------
 # init helpers
@@ -110,6 +112,9 @@ def _qkv(params, cfg: ModelConfig, x: torch.Tensor, kv_x: torch.Tensor | None = 
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
+    q = constrain(q, "batch", "none", "tp", "none")
+    k = constrain(k, "batch", "none", "tp", "none")
+    v = constrain(v, "batch", "none", "tp", "none")
     return q, k, v
 
 
@@ -120,7 +125,23 @@ def _scale(hd: int) -> torch.Tensor:
 def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
     """Scaled dot-product attention with GQA (kv repeated to H heads).
 
-    q: (B,T,H,hd); k,v: (B,S,KV,hd); mask broadcastable to (B,H,T,S)."""
+    Sharding strategy (constrain_alt picks the first divisible layout):
+      1. head (tensor) parallel — H % |model| == 0 (qwen, nemotron, seamless)
+      2. sequence/context parallel over the query axis — otherwise
+         (llama 24H, hymba 25H, paligemma 8H on a 16-way model axis)
+    q: (B,T,H,hd); k,v: (B,S,KV,hd); mask broadcastable to (B,H,T,S).
+
+    On DTensors it runs on each rank's (batch, heads) shard
+    (`shardctx.on_local_shards`; other layouts are gathered first): the
+    attention of a (batch row, head) needs no other, and DTensor lowers
+    these einsums to views that flatten (batch, heads), which it refuses
+    for sharded heads."""
+    if is_dtensor(q):
+        out = on_local_shards(lambda *qkv: _sdpa(cfg, *qkv, mask), (q, k, v), [(0, 2)] * 3,
+                              (q.shape[2], k.shape[2]), [(0, 2)])
+        if q.shape[1] == 1:
+            return out
+        return constrain_alt(out, ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none"))
     b, t, h, hd = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -129,26 +150,102 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
     if g > 1:  # jnp.repeat: each kv head g times in a row
         k = torch.repeat_interleave(k, g, dim=2)
         v = torch.repeat_interleave(v, g, dim=2)
+    q = constrain_alt(q, ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none"))
+    k = constrain_alt(k, ("batch", "none", "tp", "none"), ("batch", "none", "none", "none"))
+    v = constrain_alt(v, ("batch", "none", "tp", "none"), ("batch", "none", "none", "none"))
     scores = torch.einsum("bthk,bshk->bhts", q, k).float()
     scores = scores / _scale(hd)
     if mask is not None:
         scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
+    scores = constrain_alt(scores, ("batch", "tp", "none", "none"), ("batch", "none", "tp", "none"))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhts,bshk->bthk", probs, v)
+    out = torch.einsum("bhts,bshk->bthk", probs, v)
+    return constrain_alt(out, ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none"))
 
 
 def _sdpa_decode_grouped(q, k, v, mask, kvh: int, g: int, hd: int) -> torch.Tensor:
-    """Decode attention without the GQA repeat: q heads grouped per kv head."""
+    """Decode attention without the GQA repeat: q heads grouped per kv
+    head, so the cache keeps its own layout — kv-head-sharded when kv
+    divides |model|, sequence-sharded otherwise."""
     b, t = q.shape[:2]
+    k = constrain_alt(k, ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none"))
+    v = constrain_alt(v, ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none"))
     qg = q.reshape(b, t, kvh, g, hd)
     scores = torch.einsum("btngk,bsnk->bngts", qg, k).float()
     scores = scores / _scale(hd)
     if mask is not None:  # (..., T, S)-broadcastable
         m = mask[:, None] if mask.dim() == 4 else mask
         scores = torch.where(m, scores, torch.finfo(torch.float32).min)
+    scores = constrain_alt(scores, ("batch", "tp", "none", "none", "none"), ("batch", "none", "none", "none", "tp"))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bngts,bsnk->btngk", probs, v)
     return out.reshape(b, t, kvh * g, hd)
+
+
+def _sdpa_blocked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+    """Online-softmax attention over key blocks (a plain-PyTorch flash
+    equivalent, the model's own algorithm as the JAX package writes it at
+    XLA level, not a kernel).
+
+    Never materializes the (T,S) score matrix: a loop over S/blk key blocks
+    carries the running max m, denominator l and numerator acc in f32, the
+    flash kernel's recurrence.  ``blk = min(cfg.attention_block, S)``, and a
+    single block when it does not divide S.  Each block's body is recomputed
+    in the backward pass (`torch.utils.checkpoint`, the reference's
+    `jax.checkpoint`), so the peak transient is (B,H,T,blk) instead of
+    (B,H,T,S).  On DTensors it runs on each rank's (batch, heads) shard,
+    as `_sdpa` does.
+    """
+    if is_dtensor(q):
+        out = on_local_shards(lambda *qkv: _sdpa_blocked(cfg, *qkv, causal=causal, window=window), (q, k, v),
+                              [(0, 2)] * 3, (q.shape[2], k.shape[2]), [(0, 2)])
+        return constrain_alt(out, ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none"))
+    b, t, h, hd = q.shape
+    s = k.shape[1]
+    kvh = k.shape[2]
+    g = h // kvh
+    if g > 1:
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    q = constrain_alt(q, ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none"))
+    blk = min(cfg.attention_block, s)
+    if s % blk:
+        blk = s  # fallback: single block
+    qf = q.float() / _scale(hd)
+    qpos = torch.arange(t, device=q.device)[:, None]
+
+    def body(m_prev, l_prev, acc, kc, vc, ki: int):
+        scores = torch.einsum("bthk,bshk->bhts", qf, kc.float())
+        kpos = ki * blk + torch.arange(blk, device=q.device)[None, :]
+        mask = torch.ones((t, blk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window > 0:
+            mask = mask & (qpos - kpos < window)
+        scores = torch.where(mask, scores, -1e30)
+        m_new = torch.maximum(m_prev, scores.amax(dim=-1))
+        alpha = torch.exp(m_prev - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        l_new = l_prev * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhts,bshk->bthk", p.to(vc.dtype), vc).float().permute(0, 2, 1, 3)
+        return m_new, l_new, acc
+
+    # jax.checkpoint's counterpart; it is unreliable under a torch.func
+    # transform, where the body runs as it is
+    remat = torch.is_grad_enabled() and torch._C._functorch.maybe_current_level() is None
+    m = torch.full((b, h, t), -1e30, dtype=torch.float32, device=q.device)
+    l_sum = torch.zeros((b, h, t), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, t, hd), dtype=torch.float32, device=q.device)
+    for i in range(s // blk):
+        kc, vc = k[:, i * blk:(i + 1) * blk], v[:, i * blk:(i + 1) * blk]
+        if remat:
+            m, l_sum, acc = torch.utils.checkpoint.checkpoint(body, m, l_sum, acc, kc, vc, i, use_reentrant=False)
+        else:
+            m, l_sum, acc = body(m, l_sum, acc, kc, vc, i)
+    out = acc / torch.clamp_min(l_sum, 1e-30)[..., None]
+    out = out.permute(0, 2, 1, 3).to(q.dtype)  # (B,T,H,hd)
+    return constrain_alt(out, ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none"))
 
 
 def causal_window_mask(t: int, s: int, offset: int, window: int, device=None) -> torch.Tensor:
@@ -178,7 +275,9 @@ def attention_full(
     (``causal=False``) and cross-attention over the memory ``kv_x`` (no RoPE,
     no mask).  Causal self-attention over a multiple of 128 positions goes
     through the flash-attention kernel when `cfg.use_kernels`, as the JAX
-    package's `use_pallas` path does; the rest takes the plain path."""
+    package's `use_pallas` path does; otherwise ``attention_impl="blocked"``
+    takes `_sdpa_blocked` for self-attention over more than one position,
+    and the rest the naive path."""
     q, k, v = _qkv(params, cfg, x, kv_x)
     if kv_x is None:  # self-attention: RoPE on both sides
         q = rope(q, positions, cfg.rope_theta)
@@ -186,7 +285,7 @@ def attention_full(
     if cfg.use_kernels and kv_x is None and causal and x.shape[1] % 128 == 0:
         out = attn_ops.flash_attention(q, k, v, causal=True, window=window)
     elif cfg.attention_impl == "blocked" and kv_x is None and x.shape[1] > 1:
-        raise NotImplementedError("attention_impl='blocked' (_sdpa_blocked) is not yet ported; see ROADMAP.md")
+        out = _sdpa_blocked(cfg, q, k, v, causal=causal, window=window)
     else:
         mask = causal_window_mask(x.shape[1], k.shape[1], 0, window, x.device) if causal else None
         out = _sdpa(cfg, q, k, v, mask)
@@ -298,7 +397,14 @@ def embed_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
 
 
 def embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(_dtype(cfg.compute_dtype))
+    table = params["embed"]
+    if is_dtensor(table):
+        # The lookup runs on the vocab-gathered table: DTensor's
+        # vocab-parallel F.embedding (a masked partial sum) fails to combine
+        # with the tied logits' partial gradient, and masks the wrong rows
+        # for batch-sharded token ids.
+        return F.embedding(gather_dims(tokens, 0), gather_dims(table, 0)).to(_dtype(cfg.compute_dtype))
+    return table[tokens].to(_dtype(cfg.compute_dtype))
 
 
 def logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

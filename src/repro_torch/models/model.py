@@ -24,6 +24,7 @@ autograd and under `torch.func` transforms (with ``cfg.remat`` off there).
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -32,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, transformer
 from repro_torch.models.transformer import checkpointed
+from repro_torch.shardctx import constrain, is_dtensor, on_local_shards
 
 # The chunked cross-entropy's sequence chunk: (B, 512, Vpad) f32 logits at a time.
 CE_CHUNK = 512
@@ -58,7 +60,13 @@ def _masked_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Next-token negative log-likelihood (B, T) from (B, T, Vpad) f32 logits."""
+    """Next-token negative log-likelihood (B, T) from (B, T, Vpad) f32 logits.
+    DTensor logits are taken on each rank's batch shard with the vocab
+    gathered (`shardctx.on_local_shards`): DTensor has no exact
+    vocab-parallel form of this gather and logsumexp."""
+    if is_dtensor(logits):
+        return on_local_shards(lambda lg, tg: _nll(lg, tg, vocab), (logits, targets), [(0, None), (0, None)], (),
+                               [(0, None)])
     logits = _masked_logits(logits, vocab)
     gold = torch.gather(logits, -1, targets[..., None].to(torch.int64))[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
@@ -78,10 +86,12 @@ def _ce_per_row_chunked(params, cfg: ModelConfig, x: torch.Tensor, targets: torc
     no chunk's logits stay alive for it."""
     b, t, _ = x.shape
     if t % chunk or t <= chunk:
-        return _ce_per_row(layers.logits(params, cfg, x), targets, cfg.vocab_size)
+        lg = constrain(layers.logits(params, cfg, x), "batch", "none", "tp")
+        return _ce_per_row(lg, targets, cfg.vocab_size)
 
     def chunk_sum(xc, tc):
-        return _nll(layers.logits(params, cfg, xc), tc, cfg.vocab_size).sum(dim=-1)
+        lg = constrain(layers.logits(params, cfg, xc), "batch", "none", "tp")
+        return _nll(lg, tc, cfg.vocab_size).sum(dim=-1)
 
     remat = cfg.scan_layers and torch.is_grad_enabled()
     total = torch.zeros((b,), dtype=torch.float32, device=x.device)
@@ -90,6 +100,19 @@ def _ce_per_row_chunked(params, cfg: ModelConfig, x: torch.Tensor, targets: torc
         total = total + (checkpointed(chunk_sum, x[:, sl], targets[:, sl]) if remat
                          else chunk_sum(x[:, sl], targets[:, sl]))
     return total / t
+
+
+def _serving(fn: Callable) -> Callable:
+    """Run ``fn(params, ...)`` under `torch.inference_mode`, or under
+    `torch.no_grad` when the parameters are DTensors, which inference mode
+    does not take."""
+
+    @functools.wraps(fn)
+    def wrapped(params, *args, **kwargs):
+        with torch.no_grad() if is_dtensor(params["embed"]) else torch.inference_mode():
+            return fn(params, *args, **kwargs)
+
+    return wrapped
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
@@ -136,6 +159,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         layers' summed load-balance loss}).  For moe every row also carries
         router_aux_weight * aux / B, as in the JAX package."""
         x, enc_out, n_prefix = prefix_embed(params, batch, batch["tokens"].device)
+        x = constrain(x, "batch", "none", "none")
         pos = torch.arange(x.shape[1], device=x.device)
         x, aux = transformer.run_stack_full(params["layers"], cfg, x, pos, window=cfg.sliding_window,
                                             enc_out=enc_out)
@@ -143,12 +167,13 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         if n_prefix:
             x = x[:, n_prefix:]
         per_row = _ce_per_row_chunked(params, cfg, x, batch["targets"])
+        per_row = constrain(per_row, "batch")
         metrics = {"ce": per_row.mean(), "moe_aux": aux}
         if cfg.family == "moe":
             per_row = per_row + cfg.router_aux_weight * aux / per_row.shape[0]
         return per_row, metrics
 
-    @torch.inference_mode()
+    @_serving
     def prefill(params, batch, *, window: Optional[int] = None, enc_out: Optional[torch.Tensor] = None):
         """Returns (last-position logits (B, Vpad) f32, cache).  vlm's
         cache holds the patches' positions before the tokens'.  encdec reads
@@ -163,7 +188,7 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
         lg = layers.logits(params, cfg, x[:, -1:])
         return lg[:, 0], cache
 
-    @torch.inference_mode()
+    @_serving
     def decode_step(params, token, cache, pos: int, *, window: int = 0, enc_out: Optional[torch.Tensor] = None,
                     frames: Optional[torch.Tensor] = None):
         """One token: token (B,1) int.  Returns (logits (B, Vpad) f32, cache),

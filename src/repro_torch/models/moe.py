@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _dense_init, _dtype
+from repro_torch.shardctx import constrain
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple = ()) -> dict:
@@ -152,8 +153,11 @@ def _dispatch_einsum(params, cfg, x, idxs, gates, positions, c):
     # tokens to experts: xin[e, g, c] = sum_s dispatch[g, s, e, c] x[g, s]
     xin = torch.bmm(dispatch.reshape(g, s, e * c).transpose(1, 2), x)  # (G, E*C, D)
     xin = xin.reshape(g, e, c, d).permute(1, 0, 2, 3)
+    # expert-parallel over 'model': the dispatch is the all-to-all across it
+    xin = constrain(xin, "experts", "batch", "none", "none")
     out = _expert_ffn(params, cfg, xin)
-    return _combine_einsum(combine, out)
+    out = constrain(out, "experts", "batch", "none", "none")
+    return constrain(_combine_einsum(combine, out), "batch", "none", "none")
 
 
 def _dispatch_gather(params, cfg, x, idxs, gates, positions, c, combine: str = "gather"):
@@ -186,17 +190,21 @@ def _dispatch_gather(params, cfg, x, idxs, gates, positions, c, combine: str = "
     xin = torch.gather(x, 1, idx_flat[:, :, None].expand(g, e * c, d))  # (G, E*C, D)
     xin = xin.reshape(g, e, c, d) * slot_filled[..., None].to(x.dtype)
     xin = xin.permute(1, 0, 2, 3)  # (E, G, C, D)
+    xin = constrain(xin, "experts", "batch", "none", "none")
     out = _expert_ffn(params, cfg, xin)
+    out = constrain(out, "experts", "batch", "none", "none")
 
     if combine == "einsum":
-        return _combine_einsum(_combine_weights(idxs, gates, positions, e, c, x.dtype), out)
+        y = _combine_einsum(_combine_weights(idxs, gates, positions, e, c, x.dtype), out)
+        return constrain(y, "batch", "none", "none")
 
     if combine == "scatter":
         # scatter-add each filled slot's gated output back to its token
         gate_slot = to_slots(gates.to(x.dtype), torch.zeros(n_slots, dtype=x.dtype, device=dev))
         weighted = out.permute(1, 0, 2, 3) * gate_slot[..., None]  # (G, E, C, D)
-        return torch.zeros((g, s, d), dtype=x.dtype, device=dev).scatter_add(
+        y = torch.zeros((g, s, d), dtype=x.dtype, device=dev).scatter_add(
             1, idx_flat[:, :, None].expand(g, e * c, d), weighted.reshape(g, e * c, d))
+        return constrain(y, "batch", "none", "none")
 
     # combine: one gather of all K expert outputs per token, then a
     # gate-weighted contraction over K
@@ -205,4 +213,4 @@ def _dispatch_gather(params, cfg, x, idxs, gates, positions, c, combine: str = "
     slot_gk = flat_slot.permute(1, 0, 2).reshape(g, top_k * s)
     picked = torch.gather(out_gc, 1, slot_gk[:, :, None].expand(g, top_k * s, d)).reshape(g, top_k, s, d)
     gates_gk = gates.permute(1, 0, 2).to(x.dtype)  # (G, K, S)
-    return torch.einsum("gks,gksd->gsd", gates_gk, picked)
+    return constrain(torch.einsum("gks,gksd->gsd", gates_gk, picked), "batch", "none", "none")

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import linear_scan
 from repro_torch.models.layers import _dense_init, _dtype
+from repro_torch.shardctx import constrain_alt
 
 DECAY_LORA = 64
 
@@ -69,10 +70,11 @@ def time_mix(
     mu = params["mu"]
     xr, xk, xv, xw, xg = (_lerp(x, xs, mu[i]) for i in range(5))
 
-    r = torch.einsum("btd,dhk->bthk", xr, params["wr"])
-    k = torch.einsum("btd,dhk->bthk", xk, params["wk"])
-    v = torch.einsum("btd,dhk->bthk", xv, params["wv"])
-    g = torch.einsum("btd,dhk->bthk", xg, params["wg"])
+    alts = (("batch", "none", "tp", "none"), ("batch", "none", "none", "tp"))
+    r = constrain_alt(torch.einsum("btd,dhk->bthk", xr, params["wr"]), *alts)
+    k = constrain_alt(torch.einsum("btd,dhk->bthk", xk, params["wk"]), *alts)
+    v = constrain_alt(torch.einsum("btd,dhk->bthk", xv, params["wv"]), *alts)
+    g = constrain_alt(torch.einsum("btd,dhk->bthk", xg, params["wg"]), *alts)
     # data-dependent decay (f32 for stability)
     lora = torch.einsum("btl,lhk->bthk", torch.tanh(xw.float() @ params["decay_a1"]), params["decay_a2"])
     w = torch.exp(-torch.exp(params["decay_w0"][None, None] + lora))  # (B,T,H,hd) in (0,1)

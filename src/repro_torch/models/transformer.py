@@ -29,6 +29,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, layers, moe, rwkv
+from repro_torch.shardctx import constrain
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -114,6 +115,10 @@ def block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     ``causal=False`` is the encoder's bidirectional attention; with
     ``enc_out`` a block that has ``xattn`` attends to that memory after its
     self-attention."""
+    if cfg.seq_parallel and x.shape[1] > 1:
+        x = constrain(x, "batch", "tp", "none")
+    else:
+        x = constrain(x, "batch", "none", "none")
     if cfg.family == "ssm":
         h = layers.rmsnorm(p["ln1"], x)
         y, x_att, s = rwkv.time_mix(p["tmix"], cfg, h)

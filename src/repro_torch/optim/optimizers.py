@@ -56,7 +56,9 @@ def _flat(tree):
 
 
 def _zeros(params, dtype=F32):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=dtype, device=p.device), params)
+    """Zero slots shaped as the parameters (DTensors with their layout, for
+    sharded parameters)."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=dtype, memory_format=torch.contiguous_format), params)
 
 
 class SGDState(NamedTuple):

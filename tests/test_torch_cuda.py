@@ -10,8 +10,11 @@ against eager), the MoE and hybrid families (the kernel at their
 prefill shapes, the MoE layer and the SSM scan against their CPU runs),
 and the vlm, encdec and large dense archs (the kernel at head dims 192 and
 256 and at their prefill shapes, serving and the train step against their
-CPU runs), and the experiment entry points (`train --simulate` and
-fig_hetero's grid against their CPU runs), on the card.  Flash attention
+CPU runs), the experiment entry points (`train --simulate` and
+fig_hetero's grid against their CPU runs), and distribution on a world of
+one rank (both wrappers on DTensors against the mesh-free call, a mesh
+sweep graph-replayed against eager) and blocked attention against the
+naive path, on the card.  Flash attention
 has two routes, by dtype: f32 the scalar kernel, bf16 the wgmma + TMA
 kernel; every attention case runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
 tensor-core kernel, every other shape the scalar one; each wkv case asserts
@@ -964,3 +967,97 @@ def test_fig_hetero_on_the_card_follows_the_cpu(cuda_device):
     own = figures.hetero_grid(iters=1, n_replicas=1, device="cpu", eta=card["eta"])["t1_times"]
     np.testing.assert_allclose(card["t1_times"], own, rtol=1e-5)  # the card's lstsq (gels) against the CPU's
     _hold_cells(card["results"], cpu["results"], {"adaptive", "adaptive_mixed"})
+
+
+# ------------------------------------------------ distribution (world of 1)
+
+
+@pytest.fixture
+def world1(cuda_device, tmp_path):
+    """A world of one NCCL rank (a FileStore under tmp_path) and its (1, 1)
+    ("data", "model") mesh; the process group is destroyed after."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_on_a_world1_mesh_equals_the_mesh_free_call(world1, dtype):
+    """DTensor q, k, v (batch on "data", heads on "model"): the wrapper
+    runs the kernel on the local shard, counts the launch, and returns the
+    mesh-free call's bits."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q = torch.randn(2, 256, 8, 128, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(2, 256, 4, 128, generator=g, device="cuda").to(dt) for _ in range(2))
+    want = ops.flash_attention(q, k, v, causal=True)
+    dq, dk, dv = (distribute_tensor(x, world1, (Shard(0), Shard(2)), src_data_rank=None) for x in (q, k, v))
+    before = ops.launches
+    got = ops.flash_attention(dq, dk, dv, causal=True)
+    assert ops.launches == before + 1
+    assert tuple(got.placements) == (Shard(0), Shard(2)) and torch.equal(got.full_tensor(), want)
+
+
+def test_wkv6_on_a_world1_mesh_equals_the_mesh_free_call(world1):
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    r, k, v = (torch.randn(2, 128, 4, 64, generator=g, device="cuda") * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(2, 128, 4, 64, generator=g, device="cuda") * 0.5 - 1.0))
+    u = torch.randn(4, 64, generator=g, device="cuda") * 0.1
+    y0, s0 = wkv_ops.wkv6(r, k, v, w, u, chunk=64)
+    # the head dim sharded on "model" (rwkv6-3b's PARAM_ALTS layout) is gathered first
+    dr, dk, dv, dw = (distribute_tensor(x, world1, (Shard(0), Shard(3)), src_data_rank=None) for x in (r, k, v, w))
+    before = wkv_ops.launches
+    y, s = wkv_ops.wkv6(dr, dk, dv, dw, u, chunk=64)
+    assert wkv_ops.launches == before + 1
+    assert tuple(y.placements) == (Shard(0), Replicate())
+    assert torch.equal(y.full_tensor(), y0) and torch.equal(s.full_tensor(), s0)
+
+
+def test_mesh_sweep_graph_replayed_equals_eager(world1):
+    """fig2's grid at R = 4 on a (1, 1) ("cells", "replicas") mesh of the
+    world: graph-replayed against eager, bitwise, and the mesh-free grid's
+    bits."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("cells", "replicas"))
+    data, keys = quickstart.inputs("fig2", replicas=4, device="cuda")
+    grid = quickstart.cases("fig2", data, quickstart.step_size(data.X))
+
+    def run(capture, m, partition="auto"):
+        return sw.run_sweep(quickstart.squared_error, torch.zeros(data.X.shape[1], device="cuda"), data.X, data.y,
+                            n_workers=quickstart.SETUPS["fig2"]["n"], cases=grid, num_iters=200, keys=keys,
+                            eval_every=100, device="cuda", capture=capture, mesh=m, partition=partition)
+
+    graph, eager, free = run(True, mesh), run(False, mesh), run(True, None, "none")
+    for f in ("time", "loss", "k"):
+        assert torch.equal(getattr(graph, f), getattr(eager, f)), f
+        assert torch.equal(getattr(graph, f), getattr(free, f)), f
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("blk", [64, 256])
+def test_blocked_attention_on_the_card_matches_naive(cuda_device, dtype, tol, blk):
+    """`layers._sdpa_blocked` against the naive path at llama3.2-3b smoke's
+    layer, T = 512: max |d| / max |out| within the kernels' tolerances."""
+    from repro_torch.models import layers
+
+    cfg = get_smoke_config("llama3.2-3b").replace(use_kernels=False, param_dtype=dtype, compute_dtype=dtype)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    p = layers.attention_init(g, cfg, "cuda")
+    x = torch.randn(2, 512, cfg.d_model, generator=g, device="cuda").to(getattr(torch, dtype))
+    pos = torch.arange(512, device="cuda")
+    with torch.no_grad():
+        naive = layers.attention_full(p, cfg, x, pos, window=96)
+        blocked = layers.attention_full(p, cfg.replace(attention_impl="blocked", attention_block=blk), x, pos,
+                                        window=96)
+    assert ((blocked - naive).abs().max() / naive.abs().max()).item() < tol

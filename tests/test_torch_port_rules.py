@@ -45,7 +45,7 @@ def test_port_files_were_found():
             "chip_smoke.py", "prng.py", "straggler.py", "aggregation.py", "controller.py", "theory.py",
             "gradsource.py", "montecarlo.py", "simulate.py", "async_sim.py", "synthetic.py",
             "quickstart.py", "sweep.py", "execmode.py", "faults.py", "optimizers.py", "steps.py", "train.py",
-            "lm_source.py", "io.py", "figures.py"} <= names
+            "lm_source.py", "io.py", "figures.py", "shardctx.py", "mesh.py", "sharding.py"} <= names
 
 
 def _no_card():
@@ -149,6 +149,10 @@ def _experiment_entry_points():
 
     return {
         "train.main[--simulate]": lambda: train.main(["--simulate", "--steps", "2", "--replicas", "2"]),
+        "train.main[--distributed]": lambda: train.main(["--smoke", "--steps", "1", "--batch", "4", "--seq", "8",
+                                                         "--distributed"]),
+        "train.main[--distributed --simulate]": lambda: train.main(["--simulate", "--steps", "2", "--replicas", "2",
+                                                                    "--distributed"]),
         "figures.main[--only fig1]": lambda: figures.main(["--smoke", "--only", "fig1", "--out-dir", "unused"]),
         "figures.run_fig_hetero": lambda: figures.run_fig_hetero(iters=2, n_replicas=2),
         "figures.run_fig3": lambda: figures.run_fig3(iters=2, n_replicas=2, async_seeds=1),
@@ -165,7 +169,8 @@ def _experiment_entry_points():
      "quickstart.main[--setup async]", "montecarlo.run_monte_carlo[fault]", "sweep.run_sweep[geomedian]",
      "quickstart.main[--setup byzantine]", "train.main", "train.main[--mode kbatch]", "TokenStream.batch_at",
      "LMSource.init_params", "LMSource.make_data", "quickstart.main[--setup lm]", "train.main[--simulate]",
-     "figures.main[--only fig1]", "figures.run_fig_hetero", "figures.run_fig3"],
+     "figures.main[--only fig1]", "figures.run_fig_hetero", "figures.run_fig3", "train.main[--distributed]",
+     "train.main[--distributed --simulate]"],
 )
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     _no_card()

@@ -161,6 +161,16 @@ def test_simulate_validation_raises_the_reference_message(extra, reference):
 
 
 @pytest.mark.parametrize("flag", [["--production-mesh"], ["--distributed"], ["--cache-dir", "x"]])
-def test_simulate_keeps_the_not_ported_flags_raising(flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        ttrain.main(BASE + flag + ["--device", "cpu"])
+def test_simulate_keeps_the_not_ported_flags_raising(flag, capsys):
+    """--cache-dir is not ported and raises.  --distributed without a
+    process group or torchrun's environment raises, naming what it lacks.
+    --production-mesh plays no part in --simulate, as in the reference's
+    CLI: the grid runs on the one-device mesh."""
+    argv = BASE + flag + ["--device", "cpu"]
+    if flag[0] == "--production-mesh":
+        out = ttrain.main(argv)
+        assert out["header"]["mesh_shape"] == [1, 1] and out["header"]["processes"] == 1
+        return
+    match = "not ported" if flag[0] == "--cache-dir" else "torchrun environment lacks"
+    with pytest.raises(SystemExit, match=match):
+        ttrain.main(argv)

@@ -39,6 +39,7 @@ from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import straggler as tstr  # noqa: E402
 from repro_torch.core import sweep as tsw  # noqa: E402
 from repro_torch.core.gradsource import PerExampleSource  # noqa: E402
+from repro_torch.launch.mesh import HostMesh  # noqa: E402
 
 TIME_RTOL, LOSS_RTOL = 1e-5, 1e-4
 LOOPED_LOSS_RTOL = 1e-6
@@ -383,11 +384,11 @@ def _cells(**kw):
     (dict(n_workers=7), ValueError, "not divisible"),
     (dict(partition="nope"), ValueError, "unknown partition"),
     (dict(cases=_cells(fault=tfaults.FaultPlan([None] * (N + 1)))), ValueError, "11 entries but only 10 active"),
-    (dict(cases=_cells(mode="kbatch"), mesh=object()), NotImplementedError, "item 13"),
+    (dict(cases=_cells(mode="kbatch"), mesh=HostMesh(("data", "model"))), ValueError, "'cells', 'replicas'"),
     (dict(cases=[tsw.SweepCase(tctl.FixedKController(6, k=2), tstr.Exponential(), 1e-4,
                                fault=tfaults.byzantine_plan(8, 0.5, "crash"))]), ValueError, "only 6 active"),
     (dict(cases=_cells(fault=object())), ValueError, "FaultPlan"),
-    (dict(mesh=object()), NotImplementedError, "item 13"),
+    (dict(mesh=HostMesh(("cells",))), ValueError, "'cells', 'replicas'"),
 ])
 def test_validation_errors_raise_before_any_program_is_built(linreg, kw, err, match):
     _, X, y, _ = linreg

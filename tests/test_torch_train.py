@@ -500,7 +500,12 @@ def test_train_cli_async_mode_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--production-mesh"], ["--distributed"], ["--cache-dir", "x"]])
 def test_train_cli_flags_not_ported_raise(flag):
-    with pytest.raises(SystemExit, match="not ported"):
+    """--cache-dir is not ported.  --production-mesh needs a world of 256
+    ranks and names the world it found; --distributed without a process
+    group names the torchrun variables it lacks."""
+    match = {"--production-mesh": "256 ranks; the world has 1", "--distributed": "torchrun environment lacks",
+             "--cache-dir": "not ported"}[flag[0]]
+    with pytest.raises(SystemExit, match=match):
         ttrain.main(CLI + flag)
 
 
