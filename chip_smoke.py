@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only 15   # phases 1, 2 and 15 alone: no kernels line, no last line
+    python3 chip_smoke.py --only 16   # phases 1, 2 and 16 alone: no kernels line, no last line
 
 1. Print the device, and its name and power limit from nvidia-smi.
 2. Build every CUDA kernel of the port from the sources in this checkout,
@@ -136,7 +137,7 @@
    `train.main`, every cell line checked; each grid at R = 4, 300
    iterations on the card against the CPU; then the figure functions
    (`launch/figures.py`): fig1, fig_hetero at its size (5 cells x R = 32
-   x 12 000 iterations) and fig3 at 4000 iterations with one seed of its
+   x 12 000 iterations) and fig3 at 2000 iterations with one seed of its
    host loop, each one's wall time and `derived` line, the host loop's
    events a second on the card and on the CPU over the same horizon, and
    fig_hetero's cells at 300 iterations card against CPU.
@@ -163,7 +164,27 @@
    `train --simulate` header in that world.  The world-1 train steps run
    mesh-free and then on the mesh in the same process: k and sim_time
    equal, ce within 1e-5, ms a step and peak memory of both.
-16. Print one `kernels` JSON line, the card again, and, as the last line,
+16. The dry run, the roofline and the kernel cache (`launch/dryrun.py`,
+   `roofline/`, `core/cache.py`; started before phase 14, the trio's traces
+   run on the host's cores beside phases 14 and 15).  The reference dry-run
+   test's trio at full depth, each in a process of its own on a fake world,
+   tracing the card's program (fake CUDA tensors through the kernels'
+   custom ops): qwen1.5-0.5b train_4k on (16, 16) (256 ranks), llama3.2-3b
+   decode_32k on (2, 16, 16) (512 ranks), rwkv6-3b long_500k; each one's
+   trace seconds, per-rank FLOPs, bytes and collective bytes by type,
+   analytic and traced memory and dominant term, no launch, qwen fitting
+   80 GB and rwkv's analytic total below 1 GB (JSONs and logs under
+   results/torch/dryrun_trio/).  `roofline.count_step` on llama3.2-3b's bf16
+   prefill (batch 4 x 1024, 28 launches) and on its fake twin: FLOPs, bytes
+   and kernel calls equal; the prefill's ms against its roofline bound; the
+   analytic state bytes equal to the weights allocated, the analytic total
+   beside `max_memory_allocated` and the card's total.  Two fresh processes
+   sharing a new REPRO_COMPILATION_CACHE_DIR: the first builds all four
+   libraries, the second adds 0 entries; the seconds of each from start to
+   its first launch.  One full-width train step pair of qwen1.5-0.5b
+   (sync, batch 8 x 512, 2 steps) with remat_policy "dots" against "full":
+   ms, peak GB, ce within 1e-5.
+17. Print one `kernels` JSON line, the card again, and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -1666,12 +1687,13 @@ class TrainRun(NamedTuple):
     n_params: int
 
 
-def train_full_width(label: str, arch: str, t: dict, counters, mesh=None) -> TrainRun:
+def train_full_width(label: str, arch: str, t: dict, counters, mesh=None, overrides=None) -> TrainRun:
     """t["steps"] sync train steps of `arch` at full width and depth on the
     card: bf16, remat, random weights from seed 0, AdamW at t["lr"], Pflug
     at the train CLI's defaults, Exponential(1) stragglers, t["n_workers"]
     workers, t["batch"] x t["seq"] tokens from TokenStream seed 0 (vlm and
-    encdec: step i's `frontend_inputs` of seed i beside them)."""
+    encdec: step i's `frontend_inputs` of seed i beside them); the config's
+    fields replaced by ``overrides``."""
     import torch
     from repro_torch.checkpoint import convert
     from repro_torch.configs import get_config
@@ -1684,7 +1706,7 @@ def train_full_width(label: str, arch: str, t: dict, counters, mesh=None) -> Tra
     from repro_torch.models import build_model
     from repro_torch.optim import adamw
 
-    cfg = get_config(arch)
+    cfg = get_config(arch).replace(**(overrides or {}))
     model = build_model(cfg, "cuda")
     params = convert.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     n_params = sum(a.numel() for _, a in _leaf_paths(params))
@@ -1696,7 +1718,7 @@ def train_full_width(label: str, arch: str, t: dict, counters, mesh=None) -> Tra
     del params
     data = TokenStream(cfg.vocab_size, t["seq"], t["batch"], seed=0, device="cuda")
     print(f"[{label}] train {cfg.arch_id}: {cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e9:.3f} G parameters, {cfg.param_dtype}, remat {cfg.remat}; sync fastest-k, AdamW lr "
+          f"{n_params / 1e9:.3f} G parameters, {cfg.param_dtype}, remat {cfg.remat} ({cfg.remat_policy}); sync fastest-k, AdamW lr "
           f"{t['lr']}, Pflug {PFLUG_CLI}, exp(1), {t['n_workers']} workers, batch {t['batch']} x seq {t['seq']}, "
           f"{t['steps']} steps", flush=True)
     key = prng.PRNGKey(0, device="cuda")
@@ -2501,7 +2523,7 @@ def new_families_phase() -> dict:
 # the mixed grid's loss only below the loss at w = 0 (its sign-flip cells
 # under the weighted mean may diverge: phase 10's hold).  Then the figure
 # functions: fig1, fig_hetero at its size (5 cells x R = 32 x 12 000
-# iterations) and fig3 cut to 4000 iterations and one seed of its host
+# iterations) and fig3 cut to 2000 iterations and one seed of its host
 # loop, whose events a second are measured on the card and (over the same
 # horizon) on the CPU; fig_hetero's cells at 300 iterations held card
 # against CPU.  The CPU runs go to worker processes that overlap the card's.
@@ -2512,7 +2534,7 @@ SIM_MIXED = ["--simulate", "--sim-m", "400", "--sim-d", "20", "--n-workers", "20
              "--sim-mode", "sync,kasync", "--sim-fault", "none,sign_flip:0.1:0", "--sim-agg", "mean,geomedian",
              "--sim-n-grid", "10,20", "--k0", "4", "--fixed-k", "4"]
 SIM_HOLD = ["--replicas", "4", "--steps", "300", "--sim-eval-every", "100"]
-FIG3_SMOKE_ITERS, HETERO_HOLD_ITERS = 4000, 300
+FIG3_SMOKE_ITERS, HETERO_HOLD_ITERS = 2000, 300
 
 
 def simulate_run(argv: list, eta, device: str, threads: int = 2):
@@ -3030,6 +3052,250 @@ def distribution_phase(counters, eta: float) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 16
+# The dry run, the roofline and the kernel cache (`launch/dryrun.py`,
+# `roofline/`, `core/cache.py`).  The reference test's trio, each traced at
+# full depth on a fake world in a process of its own (the process group is
+# global), the card's program: fake CUDA tensors through the kernels' custom
+# ops.  (arch, shape, multi-pod, what else the run must show)
+DRYRUN_TRIO = [("qwen1.5-0.5b", "train_4k", False), ("llama3.2-3b", "decode_32k", True),
+               ("rwkv6-3b", "long_500k", False)]
+# The trio's traces are Python-bound (15-35 s each at full depth on a CPU
+# with torch 2.13); they start before phase 14 and run beside it.
+DRYRUN_TIMEOUT_S = 600
+# Phase 16's prefill: llama3.2-3b, batch 4 x prompt 1024, bf16 (phase 4's).
+ROOFLINE_PREFILL = ("llama3.2-3b", 4, 1024)
+# remat_policy "dots" against "full": one arch that fits either way.
+REMAT_RUN = dict(arch="qwen1.5-0.5b", steps=2, lr=3e-4, n_workers=4, batch=8, seq=512)
+
+
+def start_dryruns(out_dir: Path) -> list:
+    """Start the trio's dry runs (`python -m repro_torch.launch.dryrun`,
+    the card's program) at low priority; returns [(job, popen, json, log)]."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    started = []
+    for arch, shape, pod in DRYRUN_TRIO:
+        name = f"{arch}__{shape}__{'pod2' if pod else 'base'}"
+        out, log = out_dir / f"{name}.json", open(out_dir / f"{name}.log", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--out", str(out)]
+        proc = subprocess.Popen(cmd + (["--multi-pod"] if pod else []), stdout=log, stderr=subprocess.STDOUT,
+                                cwd=ROOT, env=env, preexec_fn=lambda: os.nice(10))
+        started.append(((arch, shape, pod), proc, out, log))
+    return started
+
+
+def stop_dryruns(started) -> None:
+    for _, proc, _, log in started:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+
+
+def finish_dryruns(started, t_started: float) -> dict:
+    """Wait for the trio (at most DRYRUN_TIMEOUT_S from their start), print
+    and check each result; returns {arch: result}."""
+    out = {}
+    try:
+        for (arch, shape, pod), proc, path, log in started:
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t_started)
+            try:
+                rc = proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"the dry run of {arch} {shape} did not end within {DRYRUN_TIMEOUT_S} s")
+            log.flush()
+            if rc != 0 or not path.exists():
+                tail = Path(log.name).read_text()[-3000:]
+                raise AssertionError(f"the dry run of {arch} {shape} failed (exit {rc}):\n{tail}")
+            r = json.loads(path.read_text())
+            rl, am, mem, coll = r["roofline"], r["analytic_memory"], r["memory"], r["collectives"]
+            print(f"  {arch} {shape} on {r['mesh']} ({r['n_devices']} fake ranks, {r['device']}, torch {r['torch']}): "
+                  f"traced in {r['trace_s']} s; per rank {rl['flops']:.4e} FLOPs, {rl['bytes_accessed']:.4e} bytes, "
+                  f"collective bytes {coll['total']:.4e} (all-reduce {coll['all-reduce']:.4e}, all-gather "
+                  f"{coll['all-gather']:.4e}, reduce-scatter {coll['reduce-scatter']:.4e}, all-to-all "
+                  f"{coll['all-to-all']:.4e}, permute {coll['collective-permute']:.4e}); memory: arguments "
+                  f"{mem['argument_bytes'] / 1e9:.3f} GB, traced peak {mem['peak_bytes'] / 1e9:.3f} GB, analytic "
+                  f"{am['total_bytes'] / 1e9:.3f} GB (state {am['state_bytes'] / 1e9:.3f}), fits 80 GB "
+                  f"{am['fits_80gb']}; terms compute {rl['compute_s']:.4e} s, memory {rl['memory_s']:.4e} s, "
+                  f"collective {rl['collective_s']:.4e} s, dominant {rl['dominant']}; useful-FLOP ratio "
+                  f"{rl['useful_flops_ratio']:.4f}; kernel calls {r['kernel_calls']}, launches {r['kernel_launches']}")
+            want_devices, want_mesh = (512, "2x16x16") if pod else (256, "16x16")
+            if (r["n_devices"], r["mesh"], r["device"]) != (want_devices, want_mesh, "cuda"):
+                raise AssertionError(f"{arch} {shape}: {r['n_devices']} ranks on {r['mesh']} ({r['device']})")
+            if not (rl["flops"] > 0 and rl["bytes_accessed"] > 0 and coll["total"] > 0):
+                raise AssertionError(f"{arch} {shape}: a count is 0: {rl}")
+            if any(r["kernel_launches"].values()):
+                raise AssertionError(f"{arch} {shape}: a fake trace launched a kernel: {r['kernel_launches']}")
+            out[arch] = r
+    finally:
+        stop_dryruns(started)
+    qwen, _, rwkv = (out[a] for a, _, _ in DRYRUN_TRIO)
+    if not qwen["analytic_memory"]["fits_80gb"]:
+        raise AssertionError("qwen1.5-0.5b train_4k does not fit 80 GB by the analytic model")
+    from repro_torch.configs import get_config
+
+    if qwen["kernel_calls"]["flash_attention"] != get_config("qwen1.5-0.5b").n_layers:
+        raise AssertionError(f"qwen1.5-0.5b train_4k's eval forward traced {qwen['kernel_calls']} kernel calls")
+    if not rwkv["analytic_memory"]["total_bytes"] < 1e9:
+        raise AssertionError(f"rwkv6-3b long_500k analytic total {rwkv['analytic_memory']['total_bytes']} >= 1e9")
+    return out
+
+
+def prefill_roofline(counters) -> dict:
+    """llama3.2-3b's bf16 prefill (batch 4 x 1024) counted by
+    `roofline.count_step` for real (the kernels launched) and on its fake
+    twin (fake CUDA tensors through the custom ops): FLOPs and bytes held
+    equal; the measured ms against the roofline bound; the analytic state
+    bytes against the weights allocated."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.checkpoint import convert
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import serve, sharding
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.models import build_model
+    from repro_torch.roofline import analysis, memory
+
+    arch, b, t = ROOFLINE_PREFILL
+    cfg = get_config(arch)
+    model = build_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = convert.init(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = serve.random_prompts(cfg, b, t, seed=1)
+    weights = sum(p.numel() * p.element_size() for p in _leaves(params))
+    reset_counts(counters)
+    real = analysis.count_step(model.prefill, params, {"tokens": prompts})
+    real_launches = counters["flash_attention"].launches
+    with FakeTensorMode():
+        fparams = convert.init(cfg, torch.Generator(device="cuda"), "cuda")
+        ftokens = torch.empty(prompts.shape, dtype=prompts.dtype, device="cuda")
+        fake = analysis.count_step(model.prefill, fparams, {"tokens": ftokens})
+    fake_launches = counters["flash_attention"].launches - real_launches
+    print(f"  {arch} prefill, batch {b} x {t}, bf16: real {real['flops']:.6e} FLOPs, {real['bytes accessed']:.6e} "
+          f"bytes, kernel calls {real['kernel_calls']}, {real_launches} launches; fake twin {fake['flops']:.6e} FLOPs, "
+          f"{fake['bytes accessed']:.6e} bytes, kernel calls {fake['kernel_calls']}, {fake_launches} launches; "
+          f"traced peak {real['peak_bytes'] / 1e9:.3f} GB real, {fake['peak_bytes'] / 1e9:.3f} GB fake")
+    if (real["flops"], real["bytes accessed"], real["kernel_calls"]) != (
+            fake["flops"], fake["bytes accessed"], fake["kernel_calls"]):
+        raise AssertionError(f"real and fake prefill counts differ: {real} vs {fake}")
+    if real_launches != cfg.n_layers or fake_launches != 0:
+        raise AssertionError(f"launches: real {real_launches} (expected {cfg.n_layers}), fake {fake_launches}")
+    ms = cuda_ms(lambda: model.prefill(params, {"tokens": prompts}), iters=3, warmup=1)
+    terms = analysis.roofline_terms(real, 0.0)
+    bound_s = max(terms["compute_s"], terms["memory_s"])
+    print(f"  prefill {ms:.2f} ms; roofline bound max(compute {terms['compute_s'] * 1e3:.3f} ms, memory "
+          f"{terms['memory_s'] * 1e3:.3f} ms) = {bound_s * 1e3:.3f} ms; roofline share {bound_s * 1e3 / ms:.4f}")
+    mesh = HostMesh(("data", "model"))
+    shape = InputShape("prefill_4x1024", t, b, "prefill")
+    am = memory.analytic_memory(cfg, shape, mesh, params, sharding.param_shardings(params, mesh))
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.mem_get_info()[1]
+    print(f"  analytic memory: state {am['state_bytes'] / 1e9:.4f} GB (weights allocated {weights / 1e9:.4f} GB), "
+          f"total {am['total_bytes'] / 1e9:.3f} GB; max_memory_allocated {peak / 1e9:.3f} GB; the card's total "
+          f"{total / 1e9:.3f} GB (mem_get_info)")
+    if am["state_bytes"] != weights:
+        raise AssertionError(f"analytic state bytes {am['state_bytes']} != the weights allocated {weights}")
+    del params, fparams
+    torch.cuda.empty_cache()
+    return {"flops": real["flops"], "bytes": real["bytes accessed"], "ms": ms, "bound_ms": bound_s * 1e3,
+            "share": bound_s * 1e3 / ms}
+
+
+def cache_probe() -> dict:
+    """In a fresh process: the kernel cache from REPRO_COMPILATION_CACHE_DIR,
+    every library built (or found), one flash-attention launch; returns the
+    wall clock at that launch and the libraries compiled."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.core import cache
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.attention import ops
+
+    where = cache.maybe_enable_from_env()
+    built = _build.build_all()
+    q, k, v = attention_inputs(SLICE_SHAPE, torch.bfloat16, seed=5)
+    ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    return {"first_launch": time.time(), "built": sorted(built), "dir": where}
+
+
+def cache_check() -> dict:
+    """Two fresh processes share a new REPRO_COMPILATION_CACHE_DIR: the
+    first builds all four libraries, the second adds 0 entries."""
+    import os
+    import tempfile
+
+    from repro_torch.core import cache
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="repro-kernels-") as d:
+        os.environ[cache.ENV_VAR] = d
+        try:
+            for run in ("cold", "warm"):
+                before = cache.cache_entries(d)
+                t0 = time.time()
+                res = in_spawned_process(cache_probe)
+                added = cache.cache_entries(d) - before
+                out[run] = {"seconds": res["first_launch"] - t0, "added": added, "built": res["built"]}
+                print(f"  {run} process: {res['first_launch'] - t0:.2f} s from start to the first launch; compiled "
+                      f"{res['built']}; {added} entries added to {res['dir']}")
+        finally:
+            del os.environ[cache.ENV_VAR]
+    from repro_torch.kernels import _build
+
+    n_src = len(_build.sources())
+    if out["cold"]["added"] != n_src or len(out["cold"]["built"]) != n_src:
+        raise AssertionError(f"the cold process added {out['cold']['added']} entries for {n_src} sources")
+    if out["warm"]["added"] != 0 or out["warm"]["built"]:
+        raise AssertionError(f"the warm process compiled {out['warm']['built']} ({out['warm']['added']} entries)")
+    return out
+
+
+def remat_dots_check(counters) -> dict:
+    """One full-width sync train step of REMAT_RUN's arch with
+    remat_policy "dots" against "full": ms, peak GB, ce within 1e-5."""
+    import torch
+
+    t = dict(REMAT_RUN)
+    arch = t.pop("arch")
+    runs = {}
+    for policy in ("full", "dots"):
+        run = train_full_width("16", arch, t, counters, overrides={"remat": True, "remat_policy": policy})
+        runs[policy] = {"ce": [r[0] for r in run.rows], "k": [r[1] for r in run.rows], "ms": run.secs[-1] * 1e3,
+                        "first_ms": run.secs[0] * 1e3, "peak_gb": run.peak_gb}
+        print(f"  remat_policy {policy}: steps (ce, k, sim_time) {run.rows}; {run.secs[-1] * 1e3:.1f} ms a step "
+              f"(the first {run.secs[0] * 1e3:.1f}), peak {run.peak_gb:.2f} GB")
+        del run
+        torch.cuda.empty_cache()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(runs["dots"]["ce"], runs["full"]["ce"]))
+    print(f"  dots vs full: ce max rel gap {gap:.3e} (bound 1e-5), k equal {runs['dots']['k'] == runs['full']['k']}")
+    if not (gap <= 1e-5 and runs["dots"]["k"] == runs["full"]["k"]):
+        raise AssertionError(f"remat_policy dots and full disagree: {runs}")
+    return runs
+
+
+def tooling_phase(counters, dryruns, t_dryruns: float) -> dict:
+    """Phase 16: the dry-run trio's results, the prefill's roofline, the
+    kernel cache across processes, remat_policy "dots"."""
+    phase_t0 = time.perf_counter()
+    print("[16] the dry run, the roofline and the kernel cache")
+    print(f"[16] dry-run trio (full depth, the card's program on fake CUDA tensors, fake worlds of 256 and 512 ranks)")
+    out = {"dryrun": finish_dryruns(dryruns, t_dryruns)}
+    t_wait = time.perf_counter() - phase_t0
+    print(f"[16] count_step on {ROOFLINE_PREFILL[0]}'s prefill, real and fake")
+    out["prefill"] = prefill_roofline(counters)
+    print("[16] the kernel cache (REPRO_COMPILATION_CACHE_DIR) across two fresh processes")
+    out["cache"] = cache_check()
+    print(f"[16] remat_policy dots against full, {REMAT_RUN['arch']} at full width")
+    out["remat"] = remat_dots_check(counters)
+    print(f"  phase 16 took {time.perf_counter() - phase_t0:.1f} s (waiting for the dry runs {t_wait:.1f} s)")
+    return out
+
+
 def prng_key(seed: int):
     from repro_torch.core import prng
 
@@ -3053,10 +3319,10 @@ def main(argv=None) -> int:
     import torch
 
     args = sys.argv[1:] if argv is None else argv
-    if args not in ([], ["--only", "15"]):
-        print(f"usage: {Path(__file__).name} [--only 15]", file=sys.stderr)
+    if args not in ([], ["--only", "15"], ["--only", "16"]):
+        print(f"usage: {Path(__file__).name} [--only 15|16]", file=sys.stderr)
         return 2
-    only_phase15 = args == ["--only", "15"]
+    only = args[1] if args else None
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3111,11 +3377,16 @@ def main(argv=None) -> int:
     if not all(wkv_sass.values()):
         raise AssertionError(f"the tensor-core wkv6 kernel lacks mma.sync, wgmma or cp.async instructions: {wkv_sass}")
 
-    if only_phase15:  # a check of phase 15 alone: no kernels line and no last line
+    if only == "15":  # a check of phase 15 alone: no kernels line and no last line
         from repro_torch.launch import quickstart
 
         data, _ = quickstart.inputs("fig2", device="cuda")
         distribution_phase({"flash_attention": ops, "wkv6": wkv_ops}, quickstart.step_size(data.X))
+        return 0
+    dryrun_dir = ROOT / "results" / "torch" / "dryrun_trio"  # the trio's JSONs and logs
+    dryrun_dir.mkdir(parents=True, exist_ok=True)
+    if only == "16":  # a check of phase 16 alone: no kernels line and no last line
+        tooling_phase({"flash_attention": ops, "wkv6": wkv_ops}, start_dryruns(dryrun_dir), time.perf_counter())
         return 0
 
     # 3. kernel vs plain
@@ -3249,15 +3520,25 @@ def main(argv=None) -> int:
     sys.stdout.flush()
     p13 = new_families_phase()
 
-    # 14. the experiment entry points: train --simulate and the figure functions (no kernel of the port on their path)
-    sys.stdout.flush()
-    experiments_phase()
+    # 16's dry runs start here, on the host's cores beside phases 14 and 15
+    dryruns, t_dryruns = start_dryruns(dryrun_dir), time.perf_counter()
+    try:
+        # 14. the experiment entry points: train --simulate and the figure functions (no kernel of the port on
+        # their path)
+        sys.stdout.flush()
+        experiments_phase()
 
-    # 15. distribution and blocked attention: the mesh's prefill and train step run the kernels on local shards
-    sys.stdout.flush()
-    p15 = distribution_phase(counters, p7["eta"])
+        # 15. distribution and blocked attention: the mesh's prefill and train step run the kernels on local shards
+        sys.stdout.flush()
+        p15 = distribution_phase(counters, p7["eta"])
 
-    # 16. summary
+        # 16. the dry run, the roofline and the kernel cache
+        sys.stdout.flush()
+        tooling_phase(counters, dryruns, t_dryruns)
+    finally:
+        stop_dryruns(dryruns)
+
+    # 17. summary
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -3305,7 +3586,7 @@ def main(argv=None) -> int:
         "scalar_bound_by": scalar_bound_by,
         "train_launches": p11["smoke"]["rwkv_sync_wkv_launches"],
     }]
-    print(f"[16] chip_smoke.py took {time.perf_counter() - script_t0:.1f} s")
+    print(f"[17] chip_smoke.py took {time.perf_counter() - script_t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -19,9 +19,10 @@ Modules (each the torch port of the JAX package's module of that name):
                  lanes, through montecarlo's program), modes mixed
   simulate     — the R = 1 wrapper
   async_sim    — event-driven asynchronous SGD (fig3's baseline)
+  cache        — the persistent cache of the kernels' compiled libraries
+                 (REPRO_COMPILATION_CACHE_DIR, `train --cache-dir`)
 
-The sweep's mesh and the persistent cache are not ported yet (ROADMAP
-Queue 1 items 13 and 12).
+The sweep's ("cells", "replicas") mesh is `launch/mesh.py::make_sweep_mesh`.
 """
 
 from repro_torch.core import (  # noqa: F401

@@ -6,9 +6,11 @@ a shared library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so <source>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded from the build directory
-(`repro_torch/kernels/build/`, listed in .gitignore).  `build_all()` starts
+The file name carries a hash of the source, the flags and the toolkit's
+``nvcc --version``, so an edited source (or another toolkit) is rebuilt and
+an unchanged one is loaded from the build directory
+(`repro_torch/kernels/build/`, listed in .gitignore, or the directory that
+`core/cache.py` enables, which processes and checkouts can share).  `build_all()` starts
 one nvcc per source, all at once, and waits for them together.  Nothing here
 runs at import time: this module is imported on hosts without nvcc.
 """
@@ -16,6 +18,7 @@ runs at import time: this module is imported on hosts without nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,7 +27,8 @@ from pathlib import Path
 from typing import Dict, List
 
 KERNELS_DIR = Path(__file__).resolve().parent
-BUILD_DIR = KERNELS_DIR / "build"
+DEFAULT_BUILD_DIR = KERNELS_DIR / "build"
+BUILD_DIR = DEFAULT_BUILD_DIR  # re-rooted by core/cache.py's enable_persistent_cache
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -56,9 +60,15 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: put the CUDA toolkit on PATH or set CUDA_HOME")
 
 
+@functools.cache
+def toolkit_version() -> str:
+    """``nvcc --version``'s output, read once a process."""
+    return subprocess.run([nvcc(), "--version"], capture_output=True, text=True, check=True).stdout
+
+
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    key = src.read_bytes() + " ".join(NVCC_FLAGS).encode() + toolkit_version().encode()
+    return BUILD_DIR / f"{src.stem}-{hashlib.sha256(key).hexdigest()[:16]}.so"
 
 
 def _start(src: Path):

@@ -17,15 +17,26 @@ that shards only the batch and the heads (an explicit gather: the kernel
 needs whole sequences), and the heads stay sharded only where H and KV both
 divide by the mesh extent, so each rank's q heads keep their kv head.  The
 kernel then runs on each rank's local shard, each launch counted.
+
+The CUDA launch is the custom op ``repro_torch::flash_attention``
+(`torch.library`) wherever a dispatch mode is active, so a trace on fake
+CUDA tensors (the dry run, `launch/dryrun.py`) or under the roofline's
+counter passes through the card's program, without launching on fakes:
+its fake implementation gives the output's shape, dtype and layout, and its
+FLOP formula (`torch.utils.flop_counter`) the count the bound in PERF.md
+uses, 4 hd flops for each visible (query, key) pair.  The launch count rises
+in the CUDA implementation alone, so a fake trace counts none.
 """
 
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import forbid_autograd
 from repro_torch.kernels.attention import kernel
-from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.attention.ref import attention_ref, visible_pairs
 from repro_torch.shardctx import is_dtensor, on_local_shards
 
 # Kernel launches (either route) since import or since a caller last set it to 0.
@@ -40,18 +51,44 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
 ) -> torch.Tensor:
-    global launches
     if is_dtensor(q):
         return _flash_attention_sharded(q, k, v, causal=causal, window=window)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    kernel.check_inputs(qt, kt, vt, causal=causal)
+    kernel.check_inputs(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
     forbid_autograd("flash_attention", q, k, v)
+    if is_fake(q) or torch._C._len_torch_dispatch_stack():  # a trace or a counter sees the op
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
+    """One launch of the kernel of q's dtype: (B, T, H, hd) out.  Called
+    directly where no dispatch mode is active: the custom op's dispatch
+    costs ~70 us of host time a call, more than the kernel at the llama
+    shape (PERF.md §6)."""
+    global launches
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    kernel.flash_attention_bhtd(qt, kt, vt, causal=causal, window=window, out=out.transpose(1, 2))
+    kernel.flash_attention_bhtd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                                window=window, out=out.transpose(1, 2))
     launches += 1
     return out
+
+
+_op = torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")(_launch)
+
+
+@_op.register_fake
+def _(q, k, v, causal, window):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_attention_flops(q_shape, k_shape, v_shape, causal, window, *, out_shape=None, **kwargs) -> int:
+    """4 hd flops (two products, a multiply-add each) for each visible
+    (query, key) pair of each (batch, head)."""
+    b, t, h, hd = q_shape
+    return 4 * hd * b * h * visible_pairs(t, k_shape[1], causal=causal, window=window)
 
 
 def _flash_attention_sharded(q, k, v, *, causal: bool, window: int):
@@ -68,8 +105,10 @@ def _flash_attention_sharded(q, k, v, *, causal: bool, window: int):
 
 def _tma_ready(x: torch.Tensor) -> torch.Tensor:
     """``x`` (B, T, H, hd), or a contiguous copy where the kernel's (B, H,
-    T, hd) view of it is not a layout TMA reads."""
+    T, hd) view of it is not a layout TMA reads.  A fake tensor has no
+    address: its strides alone decide."""
     xt = x.transpose(1, 2)
-    if kernel.tma_layout_error(xt.shape, xt.stride(), xt.data_ptr(), xt.element_size()) is None:
+    ptr = 0 if is_fake(x) else xt.data_ptr()
+    if kernel.tma_layout_error(xt.shape, xt.stride(), ptr, xt.element_size()) is None:
         return x
     return x.contiguous()

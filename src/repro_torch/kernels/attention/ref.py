@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -21,6 +22,15 @@ def visible_mask(t: int, s: int, *, causal: bool, window: int, device=None) -> t
     if window:
         mask = mask & (qpos - kpos < window)
     return mask
+
+
+def visible_pairs(t: int, s: int, *, causal: bool, window: int) -> int:
+    """The number of (query, key) pairs `visible_mask` lets through, from the
+    shapes alone (no tensor is made)."""
+    i = np.arange(t, dtype=np.int64)
+    hi = np.minimum(i, s - 1) if causal else np.full(t, s - 1, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(t, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 def attention_ref(

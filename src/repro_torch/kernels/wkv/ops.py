@@ -16,6 +16,14 @@ to one that shards only the batch and the heads (an explicit gather: the
 scan needs whole sequences and whole K x V states; rwkv6-3b's 40 heads on
 a model axis that does not divide them shard hd, which is gathered here),
 then the kernel runs on each rank's local shard, each launch counted.
+
+The CUDA launch is the custom op ``repro_torch::wkv6`` (`torch.library`)
+wherever a dispatch mode is active, so a trace on fake CUDA tensors (the
+dry run, `launch/dryrun.py`) or under the roofline's counter passes through
+the card's program, without launching on fakes: its fake implementation gives
+y and the final state, and its FLOP formula the operation count of the
+bound in PERF.md (`wkv6_flops`).  The launch counts rise in the CUDA
+implementation alone, so a fake trace counts none.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import forbid_autograd
 from repro_torch.kernels.wkv import kernel, ref
@@ -51,7 +61,6 @@ def wkv6(
     *,
     chunk: int = 128,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
     if is_dtensor(r):
         return _wkv6_sharded(r, k, v, w, u, s0, chunk=chunk)
     run = min(chunk, r.shape[1])
@@ -64,10 +73,44 @@ def wkv6(
         return ref.wkv6_ref(r, k, v, w, u, s0, chunk=run)
     forbid_autograd("wkv6", r, k, v, w, u, s0)
     name = kernel.route(r.shape[1], r.shape[-1], v.shape[-1], chunk)
-    out = kernel.wkv6_bthk(r, k, v, w, u, s0, chunk=run, kernel=name)
+    if is_fake(r) or torch._C._len_torch_dispatch_stack():  # a trace or a counter sees the op
+        return tuple(torch.ops.repro_torch.wkv6(r, k, v, w, u, s0, run, name))
+    return _launch(r, k, v, w, u, s0, run, name)
+
+
+def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+            s0: Optional[torch.Tensor], chunk: int, route: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of kernel ``route`` at ``chunk``: y (B, T, H, V) and s_T
+    (B, H, K, V), both f32.  Called directly where no dispatch mode is
+    active (the custom op's dispatch is host time, `attention.ops._launch`)."""
+    global launches
+    out = kernel.wkv6_bthk(r, k, v, w, u, s0, chunk=chunk, kernel=route)
     launches += 1
-    route_launches[name] += 1
+    route_launches[route] += 1
     return out
+
+
+_op = torch.library.custom_op("repro_torch::wkv6", mutates_args=(), device_types="cuda")(_launch)
+
+
+@_op.register_fake
+def _(r, k, v, w, u, s0, chunk, route):
+    b, t, h, kdim = r.shape
+    vdim = v.shape[-1]
+    return (r.new_empty((b, t, h, vdim), dtype=torch.float32),
+            r.new_empty((b, h, kdim, vdim), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6)
+def wkv6_flops(r_shape, k_shape, v_shape, w_shape, u_shape, s0_shape, chunk, route, *, out_shape=None,
+               **kwargs) -> int:
+    """Per chunk of C and per (b, h): 4 C K V for the state's application
+    to r and its update (a multiply-add each), and C (C + 1) (K + V) for
+    the scores and their application to v over tau <= t.  The exps are not
+    counted."""
+    b, t, h, kdim = r_shape
+    vdim = v_shape[-1]
+    return (t // chunk) * b * h * (4 * chunk * kdim * vdim + chunk * (chunk + 1) * (kdim + vdim))
 
 
 def _wkv6_sharded(r, k, v, w, u, s0, *, chunk: int):

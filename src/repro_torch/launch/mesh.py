@@ -60,10 +60,14 @@ def world() -> Tuple[int, int]:
 
 def _mesh_device_type() -> str:
     """The DeviceMesh device type of the default group's backend: NCCL
-    meshes hold CUDA tensors, gloo meshes CPU tensors."""
+    meshes hold CUDA tensors, gloo meshes CPU tensors, and a backend bound
+    to one device type ("cuda:fake", the dry run's world) that type."""
     import torch.distributed as dist
 
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    backend = dist.get_backend()
+    if backend == "nccl":
+        return "cuda"
+    return backend.split(":")[0] if ":" in backend else "cpu"
 
 
 # (ranks, shape, names, device type, process group) -> DeviceMesh: a mesh

@@ -282,10 +282,11 @@ class Named:
 
 def param_shardings(params: Any, mesh):
     """`Named` shardings for a params-like tree (works on any leaves with a
-    ``shape``: tensors, DTensors, `torch.Size`-holding stand-ins)."""
+    ``shape``: tensors, DTensors, `torch.Size`-holding stand-ins; a None
+    leaf, such as a sync `TrainState`'s ``exec_async``, stays None)."""
     axes = MeshAxes.of(mesh)
-    return tree_map_with_path(lambda path, leaf: Named(mesh, _param_spec(_dict_keys(path), tuple(leaf.shape), axes)),
-                              params)
+    return tree_map_with_path(lambda path, leaf: None if leaf is None else Named(
+        mesh, _param_spec(_dict_keys(path), tuple(leaf.shape), axes)), params)
 
 
 def named(mesh, *dims: str) -> Named:

@@ -42,7 +42,9 @@ activation resolver.  Only rank 0 prints and writes checkpoints:
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --distributed --simulate --device cpu \
         --steps 300 --replicas 4
 
-Not ported yet: ``--cache-dir`` (ROADMAP item 12) raises.
+``--cache-dir DIR`` (or ``REPRO_COMPILATION_CACHE_DIR``) keeps the kernels'
+compiled libraries under DIR (`core/cache.py`), so a fresh process or
+checkout that shares it runs no nvcc.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ import torch
 
 from repro_torch import checkpoint, resolve_device
 from repro_torch.configs import get_config, get_smoke_config, list_archs
-from repro_torch.core import execmode, prng, theory
+from repro_torch.core import cache as cache_lib, execmode, prng, theory
 from repro_torch.core.aggregation import AGG_KINDS, CommModel
 from repro_torch.core.controller import get_controller
 from repro_torch.core.faults import byzantine_plan
@@ -67,11 +69,6 @@ from repro_torch.launch.quickstart import squared_error, step_size
 from repro_torch.launch.specs import stub_inputs
 from repro_torch.models import build_model
 from repro_torch.optim import get_optimizer
-
-# Flags of the reference's CLI whose machinery is not ported, and where it waits.
-NOT_PORTED = {
-    "cache_dir": "the persistent compilation cache (ROADMAP Queue 1 item 12)",
-}
 
 # What torchrun sets for each process, and --distributed reads.
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
@@ -402,19 +399,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="initialise torch.distributed from torchrun's environment (NCCL on CUDA, gloo on the "
                          "CPU): meshes — the LM mesh and the sweep engine's (cells, replicas) mesh alike — then "
                          "span every process")
-    ap.add_argument("--cache-dir", default=None, metavar="DIR", help="not ported: raises")
+    ap.add_argument("--cache-dir", default=None, metavar="DIR",
+                    help="persistent kernel build cache (repro_torch.core.cache): a cold start loads the kernels' "
+                         "compiled libraries from DIR instead of running nvcc; also honored via "
+                         "REPRO_COMPILATION_CACHE_DIR")
     return ap.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not ported yet")
     # before anything builds a program: the process group defines the world
-    # every mesh spans
+    # every mesh spans, and the cache must be live before the first kernel
+    # is built
     if args.distributed:
         args.device = init_distributed(args.device)
+    if args.cache_dir:
+        cache_lib.enable_persistent_cache(args.cache_dir)
+    else:
+        cache_lib.maybe_enable_from_env()
     if args.simulate:
         return run_simulation(args)
 

@@ -19,8 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, linear_scan
-from repro_torch.models.layers import _dense_init, _dtype
-from repro_torch.shardctx import constrain_alt
+from repro_torch.models.layers import _dense_init, _dtype, project_heads, project_out
+from repro_torch.shardctx import constrain_alt, is_dtensor, on_local_shards
 
 
 def ssm_branch_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple = ()) -> dict:
@@ -40,16 +40,28 @@ def ssm_branch_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple 
     }
 
 
+def _ssm_chunked(xs, dt, a, bmat, cmat, s0, *, chunk: int):
+    """`linear_scan.ssm_chunked`; on DTensors, on each rank's (batch, heads)
+    shard (`shardctx.on_local_shards`): DTensor's views of the scan's
+    chunked tensors do not match their local shards where the heads do not
+    divide the mesh."""
+    if is_dtensor(xs):
+        return on_local_shards(lambda *zs: linear_scan.ssm_chunked(*zs, chunk=chunk), (xs, dt, a, bmat, cmat, s0),
+                               [(0, 2), (0, 2), (None, 0), (0, 2), (0, 2), (0, 1)], (xs.shape[2],),
+                               [(0, 2), (0, 1)])
+    return linear_scan.ssm_chunked(xs, dt, a, bmat, cmat, s0, chunk=chunk)
+
+
 def ssm_branch(params, cfg: ModelConfig, x: torch.Tensor,
                s0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,T,D) -> (y (B,T,D), final state (B,H,N,P) f32)."""
     h, hd, n = cfg.n_heads, cfg.resolved_head_dim, cfg.ssm_state
-    xs = constrain_alt(torch.einsum("btd,dhp->bthp", x, params["w_xs"]),
+    xs = constrain_alt(project_heads(x, params["w_xs"]),
                        ("batch", "none", "tp", "none"), ("batch", "none", "none", "tp"))
     dt = F.softplus(x.float() @ params["w_dt"] + params["dt_bias"])  # (B,T,H)
     a = -torch.exp(params["a_log"])
-    bmat = torch.einsum("btd,dhn->bthn", x, params["w_b"])
-    cmat = torch.einsum("btd,dhn->bthn", x, params["w_c"])
+    bmat = project_heads(x, params["w_b"])
+    cmat = project_heads(x, params["w_c"])
 
     if x.shape[1] == 1:  # decode
         if s0 is None:
@@ -58,10 +70,10 @@ def ssm_branch(params, cfg: ModelConfig, x: torch.Tensor,
         y = y1[:, None]
     else:
         chunk = min(cfg.wkv_chunk, x.shape[1])
-        y, s_new = linear_scan.ssm_chunked(xs, dt, a, bmat, cmat, s0, chunk=chunk)
+        y, s_new = _ssm_chunked(xs, dt, a, bmat, cmat, s0, chunk=chunk)
 
     y = y.to(x.dtype) + xs * params["skip_d"].to(x.dtype)
-    out = torch.einsum("bthp,hpd->btd", y, params["w_os"])
+    out = project_out(y, params["w_os"])
     return out, s_new
 
 

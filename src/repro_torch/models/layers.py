@@ -101,13 +101,48 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple =
     return p
 
 
+def _head_dim_sharded(w: torch.Tensor, dim: int) -> bool:
+    """Whether DTensor ``w`` shards its head dim ``dim`` (the sharding
+    rules' alternative where the heads do not divide the model axis)."""
+    return is_dtensor(w) and any(p.is_shard(dim) for p in w.placements)
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("btd,dhk->bthk", x, w): the projection to heads.  Where ``w``
+    shards its head dim (its heads do not divide the model axis), the
+    product is one matmul over the (head dim, heads) columns, the head dim
+    outer: DTensor cannot flatten (heads, head dim) with the inner dim
+    sharded (torch 2.11: "Attempted to flatten multiple dimensions"), nor
+    unflatten it (torch 2.13), and einsum orders the two dims as it likes."""
+    if _head_dim_sharded(w, 2):
+        d, h, k = w.shape
+        y = x @ w.transpose(1, 2).reshape(d, k * h)
+        return y.unflatten(-1, (k, h)).transpose(-1, -2)
+    return torch.einsum("btd,dhk->bthk", x, w)
+
+
+def project_out(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bthk,hkd->btd", y, w): the projection from heads, one matmul
+    over the (head dim, heads) rows where ``w`` shards its head dim (see
+    `project_heads`), with y's head dim on the model axis as w's: the
+    matmul flattens (batch, sequence), which torch 2.11 refuses where a
+    context-parallel y shards the sequence."""
+    if _head_dim_sharded(w, 1):
+        h, k, d = w.shape
+        y = constrain(y, "batch", "none", "none", "tp")
+        # contiguous: torch 2.11's DTensor cannot view the transposed local
+        # gradient back in the backward pass
+        return y.transpose(-1, -2).contiguous().flatten(-2) @ w.transpose(0, 1).reshape(k * h, d)
+    return torch.einsum("bthk,hkd->btd", y, w)
+
+
 def _qkv(params, cfg: ModelConfig, x: torch.Tensor, kv_x: torch.Tensor | None = None):
     """Project to q, k, v.  kv_x (if given) is the cross-attention memory
     that k and v are projected from."""
     src = x if kv_x is None else kv_x
-    q = torch.einsum("btd,dhk->bthk", x, params["wq"])
-    k = torch.einsum("bsd,dnk->bsnk", src, params["wk"])
-    v = torch.einsum("bsd,dnk->bsnk", src, params["wv"])
+    q = project_heads(x, params["wq"])
+    k = project_heads(src, params["wk"])
+    v = project_heads(src, params["wv"])
     if "bq" in params:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
@@ -289,7 +324,7 @@ def attention_full(
     else:
         mask = causal_window_mask(x.shape[1], k.shape[1], 0, window, x.device) if causal else None
         out = _sdpa(cfg, q, k, v, mask)
-    y = torch.einsum("bthk,hkd->btd", out, params["wo"])
+    y = project_out(out, params["wo"])
     if return_kv:
         return y, (k, v)
     return y
@@ -340,7 +375,7 @@ def attention_decode(
         valid = kpos <= pos
     mask = valid[None, None, None, :]  # (1,1,1,S) -> broadcast over (B,H,T)
     y = _sdpa(cfg, q, cache_k, cache_v, mask)
-    y = torch.einsum("bthk,hkd->btd", y, params["wo"])
+    y = project_out(y, params["wo"])
     return y, cache_k, cache_v
 
 
@@ -349,7 +384,7 @@ def _cross_decode(params, cfg: ModelConfig, x: torch.Tensor, memory: torch.Tenso
     projected from it on every call, as the JAX package does."""
     q, k, v = _qkv(params, cfg, x, memory)
     out = _sdpa(cfg, q, k, v, None)
-    return torch.einsum("bthk,hkd->btd", out, params["wo"])
+    return project_out(out, params["wo"])
 
 
 # ----------------------------------------------------------------------------

@@ -16,10 +16,24 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import linear_scan
-from repro_torch.models.layers import _dense_init, _dtype
-from repro_torch.shardctx import constrain_alt
+from repro_torch.models.layers import _dense_init, _dtype, project_heads, project_out
+from repro_torch.shardctx import constrain, constrain_alt, is_dtensor, on_local_shards
 
 DECAY_LORA = 64
+# r, k, v, g layouts: heads on the model axis, else the head dim
+HEAD_LAYOUTS = (("batch", "none", "tp", "none"), ("batch", "none", "none", "tp"))
+
+
+def _head_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, T, H, hd) in the first of `HEAD_LAYOUTS` that fits whole,
+    else in the last one dim by dim.  Where none fits whole (a batch the
+    data axis does not divide: long_500k's batch of 1), the reference leaves
+    the layout to the compiler; DTensor would keep the FSDP contraction's
+    partial sum and reduce-scatter it onto rwkv6-3b's 40 heads, which no
+    16-way axis divides, and the output projection could not flatten them.
+    No-op without a mesh."""
+    y = constrain_alt(x, *HEAD_LAYOUTS)
+    return constrain(y, *HEAD_LAYOUTS[-1]) if y is x else y
 
 
 def time_mix_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple = ()) -> dict:
@@ -47,14 +61,25 @@ def _token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor]) -> torch.Tenso
     """x_{t-1} sequence; position 0 uses x_prev (decode carry) or zeros."""
     if x.shape[1] == 1:
         return torch.zeros_like(x) if x_prev is None else x_prev[:, None, :]
-    shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
-    if x_prev is not None:
-        shifted[:, 0] = x_prev
-    return shifted
+    # a cat, not F.pad: torch 2.11's DTensor fails to propagate the pad of a
+    # sequence-sharded x (an IndexError); the values are the same
+    first = torch.zeros_like(x[:, :1]) if x_prev is None else x_prev[:, None, :].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
 
 
 def _lerp(x, xs, mu):
     return x + (xs - x) * mu.to(x.dtype)
+
+
+def _wkv6_chunked(r, k, v, w, u, s0, *, chunk: int):
+    """`linear_scan.wkv6_chunked`; on DTensors, on each rank's (batch,
+    heads) shard (`shardctx.on_local_shards`), as the kernel's wrapper runs:
+    DTensor's views of the scan's chunked tensors do not match their local
+    shards where the heads do not divide the mesh."""
+    if is_dtensor(r):
+        return on_local_shards(lambda *xs: linear_scan.wkv6_chunked(*xs, chunk=chunk), (r, k, v, w, u, s0),
+                               [(0, 2)] * 4 + [(None, 0), (0, 1)], (r.shape[2],), [(0, 2), (0, 1)])
+    return linear_scan.wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
 
 
 def time_mix(
@@ -70,20 +95,19 @@ def time_mix(
     mu = params["mu"]
     xr, xk, xv, xw, xg = (_lerp(x, xs, mu[i]) for i in range(5))
 
-    alts = (("batch", "none", "tp", "none"), ("batch", "none", "none", "tp"))
-    r = constrain_alt(torch.einsum("btd,dhk->bthk", xr, params["wr"]), *alts)
-    k = constrain_alt(torch.einsum("btd,dhk->bthk", xk, params["wk"]), *alts)
-    v = constrain_alt(torch.einsum("btd,dhk->bthk", xv, params["wv"]), *alts)
-    g = constrain_alt(torch.einsum("btd,dhk->bthk", xg, params["wg"]), *alts)
+    r = _head_layout(project_heads(xr, params["wr"]))
+    k = _head_layout(project_heads(xk, params["wk"]))
+    v = _head_layout(project_heads(xv, params["wv"]))
+    g = _head_layout(project_heads(xg, params["wg"]))
     # data-dependent decay (f32 for stability)
-    lora = torch.einsum("btl,lhk->bthk", torch.tanh(xw.float() @ params["decay_a1"]), params["decay_a2"])
+    lora = project_heads(torch.tanh(xw.float() @ params["decay_a1"]), params["decay_a2"])
     w = torch.exp(-torch.exp(params["decay_w0"][None, None] + lora))  # (B,T,H,hd) in (0,1)
 
     if x.shape[1] == 1:  # decode
         if s0 is None:
             s0 = torch.zeros((x.shape[0], h, hd, hd), dtype=torch.float32, device=x.device)
         y1, s_new = linear_scan.wkv6_step(r[:, 0], k[:, 0], v[:, 0], w[:, 0], params["bonus_u"], s0)
-        y = y1[:, None]
+        y = _head_layout(y1[:, None])  # a partial sum over the head dim's shards, reduced
     elif cfg.use_kernels:
         # imported here, as in the JAX package: kernels.wkv's plain version
         # imports this package's linear_scan
@@ -91,15 +115,13 @@ def time_mix(
 
         y, s_new = wkv_ops.wkv6(r, k, v, w, params["bonus_u"], s0, chunk=cfg.wkv_chunk)
     else:
-        y, s_new = linear_scan.wkv6_chunked(
-            r, k, v, w, params["bonus_u"], s0, chunk=min(cfg.wkv_chunk, x.shape[1])
-        )
+        y, s_new = _wkv6_chunked(r, k, v, w, params["bonus_u"], s0, chunk=min(cfg.wkv_chunk, x.shape[1]))
 
     # per-head groupnorm (scale only) + silu(g) gating
     y = y.float()
     y = y * torch.rsqrt(torch.mean(torch.square(y), dim=-1, keepdim=True) + 1e-6)
     y = (y * params["ln_out"]).to(x.dtype) * F.silu(g)
-    out = torch.einsum("bthk,hkd->btd", y, params["wo"])
+    out = project_out(y, params["wo"])
     return out, x[:, -1], s_new
 
 

@@ -21,6 +21,7 @@ stacked gradient once.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict
 
 import torch
@@ -29,7 +30,7 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import hybrid, layers, moe, rwkv
-from repro_torch.shardctx import constrain
+from repro_torch.shardctx import constrain, recompute_context
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
@@ -87,10 +88,12 @@ def _kv_to_ring_cache(k: torch.Tensor, window: int) -> torch.Tensor:
     if window <= 0 or t <= window:
         return k
     base = t - window
-    perm = (base + torch.arange(window, device=k.device)) % window
-    cache = torch.zeros((k.shape[0], window) + tuple(k.shape[2:]), dtype=k.dtype, device=k.device)
-    cache[:, perm] = k[:, base:]
-    return cache
+    # position base + i goes to slot (base + i) % window: a roll of the last
+    # window positions, written as slices and a cat, which DTensor takes in
+    # both torch versions (an index_put_ into a plain buffer it refuses, and
+    # torch 2.11 has no sharding rule for roll)
+    last, shift = k[:, base:], base % window
+    return torch.cat([last[:, window - shift:], last[:, :window - shift]], dim=1) if shift else last
 
 
 def attention_input(p: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -148,15 +151,54 @@ def block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
     return x, aux, {"k": _kv_to_ring_cache(k, window), "v": _kv_to_ring_cache(v, window), **cache_l}
 
 
-def checkpointed(fn: Callable, *args):
+# The products `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`
+# keeps: matmuls without batch dims.  A (B, T, D) @ (D, F) product reaches
+# the dispatcher as one `mm` over B*T rows, and an einsum such as
+# "btd,dhk->bthk" as a `bmm` over a batch of 1; the attention's products
+# over (batch, heads) are `bmm`s with a real batch and are recomputed, with
+# everything else.
+SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    no_batch = op in SAVED_PRODUCTS or (op is torch.ops.aten.bmm.default and args[0].shape[0] == 1)
+    return CheckpointPolicy.MUST_SAVE if no_batch else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(fn: Callable, *args, policy: str = "full"):
     """``fn(*args)`` through `torch.utils.checkpoint` (recomputed in the
-    backward pass, as `jax.checkpoint`).  It is not reliable under a
-    `torch.func` transform, so there it raises rather than run unchecked:
-    set ``remat=False`` for a mapped loss (the smoke configs do)."""
+    backward pass, as `jax.checkpoint`).  ``policy="dots"`` keeps the
+    outputs of the products without batch dims (`_dots_policy`) from the
+    forward pass and recomputes the rest (selective checkpointing, as the reference's
+    `dots_with_no_batch_dims_saveable`); "full" recomputes everything.  It
+    is not reliable under a `torch.func` transform, so there it raises
+    rather than run unchecked: set ``remat=False`` for a mapped loss (the
+    smoke configs do)."""
     if torch._C._functorch.maybe_current_level() is not None:
         raise RuntimeError("remat (torch.utils.checkpoint) under a torch.func transform: build the mapped loss "
                            "from a config with remat=False")
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    sharded = recompute_context()
+    if policy != "dots" and sharded is None:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    def contexts():
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        fwd, rec = (create_selective_checkpoint_contexts(_dots_policy) if policy == "dots"
+                    else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, rec if sharded is None else _entered_together(rec, sharded())
+
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=contexts)
+
+
+@contextlib.contextmanager
+def _entered_together(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
 
 
 def run_stack_full(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *,
@@ -166,11 +208,9 @@ def run_stack_full(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: 
     and the encoder (``causal=False``, ``n_layers=cfg.encoder_layers``).
     Returns (x, aux_sum): the layers' MoE load-balance losses summed in f32
     (zero for other families).  With ``cfg.remat`` and grad mode on, each
-    block is recomputed in the backward pass (`checkpointed`)."""
+    block is recomputed in the backward pass (`checkpointed`; with
+    ``remat_policy="dots"`` the products without batch dims are kept)."""
     check_family(cfg)
-    if cfg.remat and cfg.remat_policy == "dots":
-        raise NotImplementedError("remat_policy='dots' (save the matmul outputs) is not yet ported; see "
-                                  "ROADMAP.md Queue 1 item 17")
     remat = cfg.remat and torch.is_grad_enabled()
 
     def body(x, p):
@@ -182,7 +222,7 @@ def run_stack_full(stacked: dict, cfg: ModelConfig, x: torch.Tensor, positions: 
     per_layer = [tree_unflatten([u[i] for u in unbound], spec) for i in range(n_layers)]
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in per_layer:
-        x, aux = checkpointed(body, x, p) if remat else body(x, p)
+        x, aux = checkpointed(body, x, p, policy=cfg.remat_policy) if remat else body(x, p)
         if aux is not None:
             aux_sum = aux_sum + aux
     return x, aux_sum

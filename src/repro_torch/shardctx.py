@@ -45,6 +45,27 @@ def activation_sharding(resolver: Callable[..., object]):
         _STATE.resolver = prev
 
 
+def recompute_context() -> Optional[Callable]:
+    """For a checkpointed region: a factory of the context the region's
+    recomputation must run in to lay its activations out as the forward
+    pass did (the installed resolver, and DTensor's implicit replication
+    that `launch.sharding.mesh_context` installs beside it), or None when
+    no resolver is installed.  The backward of CUDA tensors runs on
+    autograd's device thread, where this thread-local state is unset."""
+    resolver = _resolver()
+    if resolver is None:
+        return None
+
+    @contextlib.contextmanager
+    def context():
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with activation_sharding(resolver), implicit_replication():
+            yield
+
+    return context
+
+
 def is_dtensor(x) -> bool:
     """Whether ``x`` is a DTensor; imports nothing of torch.distributed for
     a plain tensor."""

@@ -1061,3 +1061,99 @@ def test_blocked_attention_on_the_card_matches_naive(cuda_device, dtype, tol, bl
         blocked = layers.attention_full(p, cfg.replace(attention_impl="blocked", attention_block=blk), x, pos,
                                         window=96)
     assert ((blocked - naive).abs().max() / naive.abs().max()).item() < tol
+
+
+# ------------------------------------------------- the kernels as custom ops
+
+
+def _attn_inputs(dtype, shape=(2, 256, 256, 8, 2, 128)):
+    b, t, s, h, kv, hd = shape
+    g = torch.Generator(device="cuda").manual_seed(41)
+    mk = lambda *sh: torch.randn(sh, generator=g, device="cuda").to(dtype)  # noqa: E731
+    return mk(b, t, h, hd), mk(b, s, kv, hd), mk(b, s, kv, hd)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_custom_op_is_the_kernel_bit_for_bit(cuda_device, dtype):
+    """`ops.flash_attention` (its direct launch) and the custom op
+    `repro_torch::flash_attention` against the kernel's own binding on the
+    same inputs: equal bits, one launch counted each."""
+    from repro_torch.kernels.attention import kernel as attn_kernel
+
+    q, k, v = _attn_inputs(getattr(torch, dtype))
+    before = ops.launches
+    out = ops.flash_attention(q, k, v, causal=True, window=64)
+    via_op = torch.ops.repro_torch.flash_attention(q, k, v, True, 64)
+    assert ops.launches == before + 2
+    direct = torch.empty_like(q)
+    attn_kernel.flash_attention_bhtd(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+                                     window=64, out=direct.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert torch.equal(out, direct) and torch.equal(via_op, direct)
+
+
+@pytest.mark.parametrize("case", [(2, 128, 3, 64, 64, 32, 0.5), (2, 128, 3, 16, 16, 32, 0.5)], ids=str)
+def test_wkv6_custom_op_is_the_kernel_bit_for_bit(cuda_device, case):
+    xs = _wkv_inputs(case, torch.bfloat16, cuda_device)
+    route = _expected_route(case)
+    before = wkv_ops.route_launches[route]
+    y, s = wkv_ops.wkv6(*xs, chunk=case[5])
+    oy, os_ = torch.ops.repro_torch.wkv6(*xs, case[5], route)
+    assert wkv_ops.route_launches[route] == before + 2
+    dy, ds = wkv_kernel.wkv6_bthk(*xs, chunk=case[5], kernel=route)
+    torch.cuda.synchronize()
+    assert torch.equal(y, dy) and torch.equal(s, ds) and torch.equal(oy, dy) and torch.equal(os_, ds)
+
+
+def _meta(x):
+    return tuple(x.shape), x.dtype, x.stride(), x.device.type
+
+
+def test_the_fake_implementations_are_shaped_as_the_real_outputs(cuda_device):
+    """Each custom op's fake output: the real output's shape, dtype, strides
+    and device; and a trace on fake tensors counts no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.roofline import analysis
+
+    q, k, v = _attn_inputs(torch.bfloat16)
+    wkv_case = (2, 128, 3, 64, 64, 32, 0.5)
+    xs = _wkv_inputs(wkv_case, torch.bfloat16, cuda_device)
+    real_attn = ops.flash_attention(q, k, v, causal=True)
+    real_wkv = wkv_ops.wkv6(*xs, chunk=32)
+    before = (ops.launches, wkv_ops.launches)
+    with FakeTensorMode() as mode:
+        fq, fk, fv = (mode.from_tensor(x) for x in (q, k, v))
+        fxs = [mode.from_tensor(x) for x in xs]
+        fake_attn = ops.flash_attention(fq, fk, fv, causal=True)
+        fake_wkv = wkv_ops.wkv6(*fxs, chunk=32)
+        cost = analysis.count_step(lambda: (ops.flash_attention(fq, fk, fv, causal=True),
+                                            wkv_ops.wkv6(*fxs, chunk=32)))
+    assert _meta(fake_attn) == _meta(real_attn)
+    assert [_meta(a) for a in fake_wkv] == [_meta(a) for a in real_wkv]
+    assert (ops.launches, wkv_ops.launches) == before
+    assert cost["kernel_calls"] == {"flash_attention": 1, "wkv6": 1}
+    assert cost["flops"] == ops.flash_attention_flops(tuple(q.shape), tuple(k.shape), tuple(v.shape), True, 0) + \
+        wkv_ops.wkv6_flops(*(tuple(x.shape) for x in xs[:5]), None, 32, "wkv6_sm90")
+
+
+def test_dryrun_traces_the_cards_program(cuda_device, tmp_path):
+    """`launch/dryrun.py` on its default device, in a process of its own:
+    qwen1.5-0.5b train_4k at 2 layers on 256 fake ranks, the eval forward's
+    attention through the custom op, no launch."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path / "r.json"
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "qwen1.5-0.5b", "--shape",
+                           "train_4k", "--override", "n_layers=2", "--out", str(out)], cwd=root, capture_output=True,
+                          text=True, env=dict(os.environ, PYTHONPATH=str(root / "src")), timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    r = json.loads(out.read_text())
+    assert (r["device"], r["n_devices"]) == ("cuda", 256)
+    assert r["kernel_calls"]["flash_attention"] == 2 and r["kernel_launches"] == {"flash_attention": 0, "wkv6": 0}
+    assert r["roofline"]["flops"] > 0 and r["collectives"]["total"] > 0

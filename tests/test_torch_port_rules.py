@@ -45,7 +45,8 @@ def test_port_files_were_found():
             "chip_smoke.py", "prng.py", "straggler.py", "aggregation.py", "controller.py", "theory.py",
             "gradsource.py", "montecarlo.py", "simulate.py", "async_sim.py", "synthetic.py",
             "quickstart.py", "sweep.py", "execmode.py", "faults.py", "optimizers.py", "steps.py", "train.py",
-            "lm_source.py", "io.py", "figures.py", "shardctx.py", "mesh.py", "sharding.py"} <= names
+            "lm_source.py", "io.py", "figures.py", "shardctx.py", "mesh.py", "sharding.py", "dryrun.py",
+            "dryrun_all.py", "cache.py", "analysis.py", "memory.py", "report.py"} <= names
 
 
 def _no_card():
@@ -156,6 +157,15 @@ def _experiment_entry_points():
         "figures.main[--only fig1]": lambda: figures.main(["--smoke", "--only", "fig1", "--out-dir", "unused"]),
         "figures.run_fig_hetero": lambda: figures.run_fig_hetero(iters=2, n_replicas=2),
         "figures.run_fig3": lambda: figures.run_fig3(iters=2, n_replicas=2, async_seeds=1),
+        **_tooling_entry_points(),
+    }
+
+
+def _tooling_entry_points():
+    from repro_torch.launch import dryrun
+
+    return {
+        "dryrun.main": lambda: dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "train_4k"]),
     }
 
 
@@ -170,7 +180,7 @@ def _experiment_entry_points():
      "quickstart.main[--setup byzantine]", "train.main", "train.main[--mode kbatch]", "TokenStream.batch_at",
      "LMSource.init_params", "LMSource.make_data", "quickstart.main[--setup lm]", "train.main[--simulate]",
      "figures.main[--only fig1]", "figures.run_fig_hetero", "figures.run_fig3", "train.main[--distributed]",
-     "train.main[--distributed --simulate]"],
+     "train.main[--distributed --simulate]", "dryrun.main"],
 )
 def test_entry_point_without_device_raises_on_a_host_without_cuda(name):
     _no_card()

@@ -161,16 +161,28 @@ def test_simulate_validation_raises_the_reference_message(extra, reference):
 
 
 @pytest.mark.parametrize("flag", [["--production-mesh"], ["--distributed"], ["--cache-dir", "x"]])
-def test_simulate_keeps_the_not_ported_flags_raising(flag, capsys):
-    """--cache-dir is not ported and raises.  --distributed without a
-    process group or torchrun's environment raises, naming what it lacks.
-    --production-mesh plays no part in --simulate, as in the reference's
-    CLI: the grid runs on the one-device mesh."""
+def test_simulate_keeps_the_not_ported_flags_raising(flag, capsys, tmp_path):
+    """--distributed without a process group or torchrun's environment
+    raises, naming what it lacks.  --production-mesh plays no part in
+    --simulate, as in the reference's CLI: the grid runs on the one-device
+    mesh.  --cache-dir is ported (`core/cache.py`): the grid runs with the
+    kernel build directory re-rooted at DIR, as the reference's CLI enables
+    its cache before the sweep."""
+    from repro_torch.core import cache
+
     argv = BASE + flag + ["--device", "cpu"]
     if flag[0] == "--production-mesh":
         out = ttrain.main(argv)
         assert out["header"]["mesh_shape"] == [1, 1] and out["header"]["processes"] == 1
         return
-    match = "not ported" if flag[0] == "--cache-dir" else "torchrun environment lacks"
-    with pytest.raises(SystemExit, match=match):
+    if flag[0] == "--cache-dir":
+        where = tmp_path / flag[1]
+        try:
+            out = ttrain.main(BASE + ["--cache-dir", str(where), "--device", "cpu"])
+            assert cache.persistent_cache_dir() == str(where)
+        finally:
+            cache.disable_persistent_cache()
+        assert out["header"]["mesh_shape"] == [1, 1]
+        return
+    with pytest.raises(SystemExit, match="torchrun environment lacks"):
         ttrain.main(argv)

@@ -293,11 +293,21 @@ def test_remat_under_a_torch_func_transform_raises():
 
 
 def test_remat_policy_dots_raises_naming_the_roadmap():
-    model = build_model(get_smoke_config("llama3.2-3b").replace(remat=True, remat_policy="dots"), device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
+    """remat_policy="dots" is ported (it raised until then, naming the
+    roadmap): the loss and its gradients equal full remat's bit for bit on
+    the CPU (tests/test_torch_roofline.py holds it to the reference)."""
+    cfg = get_smoke_config("llama3.2-3b").replace(remat=True)
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     tokens, targets = TokenStream(512, 16, 2, device="cpu").batch_at(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss_fn(params, {"tokens": tokens, "targets": targets})
+    out = {}
+    for policy in ("full", "dots"):
+        model = build_model(cfg.replace(remat_policy=policy), device="cpu")
+        leaves, spec = tree_flatten(params)
+        xs = [p.detach().requires_grad_() for p in leaves]
+        loss = model.loss_fn(tree_unflatten(xs, spec), {"tokens": tokens, "targets": targets})[0].mean()
+        out[policy] = (loss.detach(), torch.autograd.grad(loss, xs))
+    assert torch.equal(out["full"][0], out["dots"][0])
+    assert all(torch.equal(a, b) for a, b in zip(out["full"][1], out["dots"][1]))
 
 
 def test_kernel_guard_raises_under_torch_func_grad():
@@ -499,12 +509,24 @@ def test_train_cli_async_mode_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--production-mesh"], ["--distributed"], ["--cache-dir", "x"]])
-def test_train_cli_flags_not_ported_raise(flag):
-    """--cache-dir is not ported.  --production-mesh needs a world of 256
-    ranks and names the world it found; --distributed without a process
-    group names the torchrun variables it lacks."""
-    match = {"--production-mesh": "256 ranks; the world has 1", "--distributed": "torchrun environment lacks",
-             "--cache-dir": "not ported"}[flag[0]]
+def test_train_cli_flags_not_ported_raise(flag, tmp_path, capsys):
+    """--production-mesh needs a world of 256 ranks and names the world it
+    found; --distributed without a process group names the torchrun
+    variables it lacks.  --cache-dir is ported (`core/cache.py`): the run
+    trains with the kernel build directory re-rooted at DIR."""
+    from repro_torch.core import cache
+
+    if flag[0] == "--cache-dir":
+        where = tmp_path / flag[1]
+        try:
+            ttrain.main(CLI + ["--steps", "1", "--cache-dir", str(where)])
+            assert cache.persistent_cache_dir() == str(where) and where.is_dir()
+        finally:
+            cache.disable_persistent_cache()
+        assert cache.persistent_cache_dir() is None
+        assert len(_json_lines(capsys.readouterr().out)) == 1
+        return
+    match = {"--production-mesh": "256 ranks; the world has 1", "--distributed": "torchrun environment lacks"}[flag[0]]
     with pytest.raises(SystemExit, match=match):
         ttrain.main(CLI + flag)
 

@@ -1,5 +1,6 @@
-"""Worker side of tests/test_torch_distribution.py: the port's sharded paths
-run in a world of CPU ranks joined by gloo.
+"""Worker side of tests/test_torch_distribution.py and test_torch_dryrun.py:
+the port's sharded paths run in a world of CPU ranks joined by gloo, or on
+rank 0 of a fake world (`start_fake_world`).
 
 `start_world(world, jobs, tmp)` spawns ``world`` processes and returns at
 once (`finish_world` waits for them).  Each joins the default process
@@ -38,6 +39,32 @@ def finish_world(started) -> list:
         pass
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)]
 
+
+
+def start_fake_world(world: int, jobs: list, tmp: str):
+    """Start ``jobs`` in one spawned process, rank 0 of a fake process group
+    of ``world`` ranks (the dry run's world); `finish_world` collects it as
+    a world of one."""
+    import torch.multiprocessing as mp
+
+    os.makedirs(tmp, exist_ok=True)
+    ctx = mp.start_processes(_fake_main, args=(world, jobs, tmp), nprocs=1, join=False, start_method="spawn")
+    return ctx, 1, tmp
+
+
+def _fake_main(_: int, world: int, jobs: list, tmp: str) -> None:
+    from repro_torch.launch.dryrun import open_fake_world
+
+    torch.set_num_threads(1)
+    open_fake_world(world, "cpu")
+    try:
+        torch.save([globals()[name](**kw) for name, kw in jobs], os.path.join(tmp, "rank0.pt"))
+    except Exception:
+        traceback.print_exc()
+        sys.stderr.flush()
+        raise
+    finally:
+        dist.destroy_process_group()
 
 
 def _main(rank: int, world: int, jobs: list, tmp: str) -> None:
@@ -99,6 +126,56 @@ def train_steps(arch: str, shape, mode: str, params_file: str, steps: int = 3, n
               [("wq", state.params["layers"]["attn"]["wq"])]}
     return {"rows": rows, "params": sharding.gathered(state.params), "placements": placed,
             "ctrl": sharding.gathered(state.ctrl_state), "exec_async": sharding.gathered(state.exec_async)}
+
+
+def count_train_step(arch: str, shape, fake: bool = False):
+    """`roofline.count_step` of one sync train step of `train_steps`'
+    recipe (from seed-0 weights) on a ("data", "model") mesh of ``shape``:
+    this rank's FLOPs, bytes and collective bytes.  With ``fake`` every
+    tensor is a fake one (the dry run's trace), on a fake world."""
+    import contextlib
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import aggregation, controller, prng, straggler
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import build_model
+    from repro_torch.optim import optimizers
+    from repro_torch.roofline import analysis
+
+    mesh = _mesh(shape)
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, "cpu")
+    opt = optimizers.sgd(0.3, momentum=0.9)
+    ctrl = controller.get_controller("pflug", 4, k0=1, step=1, thresh=0, burnin=0)
+    step = steps_lib.make_train_step(model, opt, ctrl, straggler.Exponential(rate=1.0), 4,
+                                     aggregation.CommModel(0.1, 0.05), mesh=mesh)
+    with FakeTensorMode() if fake else contextlib.nullcontext(), analysis.dtensor_metadata_uncounted():
+        state = steps_lib.init_train_state(opt, ctrl, model.init(torch.Generator().manual_seed(0)), mesh=mesh)
+        tokens, targets = TokenStream(cfg.vocab_size, 32, 8, seed=0, device="cpu").batch_at(0)
+        cost = analysis.count_step(step, state, {"tokens": tokens, "targets": targets}, prng.PRNGKey(7))
+    return {k: cost[k] for k in ("flops", "bytes accessed", "collectives")}
+
+
+def count_dtensor_product():
+    """`roofline.count_step` of a (4096 x 8192) @ (8192 x 8192) bf16 product
+    of fake DTensors sharded (Shard(0), Replicate()) x (Replicate(),
+    Shard(1)) on a (16, 16) mesh: this rank's count."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.roofline import analysis
+
+    mesh = _mesh((16, 16))
+    with FakeTensorMode():
+        a = DTensor.from_local(torch.empty(4096 // 16, 8192, dtype=torch.bfloat16), mesh, [Shard(0), Replicate()],
+                               run_check=False)
+        b = DTensor.from_local(torch.empty(8192, 8192 // 16, dtype=torch.bfloat16), mesh, [Replicate(), Shard(1)],
+                               run_check=False)
+        cost = analysis.count_step(torch.matmul, a, b)
+    return {k: cost[k] for k in ("flops", "collectives")}
 
 
 def serve(arch: str, shape, params_file: str, prompt_len: int, new_tokens: int, window: int = 0):
