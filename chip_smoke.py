@@ -137,7 +137,7 @@
    `train.main`, every cell line checked; each grid at R = 4, 300
    iterations on the card against the CPU; then the figure functions
    (`launch/figures.py`): fig1, fig_hetero at its size (5 cells x R = 32
-   x 12 000 iterations) and fig3 at 2000 iterations with one seed of its
+   x 12 000 iterations) and fig3 at 1000 iterations with one seed of its
    host loop, each one's wall time and `derived` line, the host loop's
    events a second on the card and on the CPU over the same horizon, and
    fig_hetero's cells at 300 iterations card against CPU.
@@ -161,9 +161,14 @@
    on the card (up to 4.9e-5 measured), below the loss at w = 0, a
    diverging lane's gap reported), each rank's ms an iteration and the
    wall time, and the
-   `train --simulate` header in that world.  The world-1 train steps run
-   mesh-free and then on the mesh in the same process: k and sim_time
-   equal, ce within 1e-5, ms a step and peak memory of both.
+   `train --simulate` header in that world; then one sync train step of
+   qwen1.5-0.5b smoke on a ("data", "model") (2, 2) mesh of the host's
+   DTensors, the vocab on "model" (the vocab-parallel CE; gloo cannot move
+   CUDA DTensors on the card's torch), against the mesh-free step: k
+   exact, ce within 1e-6.  The world-1 train steps run mesh-free and then
+   on the mesh in the same process: k and sim_time equal, ce within 1e-5,
+   the CE vocab-parallel on CUDA DTensors, ms a step and peak memory of
+   both.
 16. The dry run, the roofline and the kernel cache (`launch/dryrun.py`,
    `roofline/`, `core/cache.py`; started before phase 14, the trio's traces
    run on the host's cores beside phases 14 and 15).  The reference dry-run
@@ -173,8 +178,14 @@
    decode_32k on (2, 16, 16) (512 ranks), rwkv6-3b long_500k; each one's
    trace seconds, per-rank FLOPs, bytes and collective bytes by type,
    analytic and traced memory and dominant term, no launch, qwen fitting
-   80 GB and rwkv's analytic total below 1 GB (JSONs and logs under
-   results/torch/dryrun_trio/).  `roofline.count_step` on llama3.2-3b's bf16
+   80 GB and rwkv's analytic total below 1 GB, qwen's all-gather at least
+   70 GB below the 163.6 GB of the vocab-gathered CE.  Beside them, one job
+   per site of the sharded path that DTensor on the card's torch refused
+   until the port ran it on local shards: qwen3-moe-30b-a3b train_4k,
+   hymba-1.5b train_4k, rwkv6-3b prefill_32k on (2, 16, 16), hymba-1.5b
+   decode_32k on (2, 16, 16), each traced with counts > 0, no launch and
+   the kernels' custom ops called where the step reaches them (JSONs and
+   logs under results/torch/dryrun_trio/).  `roofline.count_step` on llama3.2-3b's bf16
    prefill (batch 4 x 1024, 28 launches) and on its fake twin: FLOPs, bytes
    and kernel calls equal; the prefill's ms against its roofline bound; the
    analytic state bytes equal to the weights allocated, the analytic total
@@ -2523,7 +2534,8 @@ def new_families_phase() -> dict:
 # the mixed grid's loss only below the loss at w = 0 (its sign-flip cells
 # under the weighted mean may diverge: phase 10's hold).  Then the figure
 # functions: fig1, fig_hetero at its size (5 cells x R = 32 x 12 000
-# iterations) and fig3 cut to 2000 iterations and one seed of its host
+# iterations) and fig3 cut to 1000 iterations (the script's time limit)
+# and one seed of its host
 # loop, whose events a second are measured on the card and (over the same
 # horizon) on the CPU; fig_hetero's cells at 300 iterations held card
 # against CPU.  The CPU runs go to worker processes that overlap the card's.
@@ -2534,7 +2546,7 @@ SIM_MIXED = ["--simulate", "--sim-m", "400", "--sim-d", "20", "--n-workers", "20
              "--sim-mode", "sync,kasync", "--sim-fault", "none,sign_flip:0.1:0", "--sim-agg", "mean,geomedian",
              "--sim-n-grid", "10,20", "--k0", "4", "--fixed-k", "4"]
 SIM_HOLD = ["--replicas", "4", "--steps", "300", "--sim-eval-every", "100"]
-FIG3_SMOKE_ITERS, HETERO_HOLD_ITERS = 2000, 300
+FIG3_SMOKE_ITERS, HETERO_HOLD_ITERS = 1000, 300
 
 
 def simulate_run(argv: list, eta, device: str, threads: int = 2):
@@ -2724,6 +2736,14 @@ MESH_TRAIN_STEPS, MESH_CE_RTOL = 3, 1e-5
 SWEEP_RANKS, SWEEP_MESHES, MIXED_PICK = 4, ((1, 4), (2, 2)), slice(None, None, 13)  # 5 of the 64 mixed cells
 SWEEP_LOSS_RTOL = 1e-6
 SIM_WORLD = ["--simulate", "--steps", "200", "--replicas", "4", "--sim-eval-every", "100", "--n-workers", "20"]
+# The four-rank world's sharded train step: qwen1.5-0.5b smoke (vocab 512)
+# on a ("data", "model") mesh, the vocab on "model" (the vocab-parallel
+# CE), against the mesh-free step: k exact, ce within 1e-6.  Its DTensors
+# are the host's: gloo cannot move CUDA DTensors on the card's torch (the
+# first all-gather of a CUDA DTensor over gloo ends in SIGSEGV) and NCCL
+# takes one rank a GPU; the world of one NCCL rank above runs the CE on
+# CUDA DTensors.
+VOCAB_TRAIN_ARCH, VOCAB_TRAIN_MESH, VOCAB_CE_RTOL = "qwen1.5-0.5b", (2, 2), 1e-6
 
 
 def blocked_attention(counters) -> dict:
@@ -2825,9 +2845,13 @@ def mesh_world1_worker(store: str) -> dict:
         t_cfg = {**TRAIN, "steps": MESH_TRAIN_STEPS}
         runs = {}
         for name, m in (("mesh-free", None), ("mesh", mesh)):
-            run = train_full_width("15", "llama3.2-3b", t_cfg, counters, mesh=m)
+            ce_calls, restore = counting_vocab_parallel_ce()
+            try:
+                run = train_full_width("15", "llama3.2-3b", t_cfg, counters, mesh=m)
+            finally:
+                restore()
             runs[name] = {"rows": run.rows, "secs": run.secs, "per_step": run.per_step, "peak_gb": run.peak_gb,
-                          "step_ms": 1e3 * sum(run.secs[1:]) / len(run.secs[1:])}
+                          "step_ms": 1e3 * sum(run.secs[1:]) / len(run.secs[1:]), "ce_calls": len(ce_calls)}
             del run
             torch.cuda.empty_cache()
         free, on = runs["mesh-free"], runs["mesh"]
@@ -2839,6 +2863,10 @@ def mesh_world1_worker(store: str) -> dict:
                                      f"{(fce, fk, fst)} (ce rtol {MESH_CE_RTOL})")
         if any(n != cfg.n_layers for n in on["per_step"]):
             raise AssertionError(f"expected {cfg.n_layers} flash launches a step on the mesh, got {on['per_step']}")
+        print(f"  the CE on CUDA DTensors, the vocab on 'model': {on['ce_calls']} vocab-parallel calls on the mesh "
+              f"({free['ce_calls']} mesh-free)", flush=True)
+        if not on["ce_calls"] or free["ce_calls"]:
+            raise AssertionError(f"vocab-parallel CE calls {on['ce_calls']} on the mesh, {free['ce_calls']} mesh-free")
         print(f"  {on['step_ms']:.1f} ms a step on the mesh against {free['step_ms']:.1f} ms mesh-free (mean of steps "
               f"1-{MESH_TRAIN_STEPS - 1}); peak memory {on['peak_gb']:.2f} GB against {free['peak_gb']:.2f} GB; "
               f"flash launches a step {on['per_step']}", flush=True)
@@ -2934,11 +2962,87 @@ def _sweep_world_body(rank: int, eta: float) -> dict:
     with contextlib.redirect_stdout(buf):
         train.main(SIM_WORLD + ["--device", "cuda"])
     out["simulate"] = buf.getvalue()
+    out["train"] = _vocab_parallel_train_step()
     if rank == 0:  # the one-device grids, after the timed runs
         out["fig2_one"] = arrays(fig2_grid(fig2, None, "none"))
         out["repop_one"] = arrays(fig2_grid(other, None, "none"))
         out["mixed_one"] = arrays(mixed_grid(None, "none"))
     return out
+
+
+def counting_vocab_parallel_ce():
+    """Wraps `model._nll_vocab_parallel` to count its calls: (calls, restore)."""
+    from repro_torch.models import model as model_lib
+
+    inner, calls = model_lib._nll_vocab_parallel, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return inner(*a, **kw)
+
+    model_lib._nll_vocab_parallel = counted
+    return calls, lambda: setattr(model_lib, "_nll_vocab_parallel", inner)
+
+
+def _vocab_parallel_train_step() -> dict:
+    """Phase 15d on each rank of the four-rank world: one sync train step
+    of VOCAB_TRAIN_ARCH smoke (batch 8 x 32, Pflug, SGD with momentum, a
+    comm model; seed-0 weights) mesh-free, then on VOCAB_TRAIN_MESH with
+    the parameters and the batch as DTensors (the host's, see
+    VOCAB_TRAIN_MESH); the metrics of both and the number of
+    vocab-parallel CE calls in each."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import aggregation, controller, prng, straggler
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    from repro_torch.optim import optimizers
+
+    cfg = get_smoke_config(VOCAB_TRAIN_ARCH)
+    model = build_model(cfg, "cpu")
+    mesh = init_device_mesh("cpu", VOCAB_TRAIN_MESH, mesh_dim_names=("data", "model"))
+    tokens, targets = TokenStream(cfg.vocab_size, 32, 8, seed=0, device="cpu").batch_at(0)
+    out = {}
+    for name, m in (("mesh-free", None), ("mesh", mesh)):
+        params = convert.init(cfg, torch.Generator().manual_seed(0), "cpu")
+        opt = optimizers.sgd(0.3, momentum=0.9)
+        ctrl = controller.get_controller("pflug", 4, k0=1, step=1, thresh=0, burnin=0)
+        state = steps.init_train_state(opt, ctrl, params, mesh=m)
+        step = steps.make_train_step(model, opt, ctrl, straggler.Exponential(rate=1.0), 4,
+                                     aggregation.CommModel(0.1, 0.05), mesh=m)
+        calls, restore = counting_vocab_parallel_ce()
+        try:
+            _, metrics = step(state, {"tokens": tokens, "targets": targets}, prng.PRNGKey(7))
+        finally:
+            restore()
+        out[name] = {k: float(v) for k, v in metrics.items()}
+        out[f"{name}_ce_calls"] = len(calls)
+    out["lm_head"] = [str(p) for p in state.params["lm_head"].placements]
+    return out
+
+
+def hold_vocab_train(ranks) -> dict:
+    """Phase 15d's check: k exact and ce within VOCAB_CE_RTOL of the
+    mesh-free step, every rank the same metrics, the CE vocab-parallel."""
+    zero = ranks[0]["train"]
+    free, on = zero["mesh-free"], zero["mesh"]
+    gap = abs(on["ce"] - free["ce"]) / abs(free["ce"])
+    print(f"  {VOCAB_TRAIN_ARCH} smoke, one sync train step on ('data', 'model') {VOCAB_TRAIN_MESH} of the host's DTensors "
+          f"(lm_head {zero['lm_head']}): ce {on['ce']:.8f} against {free['ce']:.8f} mesh-free (relative gap "
+          f"{gap:.3e}, bound {VOCAB_CE_RTOL}), k {int(on['k'])} ({int(free['k'])}); vocab-parallel CE calls "
+          f"{zero['mesh_ce_calls']} on the mesh, {zero['mesh-free_ce_calls']} mesh-free", flush=True)
+    if int(on["k"]) != int(free["k"]) or not gap <= VOCAB_CE_RTOL:
+        raise AssertionError(f"the sharded train step: {on} against the mesh-free {free}")
+    if not zero["mesh_ce_calls"] or zero["mesh-free_ce_calls"]:
+        raise AssertionError(f"vocab-parallel CE calls: {zero['mesh_ce_calls']} on the mesh, "
+                             f"{zero['mesh-free_ce_calls']} mesh-free")
+    if any(r["train"]["mesh"] != on for r in ranks[1:]):
+        raise AssertionError("the ranks' sharded train steps disagree")
+    return {"ce": on["ce"], "free_ce": free["ce"], "gap": gap, "k": int(on["k"])}
 
 
 def hold_lanes(what: str, got: tuple, want: tuple, bar: float = math.inf,
@@ -3022,9 +3126,11 @@ def sweep_world(eta: float) -> dict:
             r["simulate"] for r in ranks[1:]):
         raise AssertionError(f"train --simulate in the world printed {header} (and lines on other ranks)")
     print(f"  train --simulate ({' '.join(SIM_WORLD)}) in the world, rank 0's header: {json.dumps(header)}")
+    train = hold_vocab_train(ranks)
     print(f"  the world's wall time {wall:.1f} s, spawn and CUDA contexts included", flush=True)
     return {"ranks": [{str(s): {"ms_iter": 1e3 * r[s]["wall"] / ENGINE_ITERS, "wall": r[s]["wall"]}
-                       for s in SWEEP_MESHES} for r in ranks], "bitwise": bitwise, "wall": wall, "header": header}
+                       for s in SWEEP_MESHES} for r in ranks], "bitwise": bitwise, "wall": wall, "header": header,
+            "train": train}
 
 
 def distribution_phase(counters, eta: float) -> dict:
@@ -3060,8 +3166,21 @@ def distribution_phase(counters, eta: float) -> dict:
 # ops.  (arch, shape, multi-pod, what else the run must show)
 DRYRUN_TRIO = [("qwen1.5-0.5b", "train_4k", False), ("llama3.2-3b", "decode_32k", True),
                ("rwkv6-3b", "long_500k", False)]
-# The trio's traces are Python-bound (15-35 s each at full depth on a CPU
-# with torch 2.13); they start before phase 14 and run beside it.
+# One job per site of the sharded path that DTensor on the card's torch
+# refused until the port ran it on local shards: the MoE dispatch's index
+# work, the backward of the head-dim-sharded projection, rwkv's decay LoRA
+# on (2, 16, 16), the SSM's decode step.  Traced beside the trio, at the
+# depth below (None: full depth), each with counts > 0, no launch and the
+# kernels' custom ops called where the step reaches them.
+DRYRUN_REPAIRED = [("qwen3-moe-30b-a3b", "train_4k", False), ("hymba-1.5b", "train_4k", False),
+                   ("rwkv6-3b", "prefill_32k", True), ("hymba-1.5b", "decode_32k", True)]
+DRYRUN_REPAIRED_LAYERS = None
+# qwen1.5-0.5b train_4k's all-gather bytes a rank while the CE gathered the
+# vocab (163.6 GB, on the card's torch); the vocab-parallel CE must take at
+# least 70 GB of it away
+QWEN_AG_GATHERED, QWEN_AG_CUT = 163.6e9, 70e9
+# The traces are Python-bound (15-100 s each at full depth on the card's
+# host); they start before phase 14 and run beside it.
 DRYRUN_TIMEOUT_S = 600
 # Phase 16's prefill: llama3.2-3b, batch 4 x prompt 1024, bf16 (phase 4's).
 ROOFLINE_PREFILL = ("llama3.2-3b", 4, 1024)
@@ -3070,19 +3189,25 @@ REMAT_RUN = dict(arch="qwen1.5-0.5b", steps=2, lr=3e-4, n_workers=4, batch=8, se
 
 
 def start_dryruns(out_dir: Path) -> list:
-    """Start the trio's dry runs (`python -m repro_torch.launch.dryrun`,
-    the card's program) at low priority; returns [(job, popen, json, log)]."""
+    """Start the trio's and the repaired jobs' dry runs (`python -m
+    repro_torch.launch.dryrun`, the card's program) at low priority;
+    returns [(job, popen, json, log)]."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     started = []
-    for arch, shape, pod in DRYRUN_TRIO:
+    for job in DRYRUN_TRIO + DRYRUN_REPAIRED:
+        arch, shape, pod = job
         name = f"{arch}__{shape}__{'pod2' if pod else 'base'}"
         out, log = out_dir / f"{name}.json", open(out_dir / f"{name}.log", "w")
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--out", str(out)]
-        proc = subprocess.Popen(cmd + (["--multi-pod"] if pod else []), stdout=log, stderr=subprocess.STDOUT,
-                                cwd=ROOT, env=env, preexec_fn=lambda: os.nice(10))
-        started.append(((arch, shape, pod), proc, out, log))
+        if pod:
+            cmd.append("--multi-pod")
+        if job in DRYRUN_REPAIRED and DRYRUN_REPAIRED_LAYERS:
+            cmd += ["--override", f"n_layers={DRYRUN_REPAIRED_LAYERS}"]
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT, env=env,
+                                preexec_fn=lambda: os.nice(10))
+        started.append((job, proc, out, log))
     return started
 
 
@@ -3095,8 +3220,8 @@ def stop_dryruns(started) -> None:
 
 
 def finish_dryruns(started, t_started: float) -> dict:
-    """Wait for the trio (at most DRYRUN_TIMEOUT_S from their start), print
-    and check each result; returns {arch: result}."""
+    """Wait for the dry runs (at most DRYRUN_TIMEOUT_S from their start),
+    print and check each result; returns {(arch, shape, multi-pod): result}."""
     out = {}
     try:
         for (arch, shape, pod), proc, path, log in started:
@@ -3128,16 +3253,25 @@ def finish_dryruns(started, t_started: float) -> dict:
                 raise AssertionError(f"{arch} {shape}: a count is 0: {rl}")
             if any(r["kernel_launches"].values()):
                 raise AssertionError(f"{arch} {shape}: a fake trace launched a kernel: {r['kernel_launches']}")
-            out[arch] = r
+            kernel = "wkv6" if arch.startswith("rwkv") else "flash_attention"
+            if (arch, shape, pod) in DRYRUN_REPAIRED and shape != "decode_32k" and not r["kernel_calls"][kernel]:
+                raise AssertionError(f"{arch} {shape}: the step traced no call of {kernel}: {r['kernel_calls']}")
+            out[(arch, shape, pod)] = r
     finally:
         stop_dryruns(started)
-    qwen, _, rwkv = (out[a] for a, _, _ in DRYRUN_TRIO)
+    qwen, _, rwkv = (out[job] for job in DRYRUN_TRIO)
     if not qwen["analytic_memory"]["fits_80gb"]:
         raise AssertionError("qwen1.5-0.5b train_4k does not fit 80 GB by the analytic model")
     from repro_torch.configs import get_config
 
     if qwen["kernel_calls"]["flash_attention"] != get_config("qwen1.5-0.5b").n_layers:
         raise AssertionError(f"qwen1.5-0.5b train_4k's eval forward traced {qwen['kernel_calls']} kernel calls")
+    ag = qwen["collectives"]["all-gather"]
+    print(f"  qwen1.5-0.5b train_4k all-gathers {ag / 1e9:.2f} GB a rank with the vocab-parallel CE, against "
+          f"{QWEN_AG_GATHERED / 1e9:.1f} GB with the vocab gathered: {(QWEN_AG_GATHERED - ag) / 1e9:.2f} GB less "
+          f"(at least {QWEN_AG_CUT / 1e9:.0f} GB required)")
+    if not ag < QWEN_AG_GATHERED - QWEN_AG_CUT:
+        raise AssertionError(f"qwen1.5-0.5b train_4k all-gathers {ag:.4e} bytes a rank")
     if not rwkv["analytic_memory"]["total_bytes"] < 1e9:
         raise AssertionError(f"rwkv6-3b long_500k analytic total {rwkv['analytic_memory']['total_bytes']} >= 1e9")
     return out
@@ -3283,7 +3417,9 @@ def tooling_phase(counters, dryruns, t_dryruns: float) -> dict:
     kernel cache across processes, remat_policy "dots"."""
     phase_t0 = time.perf_counter()
     print("[16] the dry run, the roofline and the kernel cache")
-    print(f"[16] dry-run trio (full depth, the card's program on fake CUDA tensors, fake worlds of 256 and 512 ranks)")
+    print(f"[16] dry-run trio (full depth) and the repaired jobs ("
+          f"{'full depth' if not DRYRUN_REPAIRED_LAYERS else f'{DRYRUN_REPAIRED_LAYERS} layers'}): the card's program "
+          f"on fake CUDA tensors, fake worlds of 256 and 512 ranks")
     out = {"dryrun": finish_dryruns(dryruns, t_dryruns)}
     t_wait = time.perf_counter() - phase_t0
     print(f"[16] count_step on {ROOFLINE_PREFILL[0]}'s prefill, real and fake")

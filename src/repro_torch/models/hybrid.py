@@ -52,6 +52,16 @@ def _ssm_chunked(xs, dt, a, bmat, cmat, s0, *, chunk: int):
     return linear_scan.ssm_chunked(xs, dt, a, bmat, cmat, s0, chunk=chunk)
 
 
+def _ssm_step(x, dt, a, bvec, cvec, s):
+    """`linear_scan.ssm_step`; on DTensors, on each rank's (batch, heads)
+    shard, as `_ssm_chunked`: DTensor cannot flatten (batch, heads) with
+    the heads sharded (torch 2.11)."""
+    if is_dtensor(x):
+        return on_local_shards(linear_scan.ssm_step, (x, dt, a, bvec, cvec, s),
+                               [(0, 1), (0, 1), (None, 0), (0, 1), (0, 1), (0, 1)], (x.shape[1],), [(0, 1), (0, 1)])
+    return linear_scan.ssm_step(x, dt, a, bvec, cvec, s)
+
+
 def ssm_branch(params, cfg: ModelConfig, x: torch.Tensor,
                s0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,T,D) -> (y (B,T,D), final state (B,H,N,P) f32)."""
@@ -66,7 +76,7 @@ def ssm_branch(params, cfg: ModelConfig, x: torch.Tensor,
     if x.shape[1] == 1:  # decode
         if s0 is None:
             s0 = torch.zeros((x.shape[0], h, n, hd), dtype=torch.float32, device=x.device)
-        y1, s_new = linear_scan.ssm_step(xs[:, 0], dt[:, 0], a, bmat[:, 0], cmat[:, 0], s0)
+        y1, s_new = _ssm_step(xs[:, 0], dt[:, 0], a, bmat[:, 0], cmat[:, 0], s0)
         y = y1[:, None]
     else:
         chunk = min(cfg.wkv_chunk, x.shape[1])

@@ -107,25 +107,55 @@ def _head_dim_sharded(w: torch.Tensor, dim: int) -> bool:
     return is_dtensor(w) and any(p.is_shard(dim) for p in w.placements)
 
 
+def _project_heads_local(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`project_heads` where DTensor ``w`` shards its head dim: the einsum
+    of each rank's batch rows of ``x`` with its head-dim columns of ``w``,
+    every other dim gathered, and the (B, T, H, hd) result sharded as those
+    two.  DTensor's own forms of this product fail on torch 2.11: it cannot
+    flatten (heads, head dim) with the inner dim sharded ("Attempted to
+    flatten multiple dimensions"), the backward of a matmul over (head dim,
+    heads) views a transposed local gradient ("Cannot view a tensor"), and
+    rwkv's decay LoRA came out partial where its bias is sharded
+    ("redistribute from S(3) to P(sum)").  The gradients are partial sums:
+    x's over the mesh dims that shard w, w's over those that shard x."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+    mesh = w.device_mesh
+    wp = tuple(p if p.is_shard(2) else Replicate() for p in w.placements)
+    xps = x.placements if is_dtensor(x) else (Replicate(),) * len(wp)
+    xp = tuple(p if p.is_shard(0) and q.is_replicate() else Replicate() for p, q in zip(xps, wp))
+    w_loc = w.redistribute(mesh, wp).to_local(grad_placements=tuple(
+        Partial() if q.is_shard() else p for p, q in zip(wp, xp)))
+    if is_dtensor(x):
+        # no redistribute where x is laid out already: its backward would
+        # reduce x's partial gradient here, once a projection, where the
+        # caller's sum over q, k and v can reduce it once
+        x_loc = (x if tuple(x.placements) == xp else x.redistribute(mesh, xp)).to_local(grad_placements=tuple(
+            Partial() if q.is_shard() else p for p, q in zip(xp, wp)))
+    else:
+        x_loc = distribute_tensor(x, mesh, xp, src_data_rank=None).to_local()
+    y = torch.einsum("btd,dhk->bthk", x_loc, w_loc)
+    shape = torch.Size((x.shape[0], x.shape[1], w.shape[1], w.shape[2]))
+    out = tuple(Shard(0) if p.is_shard() else Shard(3) if q.is_shard() else Replicate() for p, q in zip(xp, wp))
+    return DTensor.from_local(y, mesh, out, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("btd,dhk->bthk", x, w): the projection to heads.  Where ``w``
-    shards its head dim (its heads do not divide the model axis), the
-    product is one matmul over the (head dim, heads) columns, the head dim
-    outer: DTensor cannot flatten (heads, head dim) with the inner dim
-    sharded (torch 2.11: "Attempted to flatten multiple dimensions"), nor
-    unflatten it (torch 2.13), and einsum orders the two dims as it likes."""
+    """einsum("btd,dhk->bthk", x, w): the projection to heads; on each
+    rank's shard where ``w`` shards its head dim (its heads do not divide
+    the model axis; `_project_heads_local`)."""
     if _head_dim_sharded(w, 2):
-        d, h, k = w.shape
-        y = x @ w.transpose(1, 2).reshape(d, k * h)
-        return y.unflatten(-1, (k, h)).transpose(-1, -2)
+        return _project_heads_local(x, w)
     return torch.einsum("btd,dhk->bthk", x, w)
 
 
 def project_out(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bthk,hkd->btd", y, w): the projection from heads, one matmul
-    over the (head dim, heads) rows where ``w`` shards its head dim (see
-    `project_heads`), with y's head dim on the model axis as w's: the
-    matmul flattens (batch, sequence), which torch 2.11 refuses where a
+    over the (head dim, heads) rows where ``w`` shards its head dim, the
+    head dim outer (DTensor cannot flatten (heads, head dim) with the inner
+    dim sharded), with y's head dim on the model axis as w's: the matmul
+    flattens (batch, sequence), which torch 2.11 refuses where a
     context-parallel y shards the sequence."""
     if _head_dim_sharded(w, 1):
         h, k, d = w.shape

@@ -59,12 +59,87 @@ def _masked_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return torch.where(pad, torch.finfo(logits.dtype).min, logits)
 
 
+def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``x`` reduced by ``op`` over each (mesh, mesh dim) of ``groups``, as
+    functional collectives, which a fake process group and
+    `roofline.count_step` both see."""
+    from torch.distributed import _functional_collectives as funcol
+
+    for group in groups:
+        x = funcol.all_reduce(x, op, group)
+        if isinstance(x, funcol.AsyncCollectiveTensor):
+            x = x.wait()
+    return x
+
+
+class _VocabParallelNll(torch.autograd.Function):
+    """`_nll` on one rank's (B, T, V_local) f32 logits, columns [lo, lo +
+    V_local) of the padded vocab, the rest on the ranks of ``groups``: the
+    max, the sum of exp(l - max) and the gold logit are all-reduced, three
+    (B, T) f32 vectors, and nll = log(sum) + max - gold.  The backward is
+    (softmax - onehot) g on the local shard, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo: int, vocab: int, groups):
+        vl = logits.shape[-1]
+        pad = torch.arange(lo, lo + vl, device=logits.device) >= vocab
+        logits = torch.where(pad, torch.finfo(logits.dtype).min, logits)
+        m = _all_reduce(torch.amax(logits, dim=-1), "max", groups)
+        s = _all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), "sum", groups)
+        col = targets.to(torch.int64) - lo
+        mine = (col >= 0) & (col < vl)
+        col = col.clamp(0, vl - 1)[..., None]
+        gold = _all_reduce(torch.where(mine, torch.gather(logits, -1, col)[..., 0], 0.0), "sum", groups)
+        lse = torch.log(s) + m
+        ctx.save_for_backward(logits, lse, col, mine)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, col, mine = ctx.saved_tensors
+        grad = torch.exp(logits - lse[..., None]) * g[..., None]
+        grad = grad.scatter_add(-1, col, torch.where(mine, -g, 0.0)[..., None])
+        return grad, None, None, None, None
+
+
+def _nll_vocab_parallel(logits: torch.Tensor, targets: torch.Tensor, vocab: int) -> torch.Tensor:
+    """`_nll` of DTensor logits whose vocab is sharded, on each rank's
+    (batch, vocab) shard (`_VocabParallelNll`); another sharding (of the
+    sequence, or a partial sum) is gathered first.  Returns the (B, T) nll
+    sharded as the batch."""
+    from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+    mesh, vdim = logits.device_mesh, logits.ndim - 1
+    layout = tuple(p if p.is_shard(0) or p.is_shard(vdim) else Replicate() for p in logits.placements)
+    if layout != tuple(logits.placements):
+        logits = logits.redistribute(mesh, layout)
+    rows = tuple(p if p.is_shard(0) else Replicate() for p in layout)
+    if is_dtensor(targets):
+        targets = (targets if tuple(targets.placements) == rows else targets.redistribute(mesh, rows)).to_local()
+    else:
+        targets = distribute_tensor(targets, mesh, rows, src_data_rank=None).to_local()
+    # this rank's first column: each mesh dim that shards the vocab splits
+    # the previous one's block in DTensor's chunks, mesh dims in order
+    groups = [(mesh, i) for i, p in enumerate(layout) if p.is_shard(vdim)]
+    lo, size, coord = 0, logits.shape[vdim], mesh.get_coordinate()
+    for _, i in groups:
+        block = -(-size // mesh.size(i))
+        lo += coord[i] * block
+        size = max(0, min(block, size - coord[i] * block))
+    nll = _VocabParallelNll.apply(logits.to_local(), targets, lo, vocab, groups)
+    shape = logits.shape[:-1]
+    return DTensor.from_local(nll, mesh, rows, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def _nll(logits: torch.Tensor, targets: torch.Tensor, vocab: int) -> torch.Tensor:
     """Next-token negative log-likelihood (B, T) from (B, T, Vpad) f32 logits.
-    DTensor logits are taken on each rank's batch shard with the vocab
-    gathered (`shardctx.on_local_shards`): DTensor has no exact
-    vocab-parallel form of this gather and logsumexp."""
+    DTensor logits with the vocab sharded are taken vocab-parallel
+    (`_nll_vocab_parallel`), others on each rank's batch shard with the
+    vocab gathered (`shardctx.on_local_shards`)."""
     if is_dtensor(logits):
+        if any(p.is_shard(logits.ndim - 1) for p in logits.placements):
+            return _nll_vocab_parallel(logits, targets, vocab)
         return on_local_shards(lambda lg, tg: _nll(lg, tg, vocab), (logits, targets), [(0, None), (0, None)], (),
                                [(0, None)])
     logits = _masked_logits(logits, vocab)

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _dense_init, _dtype
-from repro_torch.shardctx import constrain
+from repro_torch.shardctx import constrain, is_dtensor, on_local_shards
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple = ()) -> dict:
@@ -160,57 +160,98 @@ def _dispatch_einsum(params, cfg, x, idxs, gates, positions, c):
     return constrain(_combine_einsum(combine, out), "batch", "none", "none")
 
 
-def _dispatch_gather(params, cfg, x, idxs, gates, positions, c, combine: str = "gather"):
-    """Index-based dispatch: one gather along S per group.
+def _per_group(fn, xs, batch_dims, out_batch_dims):
+    """``fn(*xs)``; on DTensors, on each rank's shard of the groups (the
+    batch rows, dim ``batch_dims[j]`` of ``xs[j]``), with the groups on
+    the batch axes first (`shardctx.on_local_shards`).  For the index work
+    of the dispatch and the combine, which stays within a group: DTensor
+    cannot flatten a (top-k, group, sequence) index with the groups
+    sharded (torch 2.11)."""
+    if not any(is_dtensor(x) for x in xs):
+        return fn(*xs)
+    xs = [constrain(x, *("batch" if i == bd else "none" for i in range(x.ndim))) for x, bd in zip(xs, batch_dims)]
+    return on_local_shards(fn, xs, [(bd, None) for bd in batch_dims], (), [(bd, None) for bd in out_batch_dims])
 
-    idxs/gates/positions: (K, G, S); dropped tokens have gate == 0."""
-    g, s, d = x.shape
-    e, top_k = cfg.n_experts, cfg.moe_top_k
-    dev = x.device
 
-    # token_source (G, E, C): which token fills expert slot (e, c).  Dropped
-    # assignments go to a spare slot c == C, sliced off; every kept (g, e, c)
-    # is written once.
-    kk = idxs.shape[0]
+def _slots(idxs, gates, positions, e: int, c: int):
+    """to_slots(values, dtype) -> (G, E, C): the (K, G, S) ``values`` of
+    the kept assignments in their expert slots, zero in empty slots.
+    Dropped assignments go to a spare slot c == C, sliced off; every kept
+    (g, e, c) is written once."""
+    kk, g, s = idxs.shape
+    dev = idxs.device
     g_ix = torch.arange(g, device=dev)[None, :, None].expand(kk, g, s)
-    keep = gates > 0
-    c_ix = torch.where(keep, positions, c)
-    s_ix = torch.arange(s, device=dev)[None, None, :].expand(kk, g, s)
+    c_ix = torch.where(gates > 0, positions, c)
     flat = ((g_ix * e + idxs) * (c + 1) + c_ix).reshape(-1)
 
-    def to_slots(values, zeros):
+    def to_slots(values, dtype):
+        zeros = torch.zeros(g * e * (c + 1), dtype=dtype, device=dev)
         return zeros.scatter(0, flat, values.reshape(-1)).reshape(g, e, c + 1)[:, :, :c]
 
-    n_slots = g * e * (c + 1)
-    token_source = to_slots(s_ix, torch.zeros(n_slots, dtype=torch.int64, device=dev))
-    slot_filled = to_slots(keep, torch.zeros(n_slots, dtype=torch.bool, device=dev))
+    return to_slots
 
-    # dispatch: one gather along S (within each group)
+
+def _dispatch_local(x, idxs, gates, positions, e: int, c: int):
+    """The dispatch on (G, S, D) tokens: xin (E, G, C, D), each expert
+    slot's token (zero where the slot is empty), and token_source (G, E*C),
+    the token each slot reads."""
+    g, s, d = x.shape
+    kk = idxs.shape[0]
+    to_slots = _slots(idxs, gates, positions, e, c)
+    s_ix = torch.arange(s, device=x.device)[None, None, :].expand(kk, g, s)
+    token_source = to_slots(s_ix, torch.int64)
+    slot_filled = to_slots(gates > 0, torch.bool)
+    # one gather along S (within each group)
     idx_flat = token_source.reshape(g, e * c)
     xin = torch.gather(x, 1, idx_flat[:, :, None].expand(g, e * c, d))  # (G, E*C, D)
     xin = xin.reshape(g, e, c, d) * slot_filled[..., None].to(x.dtype)
-    xin = xin.permute(1, 0, 2, 3)  # (E, G, C, D)
+    return xin.permute(1, 0, 2, 3), idx_flat
+
+
+def _combine_scatter(out, idx_flat, idxs, gates, positions, s: int):
+    """Scatter-add each filled slot's gated output (E, G, C, D) back to its
+    token: (G, S, D)."""
+    e, g, c, d = out.shape
+    gate_slot = _slots(idxs, gates, positions, e, c)(gates.to(out.dtype), out.dtype)
+    weighted = out.permute(1, 0, 2, 3) * gate_slot[..., None]  # (G, E, C, D)
+    return torch.zeros((g, s, d), dtype=out.dtype, device=out.device).scatter_add(
+        1, idx_flat[:, :, None].expand(g, e * c, d), weighted.reshape(g, e * c, d))
+
+
+def _combine_gather(out, idxs, gates, positions):
+    """One gather of all K expert outputs (E, G, C, D) per token, then a
+    gate-weighted contraction over K: (G, S, D)."""
+    e, g, c, d = out.shape
+    top_k, _, s = idxs.shape
+    out_gc = out.permute(1, 0, 2, 3).reshape(g, e * c, d)
+    flat_slot = idxs * c + torch.clamp(positions, max=c - 1)  # (K,G,S)
+    slot_gk = flat_slot.permute(1, 0, 2).reshape(g, top_k * s)
+    picked = torch.gather(out_gc, 1, slot_gk[:, :, None].expand(g, top_k * s, d)).reshape(g, top_k, s, d)
+    gates_gk = gates.permute(1, 0, 2).to(out.dtype)  # (G, K, S)
+    return torch.einsum("gks,gksd->gsd", gates_gk, picked)
+
+
+def _dispatch_gather(params, cfg, x, idxs, gates, positions, c, combine: str = "gather"):
+    """Index-based dispatch: one gather along S per group.  The index work
+    runs on each rank's groups (`_per_group`); the experts' FFN on the
+    ("experts", "batch") layout.
+
+    idxs/gates/positions: (K, G, S); dropped tokens have gate == 0."""
+    s = x.shape[1]
+    e = cfg.n_experts
+    route_ = (idxs, gates, positions)
+    xin, idx_flat = _per_group(lambda *a: _dispatch_local(*a, e, c), (x,) + route_, (0, 1, 1, 1), (1, 0))
     xin = constrain(xin, "experts", "batch", "none", "none")
     out = _expert_ffn(params, cfg, xin)
     out = constrain(out, "experts", "batch", "none", "none")
 
     if combine == "einsum":
-        y = _combine_einsum(_combine_weights(idxs, gates, positions, e, c, x.dtype), out)
-        return constrain(y, "batch", "none", "none")
-
-    if combine == "scatter":
-        # scatter-add each filled slot's gated output back to its token
-        gate_slot = to_slots(gates.to(x.dtype), torch.zeros(n_slots, dtype=x.dtype, device=dev))
-        weighted = out.permute(1, 0, 2, 3) * gate_slot[..., None]  # (G, E, C, D)
-        y = torch.zeros((g, s, d), dtype=x.dtype, device=dev).scatter_add(
-            1, idx_flat[:, :, None].expand(g, e * c, d), weighted.reshape(g, e * c, d))
-        return constrain(y, "batch", "none", "none")
-
-    # combine: one gather of all K expert outputs per token, then a
-    # gate-weighted contraction over K
-    out_gc = out.permute(1, 0, 2, 3).reshape(g, e * c, d)
-    flat_slot = idxs * c + torch.clamp(positions, max=c - 1)  # (K,G,S)
-    slot_gk = flat_slot.permute(1, 0, 2).reshape(g, top_k * s)
-    picked = torch.gather(out_gc, 1, slot_gk[:, :, None].expand(g, top_k * s, d)).reshape(g, top_k, s, d)
-    gates_gk = gates.permute(1, 0, 2).to(x.dtype)  # (G, K, S)
-    return constrain(torch.einsum("gks,gksd->gsd", gates_gk, picked), "batch", "none", "none")
+        # the combine weights per group; the contraction over the experts'
+        # slots is DTensor's, a partial sum over the experts' shards
+        comb = _per_group(lambda *a: _combine_weights(*a, e, c, x.dtype), route_, (1, 1, 1), (0,))
+        y = _combine_einsum(comb, out)
+    elif combine == "scatter":
+        y = _per_group(lambda *a: _combine_scatter(*a, s), (out, idx_flat) + route_, (1, 0, 1, 1, 1), (0,))
+    else:
+        y = _per_group(_combine_gather, (out,) + route_, (1, 1, 1, 1), (0,))
+    return constrain(y, "batch", "none", "none")

@@ -99,8 +99,11 @@ def time_mix(
     k = _head_layout(project_heads(xk, params["wk"]))
     v = _head_layout(project_heads(xv, params["wv"]))
     g = _head_layout(project_heads(xg, params["wg"]))
-    # data-dependent decay (f32 for stability)
-    lora = project_heads(torch.tanh(xw.float() @ params["decay_a1"]), params["decay_a2"])
+    # data-dependent decay (f32 for stability); on a mesh the LoRA's inner
+    # activation keeps the batch's layout, and its product with decay_a2
+    # the head layout of decay_w0 (`layers.project_heads`)
+    lora = torch.tanh(constrain(xw.float() @ params["decay_a1"], "batch", "none", "none"))
+    lora = project_heads(lora, params["decay_a2"])
     w = torch.exp(-torch.exp(params["decay_w0"][None, None] + lora))  # (B,T,H,hd) in (0,1)
 
     if x.shape[1] == 1:  # decode

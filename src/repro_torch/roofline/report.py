@@ -82,8 +82,8 @@ HINTS = {
     ("moe", "collective_s"): "smaller capacity factor / sorted (ragged) dispatch instead of one-hot products",
     ("moe", "memory_s"): "fuse dispatch+expert products; fewer f32 copies of the dispatch",
     ("dense", "memory_s"): "fewer eager f32 copies and elementwise passes (fusion) + bf16 master weights",
-    ("dense", "collective_s"): "fewer gathers: a vocab-parallel CE (train), weights resident on the model axis "
-                               "(decode); overlap FSDP all-gathers with compute",
+    ("dense", "collective_s"): "fewer gathers: weights resident on the model axis (decode); overlap FSDP "
+                               "all-gathers with compute",
     ("dense", "compute_s"): "near roofline — remat policy tuning (save products) trims recompute",
     ("ssm", "memory_s"): "fuse the lerps, decay path and group norm around the wkv kernel",
     ("ssm", "collective_s"): "keep heads whole on a rank (40 heads do not divide 16): fewer gathers",

@@ -167,8 +167,11 @@ def on_local_shards(fn: Callable, xs: Sequence, dims: Sequence[Tuple[Optional[in
     ``xs`` is one that every rank holds whole, and each rank takes its
     slice; None passes through.  The outputs (one, or a tuple) are
     DTensors with ``out_dims``' (batch dim, head dim) sharded as the
-    layout says.  Every step is differentiable."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+    layout says.  Every step is differentiable; the gradient of a DTensor
+    that every rank of a sharded mesh dim holds whole (a parameter beside
+    the batch, a tensor without heads beside the heads) is partial there,
+    each rank's shard's part of the sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
     mesh = next(x.device_mesh for x in xs if is_dtensor(x))
     n = len(mesh.shape)
@@ -201,7 +204,11 @@ def on_local_shards(fn: Callable, xs: Sequence, dims: Sequence[Tuple[Optional[in
             return None
         want = under(bd, hd)
         if is_dtensor(x):
-            return (x if tuple(x.placements) == want else x.redistribute(mesh, want)).to_local()
+            # where every rank of a sharded mesh dim holds ``x`` whole (a
+            # parameter beside batch-sharded activations), a rank's gradient
+            # is its shard's part of the sum
+            grad = tuple(Partial() if o is not None and p.is_replicate() else p for o, p in zip(layout, want))
+            return (x if tuple(x.placements) == want else x.redistribute(mesh, want)).to_local(grad_placements=grad)
         return distribute_tensor(x, mesh, want, src_data_rank=None).to_local()
 
     out = fn(*(local(x, bd, hd) for x, (bd, hd) in zip(xs, dims)))

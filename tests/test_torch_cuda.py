@@ -13,8 +13,10 @@ and the vlm, encdec and large dense archs (the kernel at head dims 192 and
 CPU runs), the experiment entry points (`train --simulate` and
 fig_hetero's grid against their CPU runs), and distribution on a world of
 one rank (both wrappers on DTensors against the mesh-free call, a mesh
-sweep graph-replayed against eager) and blocked attention against the
-naive path, on the card.  Flash attention
+sweep graph-replayed against eager, the vocab-parallel CE against the
+mesh-free one) and blocked attention against the naive path, and the dry
+run of one job per site of the sharded path that DTensor on the card
+refused until the port ran it on local shards, on the card.  Flash attention
 has two routes, by dtype: f32 the scalar kernel, bf16 the wgmma + TMA
 kernel; every attention case runs both.  wkv6 has two routes, by shape: K = V = 64 with whole chunks the
 tensor-core kernel, every other shape the scalar one; each wkv case asserts
@@ -1157,3 +1159,87 @@ def test_dryrun_traces_the_cards_program(cuda_device, tmp_path):
     assert (r["device"], r["n_devices"]) == ("cuda", 256)
     assert r["kernel_calls"]["flash_attention"] == 2 and r["kernel_launches"] == {"flash_attention": 0, "wkv6": 0}
     assert r["roofline"]["flops"] > 0 and r["collectives"]["total"] > 0
+
+
+# ----------------------------------- the sharded path's repairs (torch on the card)
+
+# one dry-run job per repaired site (chip_smoke.py phase 16's)
+REPAIRED_JOBS = [("qwen3-moe-30b-a3b", "train_4k", "base"), ("hymba-1.5b", "train_4k", "base"),
+                 ("rwkv6-3b", "prefill_32k", "pod2"), ("hymba-1.5b", "decode_32k", "pod2")]
+
+
+@pytest.fixture(scope="module")
+def repaired_dry_runs(tmp_path_factory):
+    """The four jobs of `REPAIRED_JOBS` on the card's program at 2 layers,
+    each in a process of its own, all started at once."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the dry run traces the card's program")
+    from repro_torch.launch import dryrun_all
+
+    root = Path(__file__).resolve().parents[1]
+    tmp = tmp_path_factory.mktemp("repaired")
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    procs = {}
+    for job in REPAIRED_JOBS:
+        out = tmp / ("__".join(job) + ".json")
+        cmd = dryrun_all.job_cmd(*job, str(out), "cuda") + ["--override", "n_layers=2"]
+        procs[job] = (subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                                       text=True), out)
+    results = {}
+    for job, (proc, out) in procs.items():
+        _, err = proc.communicate(timeout=900)
+        results[job] = (proc.returncode, err, json.loads(out.read_text()) if out.exists() else None)
+    return results
+
+
+@pytest.mark.parametrize("job", REPAIRED_JOBS, ids=["-".join(j) for j in REPAIRED_JOBS])
+def test_repaired_dry_run_job_traces_the_cards_program(repaired_dry_runs, job):
+    """Each job that torch's DTensor on the card refused (the MoE dispatch,
+    the head-dim-sharded projection's backward, rwkv's decay LoRA on
+    (2, 16, 16), the SSM's decode step) traces: counts > 0, no launch, the
+    kernels' custom ops called where the step reaches them."""
+    rc, err, r = repaired_dry_runs[job]
+    assert rc == 0, err[-3000:]
+    arch, shape, mode = job
+    assert (r["device"], r["n_devices"]) == ("cuda", 512 if mode == "pod2" else 256)
+    assert r["roofline"]["flops"] > 0 and r["roofline"]["bytes_accessed"] > 0 and r["collectives"]["total"] > 0
+    assert r["kernel_launches"] == {"flash_attention": 0, "wkv6": 0}
+    if shape != "decode_32k":
+        kernel = "wkv6" if arch == "rwkv6-3b" else "flash_attention"
+        assert r["kernel_calls"][kernel] > 0, r["kernel_calls"]
+
+
+def test_vocab_parallel_nll_on_a_world1_mesh_follows_the_mesh_free_nll(world1):
+    """`model._nll` of CUDA logits with the (padded) vocab on "model": the
+    nll within 1e-6 relative of the mesh-free `_nll` on the same tensors,
+    the gradient of a weighted sum within 1e-6 of its max, nothing
+    gathered."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.roofline import analysis
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    vocab, vpad = 1000, 1024
+    logits = 3 * torch.randn(4, 64, vpad, generator=g, device="cuda")
+    targets = torch.randint(0, vocab, (4, 64), generator=g, device="cuda")
+    targets[0, :2] = torch.tensor([0, vocab - 1])
+    w = torch.randn(4, 64, generator=g, device="cuda")
+    lg = logits.clone().requires_grad_()
+    want = model_lib._nll(lg, targets, vocab)
+    (want * w).sum().backward()
+    dl = distribute_tensor(logits, world1, (Shard(0), Shard(2)), src_data_rank=None).requires_grad_()
+    dt = distribute_tensor(targets, world1, (Shard(0), Replicate()), src_data_rank=None)
+    got = model_lib._nll(dl, dt, vocab)
+    (got.full_tensor() * w).sum().backward()
+    torch.testing.assert_close(got.full_tensor(), want.detach(), rtol=1e-6, atol=0)
+    gmax = lg.grad.abs().max().item()
+    torch.testing.assert_close(dl.grad.full_tensor(), lg.grad, rtol=0, atol=1e-6 * gmax)
+    cost = analysis.count_step(lambda x: model_lib._nll(x, dt, vocab), dl.detach())
+    assert cost["collectives"]["all-gather"] == 0 and cost["collectives"]["all-reduce"] == 3 * 4 * 64 * 4

@@ -122,8 +122,8 @@ def train_steps(arch: str, shape, mode: str, params_file: str, steps: int = 3, n
         key, sub = prng.split(key).unbind(0)
         state, m = step(state, {"tokens": tokens, "targets": targets}, sub)
         rows.append({k: v.clone() for k, v in m.items()})
-    placed = {str(k): tuple(str(p) for p in v.placements) for k, v in
-              [("wq", state.params["layers"]["attn"]["wq"])]}
+    attn = state.params["layers"].get("attn", {})  # wq (L, D, H, hd), where the family has it there
+    placed = {k: tuple(str(p) for p in v.placements) for k, v in attn.items() if k == "wq"}
     return {"rows": rows, "params": sharding.gathered(state.params), "placements": placed,
             "ctrl": sharding.gathered(state.ctrl_state), "exec_async": sharding.gathered(state.exec_async)}
 
@@ -187,7 +187,7 @@ def serve(arch: str, shape, params_file: str, prompt_len: int, new_tokens: int, 
     from repro_torch.configs import InputShape, get_smoke_config
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.wkv import ops as wkv_ops
-    from repro_torch.launch import serve as serve_lib, sharding, steps as steps_lib
+    from repro_torch.launch import serve as serve_lib, sharding, specs, steps as steps_lib
     from repro_torch.models import build_model
 
     mesh = _mesh(shape)
@@ -205,8 +205,8 @@ def serve(arch: str, shape, params_file: str, prompt_len: int, new_tokens: int, 
     lg, cache = prefill(placed, {"tokens": prompts})
     out = [sharding.gathered(lg)]
     kinds = {k: tuple(str(p) for p in v.placements) for k, v in cache.items()}
-    if cfg.family != "ssm":  # room for the decode steps
-        cache = serve_lib._grow_kv_cache(model, cache, 4, prompt_len + 2, 0, mesh)
+    if cfg.family != "ssm":  # room for the decode steps (a windowed cache is its ring already)
+        cache = serve_lib._grow_kv_cache(model, cache, 4, prompt_len + 2, specs.window_for(cfg, shape_in), mesh)
     tok = torch.argmax(out[0], dim=-1)[:, None]
     for i in range(2):
         lg, cache = decode(placed, tok, cache, prompt_len + i)
@@ -307,3 +307,28 @@ def placement_order():
     x = torch.arange(24.0).reshape(8, 3)
     d = sharding.place_spanning(x, sharding.Named(mesh, (("pod", "data"), None)))
     return {"flat_index": mesh_lib.flat_index(mesh), "local": d.to_local().clone(), "full": d.full_tensor()}
+
+
+def vocab_parallel_nll(shape, data_file: str):
+    """`model._nll` and `_ce_per_row` of the (B, T, Vpad) f32 logits in
+    ``data_file`` (numpy, with targets, vocab and a weight a position)
+    placed batch on "data" and vocab on "model" of a ("data", "model") mesh
+    of ``shape``: the nll, the per-row CE and the gradient of sum(w * nll),
+    gathered, with the forward's collective bytes by type
+    (`roofline.count_step`)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.roofline import analysis
+
+    mesh = _mesh(shape)
+    data = torch.load(data_file, weights_only=False)
+    logits = torch.from_numpy(data["logits"])
+    targets = distribute_tensor(torch.from_numpy(data["targets"]), mesh, [Shard(0), Replicate()])
+    lg = distribute_tensor(logits, mesh, [Shard(0), Shard(2)]).requires_grad_()
+    nll = model_lib._nll(lg, targets, data["vocab"])
+    (nll.full_tensor() * torch.from_numpy(data["w"])).sum().backward()
+    ce = model_lib._ce_per_row(lg.detach(), targets, data["vocab"])
+    cost = analysis.count_step(lambda x: model_lib._nll(x, targets, data["vocab"]), lg.detach())
+    return {"nll": nll.full_tensor().detach(), "ce": ce.full_tensor(), "grad": lg.grad.full_tensor(),
+            "placements": tuple(str(p) for p in nll.placements), "collectives": cost["collectives"]}
