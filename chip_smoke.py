@@ -933,10 +933,11 @@ def cells_of(result) -> dict:
 def hold(what: str, got: dict, want: dict, adaptive: set, cols: int | None = None) -> None:
     """Hold every cell of ``got`` to ``want`` (the first ``cols`` eval points):
     bitwise, or k equal but in at most ENGINE_MAX_FORKS replicas of an
-    adaptive cell, time and loss within the engine's tolerances."""
+    adaptive cell, time and loss within the engine's tolerances.  Prints
+    each cell's largest gaps."""
     import numpy as np
 
-    rows, gaps = [], (0.0, 0.0)
+    rows, gaps, bitwise = [], (0.0, 0.0), 0
     for label, g in got.items():
         gt, gl, gk = (a[:, :cols] for a in g)
         wt, wl, wk = (a[:, :cols] for a in want[label])
@@ -946,8 +947,8 @@ def hold(what: str, got: dict, want: dict, adaptive: set, cols: int | None = Non
         t_gap = float(np.max(np.abs(gt[keep] - wt[keep]) / np.abs(wt[keep]), initial=0.0))
         l_gap = float(np.max(np.abs(gl[keep] - wl[keep]) / np.abs(wl[keep]), initial=0.0))
         gaps = (max(gaps[0], t_gap), max(gaps[1], l_gap))
-        if not same:
-            rows.append(f"{label} {len(forked)} forked, {t_gap:.2e}/{l_gap:.2e}")
+        bitwise += same
+        rows.append(f"{label} {len(forked)} forked, {t_gap:.2e}/{l_gap:.2e}")
         if len(forked) > (ENGINE_MAX_FORKS if label in adaptive else 0):
             raise AssertionError(f"{what}: {label}: {len(forked)} replicas forked in k: {forked.tolist()}")
         if not (t_gap <= ENGINE_TIME_RTOL and l_gap <= ENGINE_LOSS_RTOL):
@@ -955,8 +956,8 @@ def hold(what: str, got: dict, want: dict, adaptive: set, cols: int | None = Non
                                  f"{ENGINE_TIME_RTOL} / {ENGINE_LOSS_RTOL}")
         if not (np.isfinite(gt).all() and np.isfinite(gl).all()):
             raise AssertionError(f"{what}: {label}: time or loss not finite")
-    print(f"  {what}: {len(got) - len(rows)}/{len(got)} cells bitwise equal; max rel gap time {gaps[0]:.3e}, "
-          f"loss {gaps[1]:.3e}" + "".join(f"; {r}" for r in rows))
+    print(f"  {what}: {bitwise}/{len(got)} cells bitwise equal; max rel gap time {gaps[0]:.3e}, "
+          f"loss {gaps[1]:.3e}; each cell's forks, time/loss gap: " + "; ".join(rows))
 
 
 def engine_sweep(p7: dict) -> dict:
@@ -1354,7 +1355,7 @@ def hold_byzantine(what: str, got: dict, want: dict, adaptive: set, bar: float, 
     ``time_rtol``.  Returns a summary line."""
     import numpy as np
 
-    gaps, forks, cut = [0.0, 0.0], 0, 0
+    gaps, forks, cut, cell_gaps = [0.0, 0.0], 0, 0, []
     for label, g in got.items():
         gt, gl, gk = (a[:, :cols] for a in g)
         wt, wl, wk = (a[:, :cols] for a in want[label])
@@ -1373,6 +1374,7 @@ def hold_byzantine(what: str, got: dict, want: dict, adaptive: set, bar: float, 
         t_gap = float(np.max(np.abs(gt[timed] - wt[timed]) / np.abs(wt[timed]), initial=0.0))
         l_gap = float(np.max(np.abs(gl[held] - wl[held]) / np.abs(wl[held]), initial=0.0))
         gaps = [max(gaps[0], t_gap), max(gaps[1], l_gap)]
+        cell_gaps.append(f"{label} {l_gap:.2e}")
         if not (t_gap <= time_rtol and l_gap <= loss_rtol):
             raise AssertionError(f"{what}: {label}: time gap {t_gap:.3e} or loss gap {l_gap:.3e} beyond "
                                  f"{time_rtol} / {loss_rtol}")
@@ -1381,7 +1383,7 @@ def hold_byzantine(what: str, got: dict, want: dict, adaptive: set, bar: float, 
     line = (f"{what}: time max rel gap {gaps[0]:.3e} (rtol {time_rtol}), loss {gaps[1]:.3e} (rtol {loss_rtol}), "
             f"{forks} adaptive replicas forked; {cut} of {sum(g[1][:, :cols].size for g in got.values())} eval points "
             f"past the divergence bar not held")
-    print("  " + line)
+    print("  " + line + "; each cell's loss gap: " + "; ".join(cell_gaps))
     return line
 
 

@@ -5,8 +5,8 @@ artifacts (Figs. 2-3, the ablation) are grids — controller x straggler
 model x (n, k-policy) — of many-seed error-against-wall-clock curves.
 `run_monte_carlo` runs one cell per program; this module runs the whole
 grid as ONE program by stacking every cell's configuration as tensor leaves
-(`_CellParams`) and mapping one step over a flat lane axis of G·R lanes,
-cell-major (lane g·R + r is cell g, replica r):
+(`_CellParams`) and mapping one step over G·R lanes, stored cell-major
+(lane g·R + r is cell g, replica r) and mapped as (cells, replicas):
 
   * straggler parameters are per-worker packed rows
     (`straggler.pack_params_per_worker`), realized by every family's
@@ -47,11 +47,20 @@ runs the same step eagerly.  A capture that fails raises; nothing falls
 back.
 
 Every cell of a sweep is the looped engine's run of that cell with the same
-keys (`run_monte_carlo`), computed over G·R lanes instead of R: the per-lane
-arithmetic is the looped step's, op for op.  Time and k agree bit for bit
-(measured on the CPU and on an H100); the eval loss may differ in the last
-ulps, because the reduction of vmap's lane-minor per-example losses rounds
-differently for another lane count (PERF.md §6).
+keys (`run_monte_carlo`): the per-lane arithmetic is the looped step's, op
+for op.  vmap turns a lane's products (``X @ w``, and its gradient) into
+one product as wide as the lanes it maps, and the CPU's GEMM blocks a
+width of G·R otherwise than R, so one vmap over G·R lanes let every
+cell's parameters drift from its looped run by ~1e-6 relative.  The step
+and the eval are therefore one vmap over rows inside another over a row's
+lanes (`_vmap2`): mesh-free a row is one cell's R replicas, the looped
+engine's width, and each cell's time, k and loss are its looped run's bit
+for bit on the CPU (tests/test_torch_lane_invariance.py).  On the card
+cuBLAS picks its kernel by the folded product's shape, which differs from
+the looped engine's in any layout: time and k stay bitwise, the loss is
+held at the engine's 1e-4 (PERF.md §6).  Where a mesh splits the replicas
+axis, a row is a cell's R/mr replicas on one rank, and such runs keep the
+tolerances against the looped engine of tests/test_torch_distribution.py.
 
 The grid is dispatched over a 2-D ``("cells", "replicas")`` mesh
 (`launch.mesh`), taken from the ``mesh=`` argument, else
@@ -60,8 +69,9 @@ ranks of the default process group (with none initialised, a 1 x 1
 stand-in: one device, no collective, the historical path).  Each axis pads
 to its mesh-axis multiple (cells with inert all-zero rows, replicas by
 repeating key 0), the padded grid flattens cell-major into one lane axis,
-and each rank runs its own contiguous block of Gp·Rp/(mc·mr) lanes through
-the one-device program above (captured as CUDA graphs on the card), then
+and each rank runs its own contiguous block of Gp·Rp/(mc·mr) lanes, in rows
+of Rp/mr, through the one-device program above (captured as CUDA graphs on
+the card), then
 all-gathers time, loss and k over the mesh, outside any capture, and
 slices the padding off.  Lanes do no arithmetic across each other, so this
 is exactly the reference's ``shard_map`` dispatch, and ``"auto"`` takes
@@ -651,8 +661,8 @@ class _Inputs(NamedTuple):
 
     params0: Any
     data: Any
-    keys: torch.Tensor  # (L, 2), cell-major
-    lanes: _Lanes
+    keys: torch.Tensor  # (L/W, W, 2): the lanes' keys, cell-major, in rows of the inner map's width W
+    lanes: _Lanes  # (L, ...) each
 
 
 def _lanes_of(cells: _CellParams, modes: tuple = (MODE_SYNC,)) -> _Lanes:
@@ -685,7 +695,7 @@ class _GridEngine:
         return sig.modes != (MODE_SYNC,) or bool(sig.fault_kinds) or sig.agg_kinds != (_AGG_MEAN,)
 
     def initial(self, inputs: _Inputs):
-        keys, cells = inputs.keys, inputs.lanes.cells
+        keys, cells = inputs.keys.reshape(-1, 2), inputs.lanes.cells
         sim_time = torch.zeros((), dtype=torch.float32, device=keys.device)
         if self.moded:
             one = execmode.init_exec_carry(inputs.params0, self.n_workers, None, keys[0])
@@ -696,10 +706,12 @@ class _GridEngine:
     def build(self, inputs: _Inputs):
         sig, sketch_dim = self.sig, self.sketch_dim
         fns = self.source.build(inputs.data, self.n_workers)
-        veval = torch.func.vmap(fns.eval_loss_active)
+        width = inputs.keys.shape[-2]
+        lanes = _nest(inputs.lanes, width)
+        veval = _vmap2(fns.eval_loss_active)
 
         def evaluate(params):
-            return veval(params, inputs.lanes.cells.n_active)
+            return _unnest(veval(_nest(params, width), lanes.cells.n_active))
 
         if self.moded:
             vstep = self._moded_step(inputs, fns)
@@ -720,10 +732,10 @@ class _GridEngine:
                 ctrl_state, _ = _ctrl_update(cp, carry.ctrl_state, g, sim_time, sketch_dim, sig.ctrl_kinds, preds)
                 return _SweepCarry(params, ctrl_state, sim_time, keys[0]), k
 
-            vstep = torch.func.vmap(one_step)
+            vstep = _vmap2(one_step)
 
         def step(carry):
-            return vstep(carry, inputs.lanes)
+            return _unnest(vstep(_nest(carry, width), lanes))
 
         return step, evaluate
 
@@ -764,7 +776,23 @@ class _GridEngine:
             return new, p.k
 
         dims = execmode.CARRY_DIMS
-        return torch.func.vmap(one_step, in_dims=(dims, 0), out_dims=(dims, 0))
+        return _vmap2(one_step, in_dims=(dims, 0), out_dims=(dims, 0))
+
+
+def _vmap2(fn, **dims):
+    """``fn`` mapped over (rows, lanes of a row): one `torch.func.vmap`
+    inside another, with the same in_dims and out_dims at both levels."""
+    return torch.func.vmap(torch.func.vmap(fn, **dims), **dims)
+
+
+def _nest(tree, width: int):
+    """(L, ...) leaves viewed as (L/width, width, ...)."""
+    return tree_map(lambda x: x if x is None else x.reshape((-1, width) + tuple(x.shape[1:])), tree)
+
+
+def _unnest(tree):
+    """(rows, width, ...) leaves viewed as (rows·width, ...)."""
+    return tree_map(lambda x: x if x is None else x.reshape((-1,) + tuple(x.shape[2:])), tree)
 
 
 def _lane_pmat(cp: _CellParams, sim_time, sig: GridSignature):
@@ -908,7 +936,11 @@ def run_sweep_source(
     lane = torch.arange(first, first + n_lanes, device=dev)
     cell_idx, rep_idx = lane // rp, lane % rp
     flat_cells = tree_map(lambda a: a[cell_idx], cells)
-    inputs = _Inputs(params0=params0, data=data, keys=keys[rep_idx], lanes=_lanes_of(flat_cells, sig.modes))
+    # The inner map's width is a cell's replicas on this rank (rp / mr): a
+    # row never straddles two cells, and mesh-free it is R, the looped
+    # engine's width (see the module docstring).
+    inputs = _Inputs(params0=params0, data=data, keys=keys[rep_idx].reshape(-1, rp // mr, 2),
+                     lanes=_lanes_of(flat_cells, sig.modes))
 
     capture = bool(capture) and dev.type == "cuda"
     partitionable = prng.is_partitionable()

@@ -20,7 +20,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import prng
 
-__all__ = ["LinRegData", "make_linreg_data", "worker_major_batch", "TokenStream"]
+__all__ = ["LinRegData", "make_linreg_data", "least_squares", "worker_major_batch", "TokenStream"]
 
 
 class LinRegData(NamedTuple):
@@ -39,9 +39,18 @@ def make_linreg_data(key, m: int = 2000, d: int = 100, device="cuda") -> LinRegD
     X = prng.randint(k1, (m, d), 1, 11).to(torch.float32)
     w_bar = prng.randint(k2, (d,), 1, 101).to(torch.float32)
     y = X @ w_bar + prng.normal(k3, (m,))
-    w_star = torch.linalg.lstsq(X, y[:, None]).solution[:, 0]
+    w_star = least_squares(X, y)
     f_star = float(((X @ w_star - y) ** 2).mean())
     return LinRegData(X=X, y=y, w_star=w_star, f_star=f_star)
+
+
+def least_squares(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """argmin_w ||X w - y||^2 for a full-rank (m, d) X, m >= d, by QR
+    (LAPACK's gels, the one routine CUDA has).  Not the CPU's default gelsy:
+    its pivoted QR gives another solution from run to run in one process,
+    one thread (9 distinct f32 solutions in 300 calls at m=80, d=4, f* up
+    to 4.5e-5 relative apart), where gels gives one."""
+    return torch.linalg.lstsq(X, y[:, None], driver="gels").solution[:, 0]
 
 
 def worker_major_batch(tokens: torch.Tensor, n_workers: int) -> torch.Tensor:

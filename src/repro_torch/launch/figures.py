@@ -58,7 +58,7 @@ from repro_torch.core.theory import (
     example1_system,
     switching_times,
 )
-from repro_torch.data import make_linreg_data
+from repro_torch.data import least_squares, make_linreg_data
 from repro_torch.launch import quickstart
 from repro_torch.launch.quickstart import squared_error, step_size, time_to_target
 
@@ -266,7 +266,7 @@ def hetero_t1_times(data, eta: float, straggler) -> list:
     c = HETERO
     X, y = data.X, data.y
     eigs = torch.linalg.eigvalsh(2 * X.T @ X / c["m"])
-    w_ls = torch.linalg.lstsq(X, y[:, None]).solution[:, 0]
+    w_ls = least_squares(X, y)
     g_i = 2.0 * X * (X @ w_ls - y)[:, None]
     sigma2 = float((g_i * g_i).sum(dim=1).mean())
     f0_gap = float((y * y).mean()) - data.f_star  # the loss at w0 = 0

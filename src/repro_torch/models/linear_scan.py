@@ -6,9 +6,11 @@ A port of `repro/models/linear_scan.py`.  RWKV-6:
       S_t = diag(w_t) S_{t-1} + k_t v_t^T          S in R^{K x V} per head
       y_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
 
-computed chunkwise: a Python loop over the T/C chunks carries the state
-(the JAX package's `lax.scan`); the intra-chunk term is a decay-weighted
-attention-like product, the inter-chunk term applies the carried state.
+computed chunkwise, as the JAX package's `lax.scan` over the T/C chunks:
+the intra-chunk term is a decay-weighted attention-like product, the
+inter-chunk term applies the carried state.  Every term but the state's
+recurrence is computed for all chunks at once; a Python loop over the
+chunks carries only the state (two operations a chunk).
 These are the plain versions of the wkv CUDA kernel (`kernels/wkv`), and
 what the model runs with `use_kernels=False`.  `ssm_chunked` and
 `ssm_step` (Hymba's SSM heads) are plain PyTorch on every device, as the
@@ -63,6 +65,15 @@ def wkv6_chunked(
     Computed in float32; decays in log space with log(max(w, 1e-20)); the
     intra-chunk scores use the straddle-boundary factorization of the JAX
     package (one masked product per power-of-two level, every exponent <= 0).
+
+    The chunks' own terms (the decay sums, the scores, the u bonus, the
+    intra-chunk output and each chunk's state contribution) are batched
+    over a chunk axis, then a loop carries the state, then the inter-chunk
+    output is one product.  On the CPU the result is that of a loop doing
+    every term chunk by chunk bit for bit, and so are the gradients but u's
+    (one sum over every chunk, where the loop added chunk by chunk) and, at
+    B = 1, r's and w's: within 3e-7 of their max
+    (tests/test_torch_lane_invariance.py).
     """
     b, t, h, kdim = k.shape
     vdim = v.shape[-1]
@@ -82,39 +93,41 @@ def wkv6_chunked(
     logw = torch.log(torch.clamp(ws, min=1e-20))
     lw_inc = torch.cumsum(logw, dim=2)  # inclusive cumulative log-decay, (B,NC,C,H,K)
     lw_exc = lw_inc - logw  # exclusive
+    lwt = lw_inc[:, :, -1]  # (B,NC,H,K): a whole chunk's log-decay
+    # the inter-chunk factor before the levels: autograd sums a gradient in
+    # the reverse order of its input's uses, and with this order of uses it
+    # sums them as a chunk-by-chunk loop does (bit for bit on the CPU)
+    r_inter = rs * torch.exp(lw_exc)
 
-    s = torch.zeros((b, h, kdim, vdim), dtype=f32, device=dev) if s0 is None else s0.to(f32)
-    levels = [
-        (torch.from_numpy(is_q).to(dev)[None, :, None, None], torch.from_numpy(mref).to(dev),
-         torch.from_numpy(pair_mask).to(dev))
-        for is_q, mref, pair_mask in _straddle_levels(chunk)
-    ]
+    # intra-chunk: scores[t,tau] = sum_k r_t[k] k_tau[k] exp(lwe_t[k]-lwi_tau[k]), tau < t
     neg_inf = torch.tensor(-torch.inf, dtype=f32, device=dev)
+    scores = torch.zeros((b, nc, h, chunk, chunk), dtype=f32, device=dev)  # c=query d=key
+    for is_q, mref, pair_mask in _straddle_levels(chunk):
+        qsel = torch.from_numpy(is_q).to(dev)[:, None, None]
+        li_ref = lw_inc[:, :, torch.from_numpy(mref).to(dev)]  # (B,NC,C,H,K): reference row per position
+        # exponents are <= 0 by construction for active rows; exp(-inf)=0
+        # silences the opposite side (its pairs are masked out anyway).
+        e_q = torch.where(qsel, torch.clamp(lw_exc - li_ref, max=0.0), neg_inf)
+        e_k = torch.where(qsel, neg_inf, torch.clamp(li_ref - lw_inc, max=0.0))
+        part = torch.einsum("bzchk,bzdhk->bzhcd", rs * torch.exp(e_q), ks * torch.exp(e_k))
+        scores = scores + torch.where(torch.from_numpy(pair_mask).to(dev), part, 0.0)
+    # current-token bonus: the diagonal term u
+    bonus = torch.einsum("bzchk,hk,bzchk->bzch", rs, u, ks)
+    y_intra = torch.einsum("bzhcd,bzdhv->bzchv", scores, vs) + bonus[..., None] * vs
+    # each chunk's own state contribution: sum_tau (prod_{tau<l<=C} w_l) k_tau v_tau^T
+    k_carry = ks * torch.exp(lwt[:, :, None] - lw_inc)  # (B,NC,C,H,K)
+    ds = torch.einsum("bzchk,bzchv->bzhkv", k_carry, vs)  # (B,NC,H,K,V)
 
-    ys = []
+    # the state carried into each chunk: S' = diag(exp(lwt)) S + ds
+    decay = torch.exp(lwt)[..., None]  # (B,NC,H,K,1)
+    s = torch.zeros((b, h, kdim, vdim), dtype=f32, device=dev) if s0 is None else s0.to(f32)
+    carried = []
     for c in range(nc):
-        rc, kc, vc = rs[:, c], ks[:, c], vs[:, c]
-        lwi, lwe, lwt = lw_inc[:, c], lw_exc[:, c], lw_inc[:, c, -1]  # lwt: (B,H,K)
-        # inter-chunk: y_t += (r_t * exp(lw_exc_t)) @ S
-        y_inter = torch.einsum("bchk,bhkv->bchv", rc * torch.exp(lwe), s)
-        # intra-chunk: scores[t,tau] = sum_k r_t[k] k_tau[k] exp(lwe_t[k]-lwi_tau[k]), tau < t
-        scores = torch.zeros((b, h, chunk, chunk), dtype=f32, device=dev)  # c=query d=key
-        for qsel, mref, pair_mask in levels:
-            li_ref = lwi[:, mref]  # (B,C,H,K): reference row per position
-            # exponents are <= 0 by construction for active rows; exp(-inf)=0
-            # silences the opposite side (its pairs are masked out anyway).
-            e_q = torch.where(qsel, torch.clamp(lwe - li_ref, max=0.0), neg_inf)
-            e_k = torch.where(qsel, neg_inf, torch.clamp(li_ref - lwi, max=0.0))
-            part = torch.einsum("bchk,bdhk->bhcd", rc * torch.exp(e_q), kc * torch.exp(e_k))
-            scores = scores + torch.where(pair_mask, part, 0.0)
-        # current-token bonus: the diagonal term u
-        bonus = torch.einsum("bchk,hk,bchk->bch", rc, u, kc)
-        y_intra = torch.einsum("bhcd,bdhv->bchv", scores, vc) + bonus[..., None] * vc
-        # state: S' = diag(exp(lwt)) S + sum_tau (prod_{tau<l<=C} w_l) k_tau v_tau^T
-        k_carry = kc * torch.exp(lwt[:, None] - lwi)  # (B,C,H,K)
-        s = torch.exp(lwt)[..., None] * s + torch.einsum("bchk,bchv->bhkv", k_carry, vc)
-        ys.append(y_inter + y_intra)
-    y = torch.stack(ys, dim=1).reshape(b, t, h, vdim)
+        carried.append(s)
+        s = decay[:, c] * s + ds[:, c]
+    # inter-chunk: y_t += (r_t * exp(lw_exc_t)) @ S
+    y_inter = torch.einsum("bzchk,bzhkv->bzchv", r_inter, torch.stack(carried, dim=1))
+    y = (y_inter + y_intra).reshape(b, t, h, vdim)
     return y, s
 
 

@@ -6,13 +6,14 @@ Tolerances:
 - against the reference, those of tests/test_torch_engine.py: k equal,
   `time` within 1e-5 and loss within 1e-4 relative (torch's log1p and
   matmul sums differ from XLA's in the last ulps);
-- against the port's looped engine: `time` and k bitwise (the sweep runs
-  the looped step's arithmetic, op for op, over G·R lanes instead of R,
-  and every carry stays bitwise), the eval loss within 1e-6 relative.  The
-  eval reduces per-example losses that vmap lays out lane-minor, and the
-  CPU's reduction over that layout rounds differently for another lane
-  count: measured up to 3 ulp (2.1e-7 relative) on these grids, 0 on
-  others (PERF.md §6).
+- against the port's looped engine: `time` and k bitwise, the eval loss
+  within 1e-6 relative.  The sweep runs the looped step's arithmetic, op
+  for op, mapped as (cells, replicas) so that each cell's products are R
+  wide as the looped engine's: measured bit for bit in the loss too on
+  these grids, at 1 and 8 threads (tests/test_torch_lane_invariance.py
+  holds that bitwise).  Mapped over one flat axis of G·R lanes, the CPU's
+  GEMM blocked the wider products otherwise and the loss drifted by up to
+  1.59e-6 relative (PERF.md §6).
 """
 
 import dataclasses
