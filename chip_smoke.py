@@ -18,7 +18,8 @@
    bf16, causal, and window 256).  At the prefill shapes: the bf16 route's
    time, TFLOP/s and roofline share beside SDPA's time taken in turns
    (kernel, SDPA, kernel), the plain version's time, and the f32 route's
-   time at the causal shape in f32.
+   time at the causal shape in f32 beside its bound and SDPA's f32 time,
+   in turns as well.
 4. Serve llama3.2-3b at full width in bf16 with random weights from a seed:
    batch 4, prompt length 1024, 32 greedy tokens through the port's serving
    entry point, counting kernel launches; then the same prefill with the plain
@@ -42,7 +43,8 @@
    in the legacy threefry mode; then fig2's five cells (adaptive and fixed
    k = 10, 20, 30, 40) at full width, R=32, n=50, m=2000, d=100, 2000
    iterations each, graph-replayed, against the same cells run eagerly on
-   the card (bitwise) and run on the CPU (500 iterations); print the
+   the card (bitwise, over the first eval block of 500 iterations, as
+   phase 8 holds its grid) and run on the CPU (500 iterations); print the
    launches and ms of an iteration both ways, the device's idle share and
    top operations, and the peak memory.
 8. Run the sweep engine (no kernel of the port on its path either): fig2's
@@ -168,7 +170,18 @@
    exact, ce within 1e-6.  The world-1 train steps run mesh-free and then
    on the mesh in the same process: k and sim_time equal, ce within 1e-5,
    the CE vocab-parallel on CUDA DTensors, ms a step and peak memory of
-   both.
+   both.  The reference's attention layouts: the flash kernel on each of
+   the 16 ranks' head pieces of a 16-way model axis at qwen3-moe-30b-a3b's
+   and granite-moe-1b-a400m's full-width prefill heads (2 q heads over 1 kv
+   head, 1 over 1), all run in turn on the one card and joined along the
+   heads, against the kernel on the whole tensor (bitwise, or within the
+   kernel's own tolerance), in f32 and bf16; and in the four-rank world, on
+   a (1, 4) mesh of the host's DTensors, llama3.2-3b smoke (the query
+   sequence split, its decode on a sequence-sharded cache) and
+   qwen3-moe-30b-a3b smoke (heads, the kv heads sliced) generating and
+   taking a sync train step against the mesh-free run (logits within 1e-5,
+   tokens equal, k exact, ce within 1e-6), each rank's attention pieces
+   printed.
 16. The dry run, the roofline and the kernel cache (`launch/dryrun.py`,
    `roofline/`, `core/cache.py`; started before phase 14, the trio's traces
    run on the host's cores beside phases 14 and 15).  The reference dry-run
@@ -184,8 +197,11 @@
    until the port ran it on local shards: qwen3-moe-30b-a3b train_4k,
    hymba-1.5b train_4k, rwkv6-3b prefill_32k on (2, 16, 16), hymba-1.5b
    decode_32k on (2, 16, 16), each traced with counts > 0, no launch and
-   the kernels' custom ops called where the step reaches them (JSONs and
-   logs under results/torch/dryrun_trio/).  `roofline.count_step` on llama3.2-3b's bf16
+   the kernels' custom ops called where the step reaches them; and
+   llama3.2-3b decode_32k and train_4k on (16, 16), whose attention takes
+   the reference's layouts, the decode's collective bytes at least the
+   gathered cache's part below the 6.03e10 of the gathering decode (JSONs
+   and logs under results/torch/dryrun_trio/).  `roofline.count_step` on llama3.2-3b's bf16
    prefill (batch 4 x 1024, 28 launches) and on its fake twin: FLOPs, bytes
    and kernel calls equal; the prefill's ms against its roofline bound; the
    analytic state bytes equal to the weights allocated, the analytic total
@@ -684,13 +700,14 @@ GOLDEN = dict(n=6, m=60, d=4, eta=0.005, iters=60, eval_every=25, replicas=2, da
 # one ulp on some inputs, and 60 iterations of sums carry that to ~1e-7.
 GOLDEN_TIME_RTOL = 1e-6
 # fig2 at full width (R=32, n=50, m=2000, d=100), graph-replayed on the card
-# against the same step run eagerly on the card (bitwise) and against the
+# against the same step run eagerly on the card over the first eval block
+# (bitwise; an eager iteration is host-bound, ~25 ms) and against the
 # port on the CPU at the first eval point (500 iterations): k equal, time
 # within 1e-5 and loss within 1e-4 relative (the CPU's and the card's
 # log1p, matmul sums and reductions differ in the last ulps).  A near-zero
 # inner product g_j . g_{j-1} can flip a Pflug sign event and fork that
 # replica's k: at most 2 of the 32 may fork, each reported.
-ENGINE_ITERS, ENGINE_CPU_ITERS = 2000, 500
+ENGINE_ITERS, ENGINE_EAGER_ITERS, ENGINE_CPU_ITERS = 2000, 500, 500
 ENGINE_TIME_RTOL, ENGINE_LOSS_RTOL, ENGINE_MAX_FORKS = 1e-5, 1e-4, 2
 
 
@@ -816,7 +833,7 @@ def engine_fig2() -> dict:
     eta, labels = graph["eta"], list(graph["results"])
     t0 = time.perf_counter()
     with ProcessPoolExecutor(max_workers=2 * len(labels), mp_context=multiprocessing.get_context("spawn")) as pool:
-        eager_f = {lb: pool.submit(fig2_cell, lb, "cuda", ENGINE_ITERS, False, eta) for lb in labels}
+        eager_f = {lb: pool.submit(fig2_cell, lb, "cuda", ENGINE_EAGER_ITERS, False, eta) for lb in labels}
         cpu_f = {lb: pool.submit(fig2_cell, lb, "cpu", ENGINE_CPU_ITERS, True, eta) for lb in labels}
         eager = {lb: f.result() for lb, f in eager_f.items()}
         cpu = {lb: f.result() for lb, f in cpu_f.items()}
@@ -825,7 +842,8 @@ def engine_fig2() -> dict:
     eager_s = max(s for _, s in eager.values())
     print(f"  graph-replayed: {len(labels)} cells in {graph['wall_s']:.2f} s with {captures} captures "
           f"({graph['wall_s'] / n_iters * 1e3:.4f} ms an iteration, captures included); eager, a worker process "
-          f"a cell: the slowest cell {eager_s:.2f} s ({eager_s / ENGINE_ITERS * 1e3:.4f} ms an iteration); "
+          f"a cell, {ENGINE_EAGER_ITERS} iterations: the slowest {eager_s:.2f} s "
+          f"({eager_s / ENGINE_EAGER_ITERS * 1e3:.4f} ms an iteration); "
           f"CPU, {ENGINE_CPU_ITERS} iterations a cell: the slowest {max(s for _, s in cpu.values()):.2f} s; "
           f"{workers_s:.1f} s for all workers; eta {eta!r}")
     print(f"  peak memory of the graph-replayed run: {peak_mb:.2f} MB")
@@ -834,14 +852,15 @@ def engine_fig2() -> dict:
         gk, gt, gl = (getattr(g, f).cpu().numpy() for f in ("k", "time", "loss"))
         (et, el, ek), _ = eager[label]
         (ct, cl, ck), _ = cpu[label]
-        same = np.array_equal(gt, et) and np.array_equal(gl, el) and np.array_equal(gk, ek)
+        e = ek.shape[1]  # the eval points of the eager run: the graph's first ones
+        same = np.array_equal(gt[:, :e], et) and np.array_equal(gl[:, :e], el) and np.array_equal(gk[:, :e], ek)
         gk, gt, gl = gk[:, :1], gt[:, :1], gl[:, :1]
         forked = np.nonzero((gk != ck).any(axis=1))[0]
         keep = np.setdiff1d(np.arange(gk.shape[0]), forked)
         t_gap = float(np.max(np.abs(gt[keep] - ct[keep]) / np.abs(ct[keep])))
         l_gap = float(np.max(np.abs(gl[keep] - cl[keep]) / np.abs(cl[keep])))
         s = graph["cases"][label]
-        print(f"  {label}: graph vs eager bitwise equal {same}; card vs CPU at iteration {ENGINE_CPU_ITERS}: "
+        print(f"  {label}: graph vs eager at iteration {ENGINE_EAGER_ITERS} bitwise equal {same}; card vs CPU at iteration {ENGINE_CPU_ITERS}: "
               f"{len(forked)} replicas forked in k, time max rel gap {t_gap:.3e}, loss {l_gap:.3e}; at "
               f"{ENGINE_ITERS}: sim_time {s['time_mean'][-1]:.1f}, excess {s['loss_mean'][-1] - graph['f_star']:.4g}, "
               f"k {s['k_mean'][-1]:.2f}")
@@ -2746,6 +2765,21 @@ SIM_WORLD = ["--simulate", "--steps", "200", "--replicas", "4", "--sim-eval-ever
 # takes one rank a GPU; the world of one NCCL rank above runs the CE on
 # CUDA DTensors.
 VOCAB_TRAIN_ARCH, VOCAB_TRAIN_MESH, VOCAB_CE_RTOL = "qwen1.5-0.5b", (2, 2), 1e-6
+# The reference's attention layouts.  The flash kernel's head pieces on a
+# 16-way model axis at two archs' full-width prefill attention (B, T, S, H,
+# KV, hd, causal, window), joined and held to the kernel on the whole
+# tensor.  Then, in the four-rank world on the host's DTensors, two smoke
+# archs on a (1, 4) mesh against the mesh-free run, with the prompt length
+# of each: llama3.2-3b's 6 heads split the query sequence (124 positions
+# take the naive path, the cache of 128 splits its sequence), qwen3-moe's 8
+# split the heads (128 positions take the kernel's wrapper, its 2 kv heads
+# sliced; a cache of 132 splits its sequence).  Logits within the serving
+# tests' 1e-5, tokens equal; the train step's ce within 1e-6, k exact.
+LAYOUT_PIECE_SHAPES = {"qwen3-moe-30b-a3b": (4, 1024, 1024, 32, 4, 64, True, 0),
+                       "granite-moe-1b-a400m": (4, 1024, 1024, 16, 8, 64, True, 0)}
+LAYOUT_EXTENT = 16
+LAYOUT_MESH, LAYOUT_PROMPTS, LAYOUT_NEW_TOKENS = (1, 4), {"llama3.2-3b": 124, "qwen3-moe-30b-a3b": 128}, 4
+LAYOUT_LOGITS_ATOL, LAYOUT_CE_RTOL = 1e-5, 1e-6
 
 
 def blocked_attention(counters) -> dict:
@@ -2965,6 +2999,7 @@ def _sweep_world_body(rank: int, eta: float) -> dict:
         train.main(SIM_WORLD + ["--device", "cuda"])
     out["simulate"] = buf.getvalue()
     out["train"] = _vocab_parallel_train_step()
+    out["layouts"] = _layout_world_checks()
     if rank == 0:  # the one-device grids, after the timed runs
         out["fig2_one"] = arrays(fig2_grid(fig2, None, "none"))
         out["repop_one"] = arrays(fig2_grid(other, None, "none"))
@@ -3045,6 +3080,145 @@ def hold_vocab_train(ranks) -> dict:
     if any(r["train"]["mesh"] != on for r in ranks[1:]):
         raise AssertionError("the ranks' sharded train steps disagree")
     return {"ce": on["ce"], "free_ce": free["ce"], "gap": gap, "k": int(on["k"])}
+
+
+def layout_pieces() -> dict:
+    """Phase 15e: the flash kernel on every rank's head piece of a
+    LAYOUT_EXTENT-way model axis (`ops.flash_attention_piece`: the local
+    tensors a rank holds, through the per-rank step that
+    `_flash_attention_sharded` runs), all on the one card, joined
+    along the heads and held to the kernel on the whole tensor; the pieces'
+    time beside the whole call's."""
+    import torch
+    from repro_torch.kernels.attention import ops
+
+    out = {}
+    for arch, shape in LAYOUT_PIECE_SHAPES.items():
+        row = {"launches": 0}
+        for dt in ("float32", "bfloat16"):
+            q, k, v = attention_inputs(shape, getattr(torch, dt), seed=17)
+            whole = ops.flash_attention(q, k, v, causal=True)
+            before = ops.launches
+            joined = torch.cat([ops.flash_attention_piece(q, k, v, r, LAYOUT_EXTENT) for r in range(LAYOUT_EXTENT)],
+                               dim=2)
+            torch.cuda.synchronize()
+            launched = ops.launches - before
+            row["launches"] += launched
+            o, p = joined.float(), whole.float()
+            err = (o - p).abs().max().item()
+            bitwise = bool(torch.equal(joined, whole))
+            tol = TOL[dt]
+            ok = bitwise or bool(((o - p).abs() <= tol + tol * p.abs()).all())
+            pieces_ms = cuda_ms(lambda: [ops.flash_attention_piece(q, k, v, r, LAYOUT_EXTENT)
+                                         for r in range(LAYOUT_EXTENT)], iters=5, warmup=1)
+            whole_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True), iters=5, warmup=1)
+            h, kv = shape[3], shape[4]
+            print(f"  {arch} prefill heads {shape} {dt}: {LAYOUT_EXTENT} pieces of {h // LAYOUT_EXTENT} q heads "
+                  f"over {max(1, kv // LAYOUT_EXTENT) if kv % LAYOUT_EXTENT == 0 else 1} kv head(s), {launched} "
+                  f"launches, joined against the whole call: {'bitwise' if bitwise else f'max_abs_err {err:.3e}'} "
+                  f"(atol=rtol={tol}); the 16 pieces {pieces_ms:.4f} ms on one card against {whole_ms:.4f} ms whole")
+            if launched != LAYOUT_EXTENT or not ok:
+                raise AssertionError(f"{arch} {dt}: the head pieces ({launched} launches) differ from the whole "
+                                     f"kernel by {err:.3e}")
+            row[dt] = {"bitwise": bitwise, "max_abs_err": err, "pieces_ms": pieces_ms, "whole_ms": whole_ms}
+            del q, k, v, whole, joined
+        out[arch] = row
+    torch.cuda.empty_cache()
+    return out
+
+
+def _layout_world_checks() -> dict:
+    """Phase 15f on each rank of the four-rank world: each arch of
+    LAYOUT_PROMPTS (smoke, seed-0 weights) generating LAYOUT_NEW_TOKENS
+    tokens from a batch of 4 prompts and taking one sync train step at
+    `_vocab_parallel_train_step`'s recipe, mesh-free and on a
+    LAYOUT_MESH ("data", "model") mesh of the host's DTensors; returns
+    both runs' prefill logits, tokens and metrics, and the (function,
+    local q shape) of every attention piece the mesh runs took."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.checkpoint import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import aggregation, controller, prng, straggler
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import build_model, layers
+    from repro_torch.optim import optimizers
+    from repro_torch.shardctx import is_dtensor
+
+    mesh = init_device_mesh("cpu", LAYOUT_MESH, mesh_dim_names=("data", "model"))
+    pieces = set()
+    spied = {(layers, "_sdpa"): 1, (layers, "_sdpa_decode_partial"): 0, (ops, "flash_attention"): 0}
+    saved = {key: getattr(*key) for key in spied}
+
+    def spy(name, fn, qi):
+        def run(*args, **kwargs):
+            if not is_dtensor(args[qi]):
+                pieces.add((name, tuple(args[qi].shape)))
+            return fn(*args, **kwargs)
+
+        return run
+
+    out = {}
+    for arch, t in LAYOUT_PROMPTS.items():
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg, "cpu")
+        prompts = serve.random_prompts(cfg, 4, t, 1, "cpu")
+        tokens, targets = TokenStream(cfg.vocab_size, 32, 8, seed=0, device="cpu").batch_at(0)
+        res = {}
+        for name, m in (("mesh-free", None), ("mesh", mesh)):
+            params = convert.init(cfg, torch.Generator().manual_seed(0), "cpu")  # the step updates it in place
+            pieces.clear()
+            for (mod, fn_name), qi in spied.items():
+                if m is not None:
+                    setattr(mod, fn_name, spy(fn_name, saved[(mod, fn_name)], qi))
+            try:
+                gen = serve.generate(model, params, prompts, LAYOUT_NEW_TOKENS, mesh=m)
+                opt = optimizers.sgd(0.3, momentum=0.9)
+                ctrl = controller.get_controller("pflug", 4, k0=1, step=1, thresh=0, burnin=0)
+                state = steps.init_train_state(opt, ctrl, params, mesh=m)
+                step = steps.make_train_step(model, opt, ctrl, straggler.Exponential(rate=1.0), 4,
+                                             aggregation.CommModel(0.1, 0.05), mesh=m)
+                _, metrics = step(state, {"tokens": tokens, "targets": targets}, prng.PRNGKey(7))
+            finally:
+                for key, fn in saved.items():
+                    setattr(*key, fn)
+            res[name] = {"prefill_logits": gen.prefill_logits, "tokens": gen.tokens,
+                         "metrics": {k: float(v) for k, v in metrics.items()}}
+        res["pieces"] = sorted(pieces)
+        out[arch] = res
+    return out
+
+
+def hold_layouts(ranks) -> dict:
+    """Phase 15f's check: on every rank the mesh's logits within
+    LAYOUT_LOGITS_ATOL of the mesh-free run's, the tokens equal, k exact
+    and ce within LAYOUT_CE_RTOL; rank 0's pieces printed."""
+    import torch
+
+    out = {}
+    for arch in LAYOUT_PROMPTS:
+        worst = {"logits": 0.0, "ce": 0.0}
+        for r in ranks:
+            free, on = (r["layouts"][arch][name] for name in ("mesh-free", "mesh"))
+            fm, om = free["metrics"], on["metrics"]
+            worst["logits"] = max(worst["logits"], (on["prefill_logits"] - free["prefill_logits"]).abs().max().item())
+            worst["ce"] = max(worst["ce"], abs(om["ce"] - fm["ce"]) / abs(fm["ce"]))
+            if not (torch.equal(on["tokens"], free["tokens"]) and int(om["k"]) == int(fm["k"])):
+                raise AssertionError(f"{arch} on {LAYOUT_MESH}: tokens or k differ from the mesh-free run")
+        zero = ranks[0]["layouts"][arch]
+        print(f"  {arch} smoke on ('data', 'model') {LAYOUT_MESH} of the host's DTensors, prompt "
+              f"{LAYOUT_PROMPTS[arch]}: prefill logits within {worst['logits']:.3e} of mesh-free (atol "
+              f"{LAYOUT_LOGITS_ATOL}), {LAYOUT_NEW_TOKENS} tokens equal on every rank; a train step's ce "
+              f"{zero['mesh']['metrics']['ce']:.8f} (relative gap {worst['ce']:.3e}, bound {LAYOUT_CE_RTOL}), k "
+              f"{int(zero['mesh']['metrics']['k'])}; rank 0's attention pieces (function, local q): {zero['pieces']}",
+              flush=True)
+        if not (worst["logits"] <= LAYOUT_LOGITS_ATOL and worst["ce"] <= LAYOUT_CE_RTOL):
+            raise AssertionError(f"{arch} on {LAYOUT_MESH}: {worst}")
+        out[arch] = {**worst, "pieces": zero["pieces"]}
+    return out
 
 
 def hold_lanes(what: str, got: tuple, want: tuple, bar: float = math.inf,
@@ -3129,10 +3303,11 @@ def sweep_world(eta: float) -> dict:
         raise AssertionError(f"train --simulate in the world printed {header} (and lines on other ranks)")
     print(f"  train --simulate ({' '.join(SIM_WORLD)}) in the world, rank 0's header: {json.dumps(header)}")
     train = hold_vocab_train(ranks)
+    layouts = hold_layouts(ranks)
     print(f"  the world's wall time {wall:.1f} s, spawn and CUDA contexts included", flush=True)
     return {"ranks": [{str(s): {"ms_iter": 1e3 * r[s]["wall"] / ENGINE_ITERS, "wall": r[s]["wall"]}
                        for s in SWEEP_MESHES} for r in ranks], "bitwise": bitwise, "wall": wall, "header": header,
-            "train": train}
+            "train": train, "layouts": layouts}
 
 
 def distribution_phase(counters, eta: float) -> dict:
@@ -3154,6 +3329,9 @@ def distribution_phase(counters, eta: float) -> dict:
           flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         out["world1"] = in_spawned_process(functools.partial(mesh_world1_worker, f"{tmp}/store"))
+    print(f"[15] the flash kernel on each rank's head piece of a {LAYOUT_EXTENT}-way model axis, joined, against "
+          f"the whole call", flush=True)
+    out["pieces"] = layout_pieces()
     out["sweep"] = sweep_world(eta)
     out["phase_s"] = time.perf_counter() - phase_t0
     print(f"  phase 15 took {out['phase_s']:.1f} s")
@@ -3177,6 +3355,16 @@ DRYRUN_TRIO = [("qwen1.5-0.5b", "train_4k", False), ("llama3.2-3b", "decode_32k"
 DRYRUN_REPAIRED = [("qwen3-moe-30b-a3b", "train_4k", False), ("hymba-1.5b", "train_4k", False),
                    ("rwkv6-3b", "prefill_32k", True), ("hymba-1.5b", "decode_32k", True)]
 DRYRUN_REPAIRED_LAYERS = None
+# Two jobs whose attention takes the reference's layouts: llama3.2-3b's 24
+# heads do not divide the 16-way model axis, so its train step splits the
+# query sequence, and its decode scores each rank's slots of the
+# sequence-sharded cache.  The gathering decode moved 6.03e10 collective
+# bytes a rank on the card's torch, of which the cache gathered twice a
+# layer (a lost write's and the attention's gather) was 6.01e10;
+# the decode must now move at least one gathered cache (28 layers x k and
+# v of 8 rows x 32768 x 8 x 128 bf16, 3.01e10 bytes) less.
+DRYRUN_LAYOUTS = [("llama3.2-3b", "decode_32k", False), ("llama3.2-3b", "train_4k", False)]
+LLAMA_DECODE_COLL_GATHERED, LLAMA_DECODE_CACHE = 6.03e10, 28 * 2 * 8 * 32768 * 8 * 128 * 2
 # qwen1.5-0.5b train_4k's all-gather bytes a rank while the CE gathered the
 # vocab (163.6 GB, on the card's torch); the vocab-parallel CE must take at
 # least 70 GB of it away
@@ -3198,7 +3386,7 @@ def start_dryruns(out_dir: Path) -> list:
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     started = []
-    for job in DRYRUN_TRIO + DRYRUN_REPAIRED:
+    for job in DRYRUN_TRIO + DRYRUN_REPAIRED + DRYRUN_LAYOUTS:
         arch, shape, pod = job
         name = f"{arch}__{shape}__{'pod2' if pod else 'base'}"
         out, log = out_dir / f"{name}.json", open(out_dir / f"{name}.log", "w")
@@ -3261,6 +3449,13 @@ def finish_dryruns(started, t_started: float) -> dict:
             out[(arch, shape, pod)] = r
     finally:
         stop_dryruns(started)
+    decode = out[DRYRUN_LAYOUTS[0]]["collectives"]
+    print(f"  llama3.2-3b decode_32k on 16x16 moves {decode['total']:.4e} collective bytes a rank (all-gather "
+          f"{decode['all-gather']:.4e}) against {LLAMA_DECODE_COLL_GATHERED:.4e} with the cache gathered: "
+          f"{(LLAMA_DECODE_COLL_GATHERED - decode['total']) / 1e9:.2f} GB less (at least "
+          f"{LLAMA_DECODE_CACHE / 1e9:.2f} GB required)")
+    if not decode["total"] < LLAMA_DECODE_COLL_GATHERED - LLAMA_DECODE_CACHE:
+        raise AssertionError(f"llama3.2-3b decode_32k moves {decode['total']:.4e} collective bytes a rank")
     qwen, _, rwkv = (out[job] for job in DRYRUN_TRIO)
     if not qwen["analytic_memory"]["fits_80gb"]:
         raise AssertionError("qwen1.5-0.5b train_4k does not fit 80 GB by the analytic model")
@@ -3540,11 +3735,18 @@ def main(argv=None) -> int:
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = report_attention_times("slice shape", SLICE_SHAPE)
     report_attention_times("window shape", SLICE_WINDOW_SHAPE)
     q32, k32, v32 = attention_inputs(SLICE_SHAPE, torch.float32, seed=7)
-    f32_ms = cuda_ms(lambda: ops.flash_attention(q32, k32, v32, causal=True), iters=50, warmup=5)
+    f32_kernel = lambda: ops.flash_attention(q32, k32, v32, causal=True)  # noqa: E731
+    f32_library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q32.transpose(1, 2), k32.transpose(1, 2), v32.transpose(1, 2), is_causal=True, enable_gqa=True)
+    f32_ms_1 = cuda_ms(f32_kernel, iters=50, warmup=5)
+    f32_library_ms = cuda_ms(f32_library, iters=50, warmup=5)
+    f32_ms_2 = cuda_ms(f32_kernel, iters=50, warmup=5)
+    f32_ms = (f32_ms_1 + f32_ms_2) / 2
     del q32, k32, v32
     f32_bound_ms, f32_bound_by, _ = attention_bound(SLICE_SHAPE, "float32")
-    print(f"  slice shape f32 (scalar route): kernel {f32_ms:.4f} ms, bound {f32_bound_ms:.4f} ms ({f32_bound_by}), "
-          f"roofline share {f32_bound_ms / f32_ms:.4f}")
+    print(f"  slice shape f32 (scalar route): kernel {f32_ms_1:.4f} / {f32_ms_2:.4f} ms (mean {f32_ms:.4f}), library "
+          f"(SDPA, f32) {f32_library_ms:.4f} ms, bound {f32_bound_ms:.4f} ms ({f32_bound_by}, the 67 TFLOP/s f32 "
+          f"pipe), roofline share {f32_bound_ms / f32_ms:.4f}")
 
     counters = {"flash_attention": ops, "wkv6": wkv_ops}
 
@@ -3691,9 +3893,13 @@ def main(argv=None) -> int:
         "library_ms": library_ms,
         "f32_source": "src/repro_torch/kernels/attention/csrc/flash_attn.cu",
         "f32_ms": f32_ms,
+        "f32_bound_ms": f32_bound_ms,
+        "f32_bound_by": f32_bound_by,
+        "f32_library_ms": f32_library_ms,
         "train_launches": p11["llama"]["launches"],
         "mesh_prefill_launches": p15["world1"]["prefill_launches"],
         "mesh_train_launches": p15["world1"]["train_launches"],
+        "layout_piece_launches": {arch: r["launches"] for arch, r in p15["pieces"].items()},
         "family_shapes": {arch: {**p12["kernel"][arch], "shape": list(FAMILY_SHAPES[arch]),
                                  "launches": p12["serve"][arch]["launches"]}
                           for arch in FAMILY_SHAPES},

@@ -12,11 +12,13 @@ wrapper's `block_q`/`block_k` have no counterpart: each CUDA kernel fixes its
 own tiles and masks ragged edges.
 
 Under a mesh it takes DTensors (k and v may be plain tensors that every rank
-holds whole).  A layout that shards T, S or hd is first redistributed to one
-that shards only the batch and the heads (an explicit gather: the kernel
-needs whole sequences), and the heads stay sharded only where H and KV both
-divide by the mesh extent, so each rank's q heads keep their kv head.  The
-kernel then runs on each rank's local shard, each launch counted.
+holds whole).  Where the batch and H divide their mesh extents, each rank
+runs the kernel on its H/m q heads and the kv heads they read, its own kv
+heads where KV divides too, else sliced from k and v whole on the model
+axis (`shardctx.on_attention_shards`).  Elsewhere a layout that shards T,
+S or hd is first redistributed to one that shards only the batch (an
+explicit gather: the kernel needs whole sequences and takes no query
+offset).  Each launch is counted.
 
 The CUDA launch is the custom op ``repro_torch::flash_attention``
 (`torch.library`) wherever a dispatch mode is active, so a trace on fake
@@ -37,7 +39,7 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels import forbid_autograd
 from repro_torch.kernels.attention import kernel
 from repro_torch.kernels.attention.ref import attention_ref, visible_pairs
-from repro_torch.shardctx import is_dtensor, on_local_shards
+from repro_torch.shardctx import heads_piece, heads_step, is_dtensor, on_attention_shards
 
 # Kernel launches (either route) since import or since a caller last set it to 0.
 launches = 0
@@ -92,15 +94,35 @@ def flash_attention_flops(q_shape, k_shape, v_shape, causal, window, *, out_shap
 
 
 def _flash_attention_sharded(q, k, v, *, causal: bool, window: int):
-    """`flash_attention` on DTensor q: each rank's (batch, heads) shard
-    through the kernel (`shardctx.on_local_shards`)."""
+    """`flash_attention` on DTensor q: each rank's piece of head-parallel
+    attention through the kernel (`shardctx.on_attention_shards`), its q
+    heads and the kv heads they read.  The kernel takes no query offset, so
+    where the heads do not divide the model axis the heads are gathered
+    instead of the query sequence split."""
+    return on_attention_shards(_flash_step(causal, window), q, k, v, query=False)
 
-    def local(ql, kl, vl):
-        if ql.device.type == "cuda":
-            ql, kl, vl = (_tma_ready(x) for x in (ql, kl, vl))
-        return flash_attention(ql, kl, vl, causal=causal, window=window)
 
-    return on_local_shards(local, (q, k, v), [(0, 2)] * 3, (q.shape[2], k.shape[2]), [(0, 2)])
+def flash_attention_piece(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rank: int, extent: int, *,
+                          causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Block ``rank`` of ``extent`` of `_flash_attention_sharded` from
+    whole (B, T, H, hd) ``q`` and (B, S, KV, hd) ``k``, ``v``: the local
+    tensors that the rank would hold (`shardctx.heads_piece`) through the
+    wrapper's own per-rank step (`shardctx.heads_step`); the blocks joined
+    along the heads are the attention of the whole tensors."""
+    return heads_step(_flash_step(causal, window), *heads_piece(q, k, v, rank, extent), q.shape[2], k.shape[2],
+                      rank, extent)
+
+
+def _flash_step(causal: bool, window: int):
+    """The per-rank step of `_flash_attention_sharded`: the kernel on a
+    rank's q heads and the kv heads they read (``t0`` is always 0)."""
+
+    def step(q, k, v, t0):
+        if q.device.type == "cuda":
+            q, k, v = (_tma_ready(x) for x in (q, k, v))
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    return step
 
 
 def _tma_ready(x: torch.Tensor) -> torch.Tensor:

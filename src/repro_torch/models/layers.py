@@ -19,7 +19,8 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.attention import ops as attn_ops
-from repro_torch.shardctx import constrain, constrain_alt, gather_dims, is_dtensor, on_local_shards
+from repro_torch.shardctx import (all_reduce, block_of, constrain, constrain_alt, gather_dims, global_of, heads_step,
+                                  is_dtensor, local_of, on_attention_shards, on_local_shards)
 
 # ----------------------------------------------------------------------------
 # init helpers
@@ -196,16 +197,17 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
          (llama 24H, hymba 25H, paligemma 8H on a 16-way model axis)
     q: (B,T,H,hd); k,v: (B,S,KV,hd); mask broadcastable to (B,H,T,S).
 
-    On DTensors it runs on each rank's (batch, heads) shard
-    (`shardctx.on_local_shards`; other layouts are gathered first): the
-    attention of a (batch row, head) needs no other, and DTensor lowers
-    these einsums to views that flatten (batch, heads), which it refuses
-    for sharded heads."""
+    On DTensors each rank runs its piece of that layout
+    (`shardctx.on_attention_shards`): its q heads and the kv heads they
+    read, or its rows of q and of the mask with k and v whole; a decode
+    step (T = 1) runs on the cache's own layout (`_sdpa_decode_sharded`).
+    DTensor lowers these einsums to views that flatten (batch, heads),
+    which it refuses for sharded heads."""
     if is_dtensor(q):
-        out = on_local_shards(lambda *qkv: _sdpa(cfg, *qkv, mask), (q, k, v), [(0, 2)] * 3,
-                              (q.shape[2], k.shape[2]), [(0, 2)])
         if q.shape[1] == 1:
-            return out
+            return _sdpa_decode_sharded(cfg, q, k, v, mask)
+        out = on_attention_shards(lambda ql, kl, vl, t0: _sdpa(cfg, ql, kl, vl, _mask_rows(mask, t0, ql.shape[1])),
+                                  q, k, v)
         return constrain_alt(out, ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none"))
     b, t, h, hd = q.shape
     kvh = k.shape[2]
@@ -247,7 +249,68 @@ def _sdpa_decode_grouped(q, k, v, mask, kvh: int, g: int, hd: int) -> torch.Tens
     return out.reshape(b, t, kvh * g, hd)
 
 
-def _sdpa_blocked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int) -> torch.Tensor:
+def _mask_rows(mask, t0: int, t: int):
+    """Query rows [t0, t0 + t) of a mask broadcastable to (B, H, T, S)."""
+    if mask is None or mask.dim() < 2 or mask.shape[-2] == 1:
+        return mask
+    return mask[..., t0:t0 + t, :]
+
+
+def _sdpa_decode_sharded(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
+    """`_sdpa` of one query position on DTensors, in the layout the cache
+    already has (`launch.sharding.CACHE_ALTS` places it), as the
+    reference's `_sdpa_decode_grouped` keeps it: where its kv heads are
+    sharded, each rank attends to its kv heads with their q groups; where
+    its sequence is, each rank scores its own slots and the softmax runs
+    across the shards (`_sdpa_decode_partial`), so the cache is never
+    gathered.  Elsewhere the cache's heads are gathered
+    (`on_local_shards`)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    kp = tuple(k.placements) if is_dtensor(k) else ()
+    by_heads = [i for i, p in enumerate(kp) if p.is_shard(2)]
+    by_slots = [i for i, p in enumerate(kp) if p.is_shard(1)]
+    if any(p.is_partial() or p.is_shard(3) for p in kp) or bool(by_heads) == bool(by_slots):
+        return on_local_shards(lambda *qkv: _sdpa(cfg, *qkv, mask), (q, k, v), [(0, 2)] * 3,
+                               (q.shape[2], k.shape[2]), [(0, 2)])
+    mesh = k.device_mesh
+    rank, extent = block_of(mesh, by_heads or by_slots)
+    qp = tuple(Shard(0) if p.is_shard(0) else Shard(2) if i in by_heads else Replicate() for i, p in enumerate(kp))
+    ql, kl, vl = local_of(q, mesh, qp), local_of(k, mesh, kp), local_of(v, mesh, kp)
+    if by_heads:
+        out = heads_step(lambda *qkv: _sdpa(cfg, *qkv[:3], mask), ql, kl, vl, q.shape[2], k.shape[2], rank, extent)
+    else:
+        out = _sdpa_decode_partial(ql, kl, vl, _mask_slots(mask, rank * kl.shape[1], kl.shape[1], k.shape[1]),
+                                   [(mesh, i) for i in by_slots])
+    return global_of(out, mesh, qp)
+
+
+def _mask_slots(mask, s0: int, sl: int, s: int):
+    """Cache slots [s0, s0 + sl) of a mask broadcastable to (..., S)."""
+    if mask is None or mask.shape[-1] != s:
+        return mask
+    return mask[..., s0:s0 + sl]
+
+
+def _sdpa_decode_partial(q, k, v, mask, groups) -> torch.Tensor:
+    """Grouped decode attention (`_sdpa_decode_grouped`) over one rank's
+    cache slots, the rest on the ranks of ``groups``: the scores' max is
+    all-reduced, then the sum of exp(score - max) and the f32 numerator
+    P·V in one all-reduce, (B, H) and (B, H, hd) a rank and layer."""
+    b, t, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, t, kvh, h // kvh, hd)
+    scores = torch.einsum("btngk,bsnk->bngts", qg, k).float() / _scale(hd)
+    if mask is not None:
+        scores = torch.where(mask[:, None] if mask.dim() == 4 else mask, scores, torch.finfo(torch.float32).min)
+    top = all_reduce(scores.amax(dim=-1), "max", groups)
+    p = torch.exp(scores - top[..., None])
+    num = torch.einsum("bngts,bsnk->btngk", p, v.float())
+    sums = all_reduce(torch.cat([num, p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]], dim=-1), "sum", groups)
+    return (sums[..., :hd] / sums[..., hd:]).reshape(b, t, h, hd).to(v.dtype)
+
+
+def _sdpa_blocked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int, q_offset: int = 0) -> torch.Tensor:
     """Online-softmax attention over key blocks (a plain-PyTorch flash
     equivalent, the model's own algorithm as the JAX package writes it at
     XLA level, not a kernel).
@@ -258,12 +321,13 @@ def _sdpa_blocked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int) -> to
     single block when it does not divide S.  Each block's body is recomputed
     in the backward pass (`torch.utils.checkpoint`, the reference's
     `jax.checkpoint`), so the peak transient is (B,H,T,blk) instead of
-    (B,H,T,S).  On DTensors it runs on each rank's (batch, heads) shard,
-    as `_sdpa` does.
+    (B,H,T,S).  ``q_offset`` is the position of q's first row.  On DTensors
+    each rank runs its piece of `_sdpa`'s layout, its rows of q offset by
+    their first position.
     """
     if is_dtensor(q):
-        out = on_local_shards(lambda *qkv: _sdpa_blocked(cfg, *qkv, causal=causal, window=window), (q, k, v),
-                              [(0, 2)] * 3, (q.shape[2], k.shape[2]), [(0, 2)])
+        out = on_attention_shards(lambda ql, kl, vl, t0: _sdpa_blocked(cfg, ql, kl, vl, causal=causal, window=window,
+                                                                       q_offset=t0), q, k, v)
         return constrain_alt(out, ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none"))
     b, t, h, hd = q.shape
     s = k.shape[1]
@@ -277,7 +341,7 @@ def _sdpa_blocked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int) -> to
     if s % blk:
         blk = s  # fallback: single block
     qf = q.float() / _scale(hd)
-    qpos = torch.arange(t, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(t, device=q.device)[:, None]
 
     def body(m_prev, l_prev, acc, kc, vc, ki: int):
         scores = torch.einsum("bthk,bshk->bhts", qf, kc.float())
@@ -394,8 +458,8 @@ def attention_decode(
     slot = pos % window if window else pos
     if slot >= s:
         raise ValueError(f"decode slot {slot} is past the cache length {s}; pad the cache first")
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    _write_slot(cache_k, slot, k)
+    _write_slot(cache_v, slot, v)
 
     kpos = torch.arange(s, device=x.device)
     if window:
@@ -407,6 +471,25 @@ def attention_decode(
     y = _sdpa(cfg, q, cache_k, cache_v, mask)
     y = project_out(y, params["wo"])
     return y, cache_k, cache_v
+
+
+def _write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
+    """cache[:, slot] = new[:, 0], in place.  On a DTensor cache each rank
+    writes into its own shard, and where the cache's sequence is sharded
+    only the rank that holds the slot writes."""
+    if not is_dtensor(cache):
+        cache[:, slot] = new[:, 0].to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate
+
+    mesh = cache.device_mesh
+    split = [i for i, p in enumerate(cache.placements) if p.is_shard(1)]
+    rank, _ = block_of(mesh, split)
+    local = cache.to_local()
+    sl = local.shape[1]
+    if slot // sl == rank:
+        want = tuple(Replicate() if p.is_shard(1) else p for p in cache.placements)
+        local[:, slot - rank * sl] = local_of(new, mesh, want)[:, 0].to(cache.dtype)
 
 
 def _cross_decode(params, cfg: ModelConfig, x: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, transformer
 from repro_torch.models.transformer import checkpointed
-from repro_torch.shardctx import constrain, is_dtensor, on_local_shards
+from repro_torch.shardctx import all_reduce, constrain, is_dtensor, on_local_shards
 
 # The chunked cross-entropy's sequence chunk: (B, 512, Vpad) f32 logits at a time.
 CE_CHUNK = 512
@@ -59,19 +59,6 @@ def _masked_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
     return torch.where(pad, torch.finfo(logits.dtype).min, logits)
 
 
-def _all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
-    """``x`` reduced by ``op`` over each (mesh, mesh dim) of ``groups``, as
-    functional collectives, which a fake process group and
-    `roofline.count_step` both see."""
-    from torch.distributed import _functional_collectives as funcol
-
-    for group in groups:
-        x = funcol.all_reduce(x, op, group)
-        if isinstance(x, funcol.AsyncCollectiveTensor):
-            x = x.wait()
-    return x
-
-
 class _VocabParallelNll(torch.autograd.Function):
     """`_nll` on one rank's (B, T, V_local) f32 logits, columns [lo, lo +
     V_local) of the padded vocab, the rest on the ranks of ``groups``: the
@@ -84,12 +71,12 @@ class _VocabParallelNll(torch.autograd.Function):
         vl = logits.shape[-1]
         pad = torch.arange(lo, lo + vl, device=logits.device) >= vocab
         logits = torch.where(pad, torch.finfo(logits.dtype).min, logits)
-        m = _all_reduce(torch.amax(logits, dim=-1), "max", groups)
-        s = _all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), "sum", groups)
+        m = all_reduce(torch.amax(logits, dim=-1), "max", groups)
+        s = all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), "sum", groups)
         col = targets.to(torch.int64) - lo
         mine = (col >= 0) & (col < vl)
         col = col.clamp(0, vl - 1)[..., None]
-        gold = _all_reduce(torch.where(mine, torch.gather(logits, -1, col)[..., 0], 0.0), "sum", groups)
+        gold = all_reduce(torch.where(mine, torch.gather(logits, -1, col)[..., 0], 0.0), "sum", groups)
         lse = torch.log(s) + m
         ctx.save_for_backward(logits, lse, col, mine)
         return lse - gold

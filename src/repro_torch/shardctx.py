@@ -76,8 +76,7 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
-def _apply(x: torch.Tensor, sharding) -> torch.Tensor:
-    placements = tuple(sharding.placements)
+def _apply(x: torch.Tensor, placements: tuple) -> torch.Tensor:
     if tuple(x.placements) == placements:
         return x
     return x.redistribute(x.device_mesh, placements)
@@ -106,7 +105,7 @@ def constrain(x: torch.Tensor, *logical: str) -> torch.Tensor:
     sharding = fn(tuple(logical), tuple(x.shape))
     if sharding is None:
         return x
-    return _apply(x, sharding)
+    return _apply(x, tuple(sharding.placements))
 
 
 def constrain_alt(x: torch.Tensor, *alternatives: Tuple[str, ...]) -> torch.Tensor:
@@ -116,14 +115,8 @@ def constrain_alt(x: torch.Tensor, *alternatives: Tuple[str, ...]) -> torch.Tens
     This is how e.g. attention picks head-sharding when the head count
     divides the model axis and falls back to sequence (context) parallelism
     otherwise (llama's 24 heads / hymba's 25 heads on a 16-way axis)."""
-    fn = _resolver()
-    if fn is None or not is_dtensor(x):
-        return x
-    for alt in alternatives:
-        sharding = fn(tuple(alt), tuple(x.shape), strict=True)
-        if sharding is not None:
-            return _apply(x, sharding)
-    return x
+    layout = layout_of(x, *alternatives) if is_dtensor(x) else None
+    return x if layout is None else _apply(x, layout[1])
 
 
 def current_sweep_mesh():
@@ -149,6 +142,168 @@ def sweep_mesh(mesh):
         _STATE.sweep_mesh = prev
 
 
+def all_reduce(x: torch.Tensor, op: str, groups) -> torch.Tensor:
+    """``x`` reduced by ``op`` over each (mesh, mesh dim) of ``groups``, as
+    functional collectives, which a fake process group and
+    `roofline.count_step` both see."""
+    from torch.distributed import _functional_collectives as funcol
+
+    for group in groups:
+        x = funcol.all_reduce(x, op, group)
+        if isinstance(x, funcol.AsyncCollectiveTensor):
+            x = x.wait()
+    return x
+
+
+def block_of(mesh, dims: Sequence[int]) -> Tuple[int, int]:
+    """(this rank's block, the number of blocks) of a tensor dim split over
+    mesh dims ``dims``: the first of them splits it first, as DTensor's
+    `Shard` on several mesh dims does."""
+    coord = mesh.get_coordinate()
+    rank, extent = 0, 1
+    for i in dims:
+        rank, extent = rank * mesh.size(i) + coord[i], extent * mesh.size(i)
+    return rank, extent
+
+
+def local_of(x, mesh, want: tuple, partial_dims=()) -> Optional[torch.Tensor]:
+    """This rank's local tensor of ``x`` laid out as ``want`` (a DTensor is
+    redistributed, a plain tensor that every rank holds whole is sliced;
+    None passes through).  The gradient of a DTensor is partial on the mesh
+    dims of ``partial_dims`` where ``want`` replicates it: every rank there
+    holds it whole and uses its own part of it."""
+    from torch.distributed.tensor import Partial, distribute_tensor
+
+    if x is None:
+        return None
+    if not is_dtensor(x):
+        return distribute_tensor(x, mesh, want, src_data_rank=None).to_local()
+    grad = tuple(Partial() if i in partial_dims and p.is_replicate() else p for i, p in enumerate(want))
+    return (x if tuple(x.placements) == want else x.redistribute(mesh, want)).to_local(grad_placements=grad)
+
+
+def global_of(y: torch.Tensor, mesh, placements: tuple) -> torch.Tensor:
+    """The DTensor whose local tensor on this rank is ``y``, laid out as
+    ``placements``, evenly: each sharded dim is its local size times the
+    extent of the mesh dims that shard it."""
+    from torch.distributed.tensor import DTensor
+
+    y = y.contiguous()  # the DTensor's strides are the contiguous ones of its global shape
+    shape = list(y.shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            shape[p.dim] *= int(mesh.size(i))
+    return DTensor.from_local(y, mesh, placements, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def layout_of(x: torch.Tensor, *alternatives: Tuple[str, ...]) -> Optional[Tuple[int, tuple]]:
+    """(index, placements) of the first of ``alternatives`` (logical dims,
+    as `constrain_alt` takes them) that the installed resolver can satisfy
+    for ``x``'s shape, each dim divisible by its mesh extent; None without a
+    resolver or where none fits."""
+    fn = _resolver()
+    if fn is None:
+        return None
+    for i, alt in enumerate(alternatives):
+        sharding = fn(tuple(alt), tuple(x.shape), strict=True)
+        if sharding is not None:
+            return i, tuple(sharding.placements)
+    return None
+
+
+# The reference's attention layouts (`repro/models/layers.py::_sdpa`) of a
+# (B, T or S, heads, hd) tensor: the heads on the model axis where they
+# divide it, else the sequence (a query's, or a decode cache's).
+BY_HEADS, BY_SEQUENCE = ("batch", "none", "tp", "none"), ("batch", "tp", "none", "none")
+
+
+def head_block(h: int, kvh: int, rank: int, extent: int) -> Tuple[int, int, int, int]:
+    """(q0, hl, k0, k1): block ``rank`` of ``extent`` of ``h`` q heads is
+    heads [q0, q0 + hl), and they read kv heads [k0, k1) of ``kvh`` (q head
+    j reads kv head j // (h / kvh), as the reference's `jnp.repeat`)."""
+    hl, g = h // extent, h // kvh
+    q0 = rank * hl
+    return q0, hl, q0 // g, (q0 + hl - 1) // g + 1
+
+
+def kv_for_heads(k: torch.Tensor, h: int, kvh: int, rank: int, extent: int, first: int = 0) -> torch.Tensor:
+    """The kv heads of (B, S, KV, hd) ``k`` that q-head block ``rank`` of
+    ``extent`` reads (`head_block`), ``k`` holding kv heads [first, first +
+    k.shape[2]) of ``kvh``.  Where the block's q heads are whole groups of
+    one kv head (or share one), a slice keeps GQA; where they straddle kv
+    heads, the slice is repeated to one kv head a q head."""
+    q0, hl, k0, k1 = head_block(h, kvh, rank, extent)
+    g = h // kvh
+    x = k[:, :, k0 - first:k1 - first]
+    if hl % g == 0 or g % hl == 0:
+        return x
+    return torch.repeat_interleave(x, g, dim=2)[:, :, q0 - k0 * g:q0 - k0 * g + hl]
+
+
+def heads_piece(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rank: int, extent: int):
+    """The local tensors of block ``rank`` of ``extent`` of head-parallel
+    attention, cut from whole (B, T, H, hd) ``q`` and (B, S, KV, hd) ``k``,
+    ``v`` as `on_attention_shards` lays them out on a rank: its H/m q heads,
+    and its own KV/m kv heads where KV divides m, else k and v whole."""
+    h, kvh = q.shape[2], k.shape[2]
+    hl = h // extent
+    ql = q[:, :, rank * hl:(rank + 1) * hl]
+    if kvh % extent:
+        return ql, k, v
+    kl = kvh // extent
+    return ql, k[:, :, rank * kl:(rank + 1) * kl], v[:, :, rank * kl:(rank + 1) * kl]
+
+
+def heads_step(fn: Callable, ql, kl, vl, h: int, kvh: int, rank: int, extent: int):
+    """``fn(q, k, v, 0)`` on block ``rank`` of ``extent`` of head-parallel
+    attention over ``h`` q heads and ``kvh`` kv heads, from the rank's local
+    tensors (`heads_piece`): its q heads and the kv heads they read
+    (`kv_for_heads`)."""
+    first = rank * (kvh // extent) if kvh % extent == 0 else 0
+    return fn(ql, kv_for_heads(kl, h, kvh, rank, extent, first), kv_for_heads(vl, h, kvh, rank, extent, first), 0)
+
+
+def on_attention_shards(fn: Callable, q, k, v, *, query: bool = True):
+    """``fn(q, k, v, t0)`` on each rank's piece of attention over DTensor
+    (B, T, H, hd) ``q`` and (B, S, KV, hd) ``k``, ``v`` (DTensors, or plain
+    tensors that every rank holds whole), in the reference's layout
+    (`layout_of(q, BY_HEADS, BY_SEQUENCE)`; ``t0`` is the piece's first
+    query row):
+
+    - heads, where the batch and H divide their mesh extents: each rank
+      takes its H/m q heads and the kv heads they read (`kv_for_heads`),
+      from its own kv heads where KV divides m too, else from k and v whole
+      on the model axis;
+    - the query sequence, where H does not divide m and T does (and
+      ``query``): each rank takes its T/m rows of q and k, v whole along S.
+
+    The output has q's layout.  q's gradient is sharded as q, that of a k
+    or v held whole on the model axis is partial there.  Where neither
+    layout fits, or without a resolver, the work runs on (batch, heads)
+    shards (`on_local_shards`), the heads gathered unless H and KV both
+    divide."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    layout = layout_of(q, BY_HEADS, BY_SEQUENCE)
+    if layout is None or (layout[0] == 1 and not query):
+        return on_local_shards(lambda *qkv: fn(*qkv, 0), (q, k, v), [(0, 2)] * 3, (q.shape[2], k.shape[2]),
+                               [(0, 2)])
+    mode, qp = layout
+    mesh = q.device_mesh
+    split = [i for i, p in enumerate(qp) if p.is_shard(2 if mode == 0 else 1)]
+    rank, extent = block_of(mesh, split)
+    h, kvh = q.shape[2], k.shape[2]
+    own_kv = mode == 0 and kvh % extent == 0
+    kvp = tuple(Shard(0) if p.is_shard(0) else Shard(2) if own_kv and i in split else Replicate()
+                for i, p in enumerate(qp))
+    ql = local_of(q, mesh, qp)
+    kl, vl = (local_of(x, mesh, kvp, split) for x in (k, v))
+    if mode == 0:
+        return global_of(heads_step(fn, ql, kl, vl, h, kvh, rank, extent), mesh, qp)
+    return global_of(fn(ql, kl, vl, rank * (q.shape[1] // extent)), mesh, qp)
+
+
 def on_local_shards(fn: Callable, xs: Sequence, dims: Sequence[Tuple[Optional[int], Optional[int]]],
                     heads: Sequence[int], out_dims: Sequence[Tuple[Optional[int], Optional[int]]]):
     """``fn(*local tensors)`` on each rank's shard of ``xs``, for work that is
@@ -171,7 +326,7 @@ def on_local_shards(fn: Callable, xs: Sequence, dims: Sequence[Tuple[Optional[in
     that every rank of a sharded mesh dim holds whole (a parameter beside
     the batch, a tensor without heads beside the heads) is partial there,
     each rank's shard's part of the sum."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor import Replicate, Shard
 
     mesh = next(x.device_mesh for x in xs if is_dtensor(x))
     n = len(mesh.shape)
@@ -199,30 +354,8 @@ def on_local_shards(fn: Callable, xs: Sequence, dims: Sequence[Tuple[Optional[in
         return tuple(Shard(bd) if o == "batch" and bd is not None else Shard(hd) if o == "heads" and hd is not None
                      else Replicate() for o in layout)
 
-    def local(x, bd, hd):
-        if x is None:
-            return None
-        want = under(bd, hd)
-        if is_dtensor(x):
-            # where every rank of a sharded mesh dim holds ``x`` whole (a
-            # parameter beside batch-sharded activations), a rank's gradient
-            # is its shard's part of the sum
-            grad = tuple(Partial() if o is not None and p.is_replicate() else p for o, p in zip(layout, want))
-            return (x if tuple(x.placements) == want else x.redistribute(mesh, want)).to_local(grad_placements=grad)
-        return distribute_tensor(x, mesh, want, src_data_rank=None).to_local()
-
-    out = fn(*(local(x, bd, hd) for x, (bd, hd) in zip(xs, dims)))
-
-    def wrap(y, bd, hd):
-        y = y.contiguous()  # the DTensor's strides are the contiguous ones of its global shape
-        shape = list(y.shape)
-        for i, o in enumerate(layout):
-            d = bd if o == "batch" else hd if o == "heads" else None
-            if d is not None:
-                shape[d] *= int(mesh.shape[i])
-        return DTensor.from_local(y, mesh, under(bd, hd), run_check=False, shape=torch.Size(shape),
-                                  stride=torch.empty(shape, device="meta").stride())
-
+    sharded = [i for i, o in enumerate(layout) if o is not None]
+    out = fn(*(local_of(x, mesh, under(bd, hd), sharded) for x, (bd, hd) in zip(xs, dims)))
     if isinstance(out, tuple):
-        return tuple(wrap(y, bd, hd) for y, (bd, hd) in zip(out, out_dims))
-    return wrap(out, *out_dims[0])
+        return tuple(global_of(y, mesh, under(bd, hd)) for y, (bd, hd) in zip(out, out_dims))
+    return global_of(out, mesh, under(*out_dims[0]))

@@ -14,7 +14,9 @@ CPU runs), the experiment entry points (`train --simulate` and
 fig_hetero's grid against their CPU runs), and distribution on a world of
 one rank (both wrappers on DTensors against the mesh-free call, a mesh
 sweep graph-replayed against eager, the vocab-parallel CE against the
-mesh-free one) and blocked attention against the naive path, and the dry
+mesh-free one), the flash kernel's head pieces of a 16-way model axis
+joined against the whole call, and blocked attention against the naive
+path, and the dry
 run of one job per site of the sharded path that DTensor on the card
 refused until the port ran it on local shards, on the card.  Flash attention
 has two routes, by dtype: f32 the scalar kernel, bf16 the wgmma + TMA
@@ -1044,6 +1046,33 @@ def test_mesh_sweep_graph_replayed_equals_eager(world1):
     for f in ("time", "loss", "k"):
         assert torch.equal(getattr(graph, f), getattr(eager, f)), f
         assert torch.equal(getattr(graph, f), getattr(free, f)), f
+
+
+# qwen3-moe-30b-a3b's and granite-moe-1b-a400m's full-width prefill heads
+# (batch 4, prompt 1024) on a 16-way model axis: each rank's piece holds 2 q
+# heads over 1 kv head, or 1 over 1
+LAYOUT_PIECES = [(4, 1024, 32, 4, 64), (4, 1024, 16, 8, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", LAYOUT_PIECES, ids=str)
+def test_flash_head_pieces_of_a_16_way_model_axis_join_to_the_whole_call(cuda_device, shape, dtype):
+    """`ops.flash_attention_piece` (the local tensors of one rank through
+    the per-rank step that `_flash_attention_sharded` runs) for all 16 ranks on
+    the one card, joined along the heads: the kernel on the whole tensor,
+    within the kernel's own tolerance (each (batch, head) is computed alone,
+    so it is expected bit for bit)."""
+    b, t, h, kv, hd = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(cuda_device, getattr(torch, dtype))
+               for sh in ((b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+    whole = ops.flash_attention(q, k, v, causal=True)
+    before = ops.launches
+    joined = torch.cat([ops.flash_attention_piece(q, k, v, r, 16) for r in range(16)], dim=2)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 16
+    tol = TOL[dtype]
+    np.testing.assert_allclose(joined.float().cpu().numpy(), whole.float().cpu().numpy(), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])

@@ -336,14 +336,18 @@ PFLUG = dict(k0=1, step=1, thresh=0, burnin=0)
 _RUNS = {}
 
 
-def run_both(arch, mode, n_micro, opt_name, steps=3):
+def run_both(arch, mode, n_micro, opt_name, steps=3, overrides=None):
     """Both packages' train steps from the same weights, batches (with the
     family's `frontend_inputs`) and keys (Pflug with thresh 0, so k moves; a
-    comm model); memoised, as the checkpoint tests read the same states."""
-    tag = (arch, mode, n_micro, opt_name)
+    comm model), the smoke configs with ``overrides`` (fields that change no
+    weight); memoised, as the checkpoint tests read the same states."""
+    tag = (arch, mode, n_micro, opt_name) + tuple(sorted((overrides or {}).items()))
     if tag in _RUNS:
         return _RUNS[tag]
     _, jmodel, jparams, tmodel, tparams = _model_pair(arch)
+    if overrides:
+        jmodel = jax_build_model(jmodel.cfg.replace(**overrides))
+        tmodel = build_model(tmodel.cfg.replace(**overrides), device="cpu")
     jo, to, _ = _optimizers(opt_name)
     jc, tc = jctl.get_controller("pflug", N_WORKERS, **PFLUG), tctl.get_controller("pflug", N_WORKERS, **PFLUG)
     jstate = jsteps.init_train_state(jmodel, jo, jc, jax.random.PRNGKey(0))._replace(

@@ -12,6 +12,7 @@ module.  Imports no JAX: the reference runs in the parent.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import os
 import sys
@@ -92,12 +93,13 @@ def _mesh(shape, names=("data", "model")):
 # ------------------------------------------------------------------ jobs
 
 
-def train_steps(arch: str, shape, mode: str, params_file: str, steps: int = 3, n_micro: int = 1):
+def train_steps(arch: str, shape, mode: str, params_file: str, steps: int = 3, n_micro: int = 1,
+                overrides: dict | None = None):
     """tests/test_torch_train.py::run_both's port run (Pflug with thresh 0,
     SGD 0.3 with momentum 0.9, a comm model, 4 workers, batch 8 x 32,
     keys from PRNGKey(7)) on a ("data", "model") mesh of ``shape``, from the
-    weights in ``params_file``.  Returns the metrics a step and the final
-    parameters, whole."""
+    weights in ``params_file``, the smoke config with ``overrides``.
+    Returns the metrics a step and the final parameters, whole."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import aggregation, controller, prng, straggler
     from repro_torch.data import TokenStream
@@ -106,7 +108,7 @@ def train_steps(arch: str, shape, mode: str, params_file: str, steps: int = 3, n
     from repro_torch.optim import optimizers
 
     mesh = _mesh(shape)
-    cfg = get_smoke_config(arch)
+    cfg = get_smoke_config(arch).replace(**(overrides or {}))
     model = build_model(cfg, "cpu")
     params = torch.load(params_file, weights_only=False)
     opt = optimizers.sgd(0.3, momentum=0.9)
@@ -332,3 +334,200 @@ def vocab_parallel_nll(shape, data_file: str):
     cost = analysis.count_step(lambda x: model_lib._nll(x, targets, data["vocab"]), lg.detach())
     return {"nll": nll.full_tensor().detach(), "ce": ce.full_tensor(), "grad": lg.grad.full_tensor(),
             "placements": tuple(str(p) for p in nll.placements), "collectives": cost["collectives"]}
+
+
+# ------------------------------------------------- the attention layouts
+
+
+@contextlib.contextmanager
+def attention_spy():
+    """Record every call of `layers._sdpa`, `_sdpa_blocked`,
+    `_sdpa_decode_partial` and the kernel's wrapper `flash_attention` on
+    plain tensors (a rank's piece): the function, q's and k's shapes and
+    the FLOPs that an active `roofline.StepCounter` counted in it.  Yields
+    the list of records."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    from repro_torch.kernels.attention import ops
+    from repro_torch.models import layers
+    from repro_torch.roofline.analysis import StepCounter
+    from repro_torch.shardctx import is_dtensor
+
+    calls = []
+    saved = {(mod, name): getattr(mod, name) for mod, name in (
+        (layers, "_sdpa"), (layers, "_sdpa_blocked"), (layers, "_sdpa_decode_partial"), (ops, "flash_attention"))}
+
+    def spy(name, fn):
+        def run(*args, **kwargs):
+            q, k = args[:2] if name in ("_sdpa_decode_partial", "flash_attention") else args[1:3]
+            if is_dtensor(q):
+                return fn(*args, **kwargs)
+            counter = next((m for m in _get_current_dispatch_mode_stack() if isinstance(m, StepCounter)), None)
+            before = counter.flops if counter is not None else 0
+            out = fn(*args, **kwargs)
+            calls.append({"fn": name, "q": tuple(q.shape), "k": tuple(k.shape),
+                          "flops": counter.flops - before if counter is not None else None})
+            return out
+
+        return run
+
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, spy(name, fn))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def layout_train(arch: str, shape, params_file: str, overrides: dict | None = None):
+    """`train_steps` in sync mode with the attention calls recorded
+    (`attention_spy`)."""
+    with attention_spy() as calls:
+        out = train_steps(arch, shape, "sync", params_file, overrides=overrides)
+    return {**out, "calls": calls}
+
+
+def layout_serving(arch: str, shape, params_file: str, prompt_len: int, new_tokens: int, window: int = 0):
+    """On a ("data", "model") mesh of ``shape``: `serve.generate` of
+    ``arch``'s smoke config (batch 4, prompts from seed 1, ``window``), then
+    `steps.make_prefill_step` and two `make_decode_step` steps on the cache
+    grown to prompt_len + 4 positions, and `roofline.count_step` of a third
+    decode step.  Returns the tokens, the logits, the caches' placements,
+    the attention calls of each part (`attention_spy`), the decode step's
+    collective bytes and those of one layer's decode attention
+    (`layers._sdpa` on the cache's first layer)."""
+    from repro_torch.configs import InputShape, get_smoke_config
+    from repro_torch.launch import serve as serve_lib, sharding, steps as steps_lib
+    from repro_torch.models import build_model, layers
+    from repro_torch.roofline import analysis
+
+    mesh = _mesh(shape)
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, "cpu")
+    params = torch.load(params_file, weights_only=False)
+    prompts = serve_lib.random_prompts(cfg, 4, prompt_len, 1, "cpu")
+    with attention_spy() as gen_calls:
+        res = serve_lib.generate(model, params, prompts, new_tokens, window=window, mesh=mesh)
+    shape_in = InputShape("prefill", prompt_len, 4, "prefill")
+    placed = sharding.place_state(params, mesh)
+    prefill = steps_lib.make_prefill_step(model, cfg, shape_in, mesh=mesh)
+    decode = steps_lib.make_decode_step(model, cfg, shape_in, mesh=mesh)
+    with attention_spy() as prefill_calls:
+        lg, cache = prefill(placed, {"tokens": prompts})
+    cache = serve_lib._grow_kv_cache(model, cache, 4, prompt_len + 4, 0, mesh)
+    out = [sharding.gathered(lg)]
+    tok = torch.argmax(out[0], dim=-1)[:, None]
+    with attention_spy() as decode_calls:
+        for i in range(2):
+            lg, cache = decode(placed, tok, cache, prompt_len + i)
+            out.append(sharding.gathered(lg))
+            tok = torch.argmax(out[-1], dim=-1)[:, None]
+    kinds = {k: tuple(str(p) for p in v.placements) for k, v in cache.items()}
+    with sharding.mesh_context(mesh):
+        cost = analysis.count_step(decode, placed, tok, cache, prompt_len + 2)
+        # one layer's attention of a query laid out as `layers._qkv` leaves it
+        q = torch.randn(4, 1, cfg.n_heads, cfg.resolved_head_dim, generator=torch.Generator().manual_seed(3))
+        q = sharding.place_spanning(q, sharding.activation_resolver(mesh)(("batch", "none", "tp", "none"), q.shape))
+        mask = torch.ones(1, 1, 1, cache["k"].shape[2], dtype=torch.bool)
+        attn = analysis.count_step(layers._sdpa, cfg, q, cache["k"][0], cache["v"][0], mask)
+    return {"tokens": res.tokens, "prefill_logits": res.prefill_logits, "step_logits": out,
+            "cache_placements": kinds, "cache_local": tuple(cache["k"].to_local().shape),
+            "calls": {"generate": gen_calls, "prefill": prefill_calls, "decode": decode_calls},
+            "decode_collectives": cost["collectives"], "attention_collectives": attn["collectives"]}
+
+
+def straddled_heads(arch: str, shape, batch: int = 2, seq: int = 16):
+    """``arch``'s smoke attention on a ("data", "model") mesh of ``shape``
+    whose model extent splits the q heads mid-group (llama3.2-3b's 6 q over
+    2 kv heads on 3 ranks: rank 1's heads 2 and 3 read kv heads 0 and 1):
+    random q, k, v (seed 0, whole on every rank) laid out as `layers._qkv`
+    leaves them, through `layers._sdpa` with a causal mask and
+    `_sdpa_blocked` (block 8) forward and backward, and through the
+    kernel's wrapper `ops.flash_attention` forward.  Returns the whole
+    outputs, the whole gradients of q, k and v (of the sum of each output
+    times a fixed cotangent), and the attention calls (`attention_spy`)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.attention import ops
+    from repro_torch.launch import sharding
+    from repro_torch.models import layers
+
+    mesh = _mesh(shape)
+    cfg = get_smoke_config(arch).replace(attention_block=8)
+    gen = torch.Generator().manual_seed(0)
+    whole = [torch.randn(batch, seq, n, cfg.resolved_head_dim, generator=gen)
+             for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+    cot = torch.randn(batch, seq, cfg.n_heads, cfg.resolved_head_dim, generator=gen)
+    mask = torch.tril(torch.ones(seq, seq, dtype=torch.bool))[None, None]
+    resolve = sharding.activation_resolver(mesh)
+    out = {}
+    with attention_spy() as calls, sharding.mesh_context(mesh):
+        for name, fn in (("sdpa", lambda *qkv: layers._sdpa(cfg, *qkv, mask)),
+                         ("blocked", lambda *qkv: layers._sdpa_blocked(cfg, *qkv, causal=True, window=0)),
+                         ("flash", lambda *qkv: ops.flash_attention(*qkv, causal=True))):
+            qkv = [sharding.place_spanning(x, resolve(("batch", "none", "tp", "none"), tuple(x.shape)))
+                   .detach().requires_grad_(name != "flash") for x in whole]
+            y = fn(*qkv)
+            res = {"out": y.full_tensor(), "out_placements": tuple(str(p) for p in y.placements)}
+            if name != "flash":
+                (y * cot).sum().backward()  # cot whole on every rank: implicitly replicated
+                res["grads"] = [x.grad.full_tensor() for x in qkv]
+            out[name] = res
+    return {**out, "calls": calls}
+
+
+def attention_flops(arch: str, shape):
+    """`count_train_step(arch, shape, fake=True)` with the attention calls
+    recorded (`attention_spy`): the step's counts and the calls, each with
+    the FLOPs counted in it."""
+    with attention_spy() as calls:
+        cost = count_train_step(arch, shape, fake=True)
+    return {**cost, "calls": calls}
+
+
+def full_width_pieces(archs: list, train: str = "train_4k", decode: str = "decode_32k"):
+    """Each arch's full-config attention on fake DTensors of a fake (16, 16)
+    ("data", "model") world: q, k and v of ``train``'s batch and sequence
+    laid out as `layers._qkv` leaves them, through `layers._sdpa`; then one
+    query against ``decode``'s cache placed by `sharding.batch_shardings`,
+    and the decode's collective bytes (`roofline.count_step`).  Returns
+    {arch: {"train": calls, "decode": calls, "decode_collectives": ...,
+    "cache_placements": ...}} (`attention_spy`'s records)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import sharding
+    from repro_torch.launch.specs import window_for
+    from repro_torch.models import layers
+    from repro_torch.roofline import analysis
+
+    mesh = _mesh((16, 16))
+    resolve = sharding.activation_resolver(mesh)
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch)
+        h, kvh, hd, dt = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, getattr(torch, cfg.compute_dtype)
+        res = {}
+        with FakeTensorMode(), analysis.dtensor_metadata_uncounted(), sharding.mesh_context(mesh):
+            tr = INPUT_SHAPES[train]
+            q, k, v = (sharding.place_spanning(torch.empty(tr.global_batch, tr.seq_len, n, hd, dtype=dt),
+                                               resolve(("batch", "none", "tp", "none"), (tr.global_batch,
+                                                                                        tr.seq_len, n, hd)))
+                       for n in (h, kvh, kvh))
+            with attention_spy() as calls:
+                layers._sdpa(cfg, q, k, v, None)
+            res["train"] = calls
+            dec = INPUT_SHAPES[decode]
+            s = min(dec.seq_len, window_for(cfg, dec) or dec.seq_len)
+            cache = sharding.place_batch({"k": torch.empty(1, dec.global_batch, s, kvh, hd, dtype=dt),
+                                          "v": torch.empty(1, dec.global_batch, s, kvh, hd, dtype=dt)}, mesh)
+            qd = sharding.place_spanning(torch.empty(dec.global_batch, 1, h, hd, dtype=dt),
+                                         resolve(("batch", "none", "tp", "none"), (dec.global_batch, 1, h, hd)))
+            mask = torch.ones(1, 1, 1, s, dtype=torch.bool)
+            with attention_spy() as calls:
+                cost = analysis.count_step(layers._sdpa, cfg, qd, cache["k"][0], cache["v"][0], mask)
+            res["decode"] = calls
+            res["decode_collectives"] = cost["collectives"]
+            res["cache_placements"] = tuple(str(p) for p in cache["k"].placements)
+        out[arch] = res
+    return out
