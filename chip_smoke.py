@@ -41,14 +41,14 @@
 7. Run the simulation engine (no kernel of the port lies on its path): the
    five controllers' sync trajectories against tests/goldens/quadratic_mc.npz
    in the legacy threefry mode; then fig2's five cells (adaptive and fixed
-   k = 10, 20, 30, 40) at full width, R=32, n=50, m=2000, d=100, 2000
+   k = 10, 20, 30, 40) at full width, R=32, n=50, m=2000, d=100, 1000
    iterations each, graph-replayed, against the same cells run eagerly on
    the card (bitwise, over the first eval block of 500 iterations, as
    phase 8 holds its grid) and run on the CPU (500 iterations); print the
    launches and ms of an iteration both ways, the device's idle share and
    top operations, and the peak memory.
 8. Run the sweep engine (no kernel of the port on its path either): fig2's
-   five cells as one grid of 160 lanes (2000 iterations) and the
+   five cells as one grid of 160 lanes (1000 iterations) and the
    ablation's 15 cells (5 controllers x Exponential, Pareto, Bimodal, R=8)
    as one grid of 120 (500 iterations), each one program; hold each grid
    graph-replayed against eager on the card (bitwise), each cell against
@@ -139,7 +139,7 @@
    `train.main`, every cell line checked; each grid at R = 4, 300
    iterations on the card against the CPU; then the figure functions
    (`launch/figures.py`): fig1, fig_hetero at its size (5 cells x R = 32
-   x 12 000 iterations) and fig3 at 1000 iterations with one seed of its
+   x 12 000 iterations) and fig3 at 500 iterations with one seed of its
    host loop, each one's wall time and `derived` line, the host loop's
    events a second on the card and on the CPU over the same horizon, and
    fig_hetero's cells at 300 iterations card against CPU.
@@ -154,7 +154,7 @@
    sync train steps at phase 11's recipe.
    Four gloo ranks sharing the card (NCCL takes one rank a GPU), each
    running its lane block on the card and gathering the small results
-   over gloo: fig2's grid (160 lanes, 2000 iterations) on ("cells",
+   over gloo: fig2's grid (160 lanes, 1000 iterations) on ("cells",
    "replicas") meshes (1, 4) and (2, 2), then repopulated on (1, 4) with
    no new capture, and five cells of phase 14's mixed grid on (2, 2) (cells pad
    5 -> 6), each against the one-device grid (time and k bitwise; the
@@ -707,7 +707,7 @@ GOLDEN_TIME_RTOL = 1e-6
 # log1p, matmul sums and reductions differ in the last ulps).  A near-zero
 # inner product g_j . g_{j-1} can flip a Pflug sign event and fork that
 # replica's k: at most 2 of the 32 may fork, each reported.
-ENGINE_ITERS, ENGINE_EAGER_ITERS, ENGINE_CPU_ITERS = 2000, 500, 500
+ENGINE_ITERS, ENGINE_EAGER_ITERS, ENGINE_CPU_ITERS = 1000, 500, 500
 ENGINE_TIME_RTOL, ENGINE_LOSS_RTOL, ENGINE_MAX_FORKS = 1e-5, 1e-4, 2
 
 
@@ -907,7 +907,7 @@ def engine_fig2() -> dict:
 
 
 # The sweep phase.  fig2's grid (5 cells x R=32 = 160 lanes) at phase 7's
-# 2000 iterations (its CPU run at 500); the ablation's grid (5 controllers x
+# 1000 iterations (its CPU run at 500); the ablation's grid (5 controllers x
 # 3 families x R=8 = 120 lanes) at 500.  Each cell is held to the looped
 # engine on the card (fig2: phase 7's runs) and to the port's grid on the
 # CPU at ENGINE_TIME_RTOL / ENGINE_LOSS_RTOL, with at most ENGINE_MAX_FORKS
@@ -1934,18 +1934,48 @@ def train_smoke_run(arch: str, mode: str, n_micro: int, device: str):
     return rows, (ops.launches - before[0], wkv_ops.launches - before[1])
 
 
-def train_smoke_vs_cpu() -> dict:
-    """Phase 11c: the train step on the card against the CPU at smoke width."""
+def train_smoke_cpu_runs(cases, threads: int) -> list:
+    """`train_smoke_run` of each (arch, mode, n_micro) of ``cases`` on the
+    CPU, in a worker process: each case's rows."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.set_num_threads(threads)
+    return [train_smoke_run(arch, mode, n_micro, "cpu")[0] for arch, mode, n_micro in cases]
+
+
+def start_smoke_cpu_runs(cases):
+    """(pool, future) of `train_smoke_cpu_runs` of ``cases`` in a worker
+    process, started at a phase's start so that it runs beside the card's
+    work."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(train_smoke_cpu_runs, cases, 4)
+
+
+def hold_smoke_vs_cpu(cases, cpu_f) -> tuple:
+    """Each case's train steps on the card against the CPU's (``cpu_f``,
+    `start_smoke_cpu_runs`): k equal, sim_time and ce within their bounds.
+    Returns the worst (sim_time, ce) gaps and each case's kernel launches
+    on the card."""
     worst, launches = (0.0, 0.0), {}
-    for arch, mode, n_micro in TRAIN_SMOKE_CASES:
-        card, counts = train_smoke_run(arch, mode, n_micro, "cuda")
-        cpu, _ = train_smoke_run(arch, mode, n_micro, "cpu")
+    cards = [train_smoke_run(arch, mode, n_micro, "cuda") for arch, mode, n_micro in cases]
+    for (arch, mode, n_micro), (card, counts), cpu in zip(cases, cards, cpu_f.result()):
         launches[(arch, mode, n_micro)] = counts
         for (k, st, ce), (k0, st0, ce0) in zip(card, cpu):
             t_gap, c_gap = abs(st - st0) / abs(st0), abs(ce - ce0) / abs(ce0)
             worst = (max(worst[0], t_gap), max(worst[1], c_gap))
             if k != k0 or not (t_gap <= TRAIN_SMOKE_TIME_RTOL and c_gap <= TRAIN_SMOKE_CE_RTOL):
                 raise AssertionError(f"card vs CPU, {arch} {mode} n_micro {n_micro}: {card} against {cpu}")
+    return worst, launches
+
+
+def train_smoke_vs_cpu(cpu_f) -> dict:
+    """Phase 11c: the train step on the card against the CPU at smoke width
+    (the CPU's runs in a worker process since the phase's start)."""
+    worst, launches = hold_smoke_vs_cpu(TRAIN_SMOKE_CASES, cpu_f)
     print(f"[11] card vs CPU at smoke width (f32, T = 128, 3 steps): {len(TRAIN_SMOKE_CASES)} runs "
           f"({', '.join(f'{a} {m}' + (f' n_micro {n}' if n > 1 else '') for a, m, n in TRAIN_SMOKE_CASES)}): "
           f"k equal, max rel gap sim_time {worst[0]:.3e} (bound {TRAIN_SMOKE_TIME_RTOL}), ce {worst[1]:.3e} "
@@ -2071,11 +2101,18 @@ def train_phase() -> dict:
     torch.cuda.empty_cache()
     print(f"[11] this process holds {torch.cuda.memory_reserved() / 1e9:.2f} GB of the card's memory before the "
           "full-width run (in a process of its own)", flush=True)
-    out = {"llama": in_spawned_process(train_llama_worker)}
-    out["qwen"] = train_qwen_async()
-    out["smoke"] = train_smoke_vs_cpu()
-    out["lm"] = train_lm_grid()
-    print(f"  phase 11 took {time.perf_counter() - phase_t0:.1f} s")
+    parts, t0 = {}, time.perf_counter()
+    out = {}
+    pool, cpu_f = start_smoke_cpu_runs(TRAIN_SMOKE_CASES)
+    try:
+        for name, fn in (("llama", lambda: in_spawned_process(train_llama_worker)), ("qwen", train_qwen_async),
+                         ("smoke", lambda: train_smoke_vs_cpu(cpu_f)), ("lm", train_lm_grid)):
+            out[name] = fn()
+            parts[name], t0 = time.perf_counter() - t0, time.perf_counter()
+    finally:
+        pool.shutdown()
+    print(f"  phase 11 took {time.perf_counter() - phase_t0:.1f} s: llama3.2-3b {parts['llama']:.1f} s, qwen1.5-0.5b "
+          f"async {parts['qwen']:.1f} s, card vs CPU {parts['smoke']:.1f} s, --setup lm {parts['lm']:.1f} s")
     return out
 
 
@@ -2310,9 +2347,21 @@ def train_family(arch: str, counters, label: str = "12") -> dict:
 
 def family_phase(counters) -> dict:
     """Phase 12: the MoE and hybrid families."""
+    phase_t0 = time.perf_counter()
+    smoke_cases = [(arch, "sync", 1) for arch in FAMILY_SHAPES]
+    pool, cpu_f = start_smoke_cpu_runs(smoke_cases)
+    try:
+        out = family_phase_on_card(counters, smoke_cases, cpu_f)
+    finally:
+        pool.shutdown()
+    print(f"  phase 12 took {time.perf_counter() - phase_t0:.1f} s")
+    return out
+
+
+def family_phase_on_card(counters, smoke_cases, cpu_f) -> dict:
+    """Phase 12's work, beside the CPU's smoke-width train steps (``cpu_f``)."""
     import torch
 
-    phase_t0 = time.perf_counter()
     out = {"kernel": {}, "train_kernel": {}, "serve": {}, "train": {}}
     print("[12] flash attention at the MoE and hybrid families' prefill shapes and train-step eval shapes (bf16)")
     for i, (key, arch, shape) in enumerate([("kernel", a, sh) for a, sh in FAMILY_SHAPES.items()]
@@ -2328,21 +2377,11 @@ def family_phase(counters) -> dict:
     family_smoke_serving()
     for arch in FAMILY_TRAIN_SHAPES:
         out["train"][arch] = train_family(arch, counters)
-    worst = (0.0, 0.0)
-    smoke_launches = {}
-    for arch in FAMILY_SHAPES:
-        card, counts = train_smoke_run(arch, "sync", 1, "cuda")
-        cpu, _ = train_smoke_run(arch, "sync", 1, "cpu")
-        smoke_launches[arch] = counts
-        for (k, st, ce), (k0, st0, ce0) in zip(card, cpu):
-            t_gap, c_gap = abs(st - st0) / abs(st0), abs(ce - ce0) / abs(ce0)
-            worst = (max(worst[0], t_gap), max(worst[1], c_gap))
-            if k != k0 or not (t_gap <= TRAIN_SMOKE_TIME_RTOL and c_gap <= TRAIN_SMOKE_CE_RTOL):
-                raise AssertionError(f"card vs CPU, {arch} sync: {card} against {cpu}")
+    worst, launches = hold_smoke_vs_cpu(smoke_cases, cpu_f)
+    smoke_launches = {arch: launches[(arch, mode, n)] for arch, mode, n in smoke_cases}
     print(f"[12] train step card vs CPU at smoke width (f32, T = 128, sync, 3 steps): {', '.join(FAMILY_SHAPES)}: "
           f"k equal, max rel gap sim_time {worst[0]:.3e} (bound {TRAIN_SMOKE_TIME_RTOL}), ce {worst[1]:.3e} "
           f"(bound {TRAIN_SMOKE_CE_RTOL}); kernel launches on the card (flash, wkv6): {smoke_launches}")
-    print(f"  phase 12 took {time.perf_counter() - phase_t0:.1f} s")
     return out
 
 
@@ -2555,7 +2594,7 @@ def new_families_phase() -> dict:
 # the mixed grid's loss only below the loss at w = 0 (its sign-flip cells
 # under the weighted mean may diverge: phase 10's hold).  Then the figure
 # functions: fig1, fig_hetero at its size (5 cells x R = 32 x 12 000
-# iterations) and fig3 cut to 1000 iterations (the script's time limit)
+# iterations) and fig3 cut to 500 iterations (the script's time limit)
 # and one seed of its host
 # loop, whose events a second are measured on the card and (over the same
 # horizon) on the CPU; fig_hetero's cells at 300 iterations held card
@@ -2567,7 +2606,7 @@ SIM_MIXED = ["--simulate", "--sim-m", "400", "--sim-d", "20", "--n-workers", "20
              "--sim-mode", "sync,kasync", "--sim-fault", "none,sign_flip:0.1:0", "--sim-agg", "mean,geomedian",
              "--sim-n-grid", "10,20", "--k0", "4", "--fixed-k", "4"]
 SIM_HOLD = ["--replicas", "4", "--steps", "300", "--sim-eval-every", "100"]
-FIG3_SMOKE_ITERS, HETERO_HOLD_ITERS = 1000, 300
+FIG3_SMOKE_ITERS, HETERO_HOLD_ITERS = 500, 300
 
 
 def simulate_run(argv: list, eta, device: str, threads: int = 2):
@@ -2780,6 +2819,14 @@ LAYOUT_PIECE_SHAPES = {"qwen3-moe-30b-a3b": (4, 1024, 1024, 32, 4, 64, True, 0),
 LAYOUT_EXTENT = 16
 LAYOUT_MESH, LAYOUT_PROMPTS, LAYOUT_NEW_TOKENS = (1, 4), {"llama3.2-3b": 124, "qwen3-moe-30b-a3b": 128}, 4
 LAYOUT_LOGITS_ATOL, LAYOUT_CE_RTOL = 1e-5, 1e-6
+# The wkv scan in the reference's value-side layout: rwkv6-3b's 40 heads do
+# not divide a 16-way model axis and its head dim does, so each rank scans V/16
+# = 4 columns of every head (`ops.wkv6_piece`, the per-rank call of
+# `_wkv6_sharded`), on the scalar route (the tensor-core one takes K = V =
+# 64 only).  The 16 pieces at the prefill shape (phase 5's WKV_SLICE), in f32
+# and bf16, joined and held to the whole call and to the plain version at
+# WKV_TOL.
+VALUE_PIECE_DTYPES = ("float32", "bfloat16")
 
 
 def blocked_attention(counters) -> dict:
@@ -3127,6 +3174,57 @@ def layout_pieces() -> dict:
     return out
 
 
+def value_pieces() -> dict:
+    """Phase 15f: the wkv kernel on each rank's V piece of a
+    LAYOUT_EXTENT-way model axis at rwkv6-3b's prefill shape, all on the
+    one card, joined along V and held to the whole call (the tensor-core
+    route; and the scalar route, the pieces' own, where the run says whether
+    it is bitwise) and to the plain version on the whole tensor; the
+    pieces' time beside the whole call's on either route."""
+    import torch
+    from repro_torch.kernels.wkv import kernel, ops, ref
+
+    out = {"launches": 0}
+    for dt in VALUE_PIECE_DTYPES:
+        case = WKV_SLICE[:7] + (dt,)
+        r, k, v, w, u, _ = wkv_inputs(case, seed=19)  # a prefill: no s0
+        chunk = case[5]
+        pieces = lambda: [ops.wkv6_piece(r, k, v, w, u, None, j, LAYOUT_EXTENT, chunk=chunk)  # noqa: E731
+                          for j in range(LAYOUT_EXTENT)]
+        before = ops.route_launches["wkv6"]
+        joined = [torch.cat(parts, dim=-1) for parts in zip(*pieces())]
+        torch.cuda.synchronize()
+        launched = ops.route_launches["wkv6"] - before
+        out["launches"] += launched
+        whole = ops.wkv6(r, k, v, w, u, None, chunk=chunk)
+        scalar = kernel.wkv6_bthk(r, k, v, w, u, None, chunk=chunk, kernel="wkv6")
+        plain = ref.wkv6_ref(r, k, v, w, u, None, chunk=chunk)
+        atol, rtol = WKV_TOL[dt]
+        errs, ok = {}, launched == LAYOUT_EXTENT
+        for label, want in (("whole", whole), ("scalar", scalar), ("plain", plain)):
+            errs[label] = max((o - p).abs().max().item() for o, p in zip(joined, want))
+            ok = ok and all(bool(torch.isfinite(o).all()) and bool(((o - p).abs() <= atol + rtol * p.abs()).all())
+                            for o, p in zip(joined, want))
+        bitwise = all(bool(torch.equal(o, p)) for o, p in zip(joined, scalar))
+        pieces_ms = cuda_ms(pieces, iters=5, warmup=1)
+        whole_ms = cuda_ms(lambda: ops.wkv6(r, k, v, w, u, None, chunk=chunk), iters=20, warmup=3)
+        scalar_ms = cuda_ms(lambda: kernel.wkv6_bthk(r, k, v, w, u, None, chunk=chunk, kernel="wkv6"), iters=5,
+                            warmup=1)
+        print(f"  rwkv6-3b prefill wkv {case} {dt}: {LAYOUT_EXTENT} pieces of V = {case[4] // LAYOUT_EXTENT} "
+              f"[wkv6], {launched} launches, joined against the whole call [wkv6_sm90] max_abs_err "
+              f"{errs['whole']:.3e}, against the scalar route's whole call "
+              f"{'bitwise' if bitwise else 'max_abs_err %.3e' % errs['scalar']}, against the plain version "
+              f"{errs['plain']:.3e} (atol {atol}, rtol {rtol}); the {LAYOUT_EXTENT} pieces {pieces_ms:.4f} ms on "
+              f"one card against the whole call's {whole_ms:.4f} ms [wkv6_sm90] and {scalar_ms:.4f} ms [wkv6]")
+        if not ok:
+            raise AssertionError(f"wkv6 {dt}: the V pieces ({launched} launches) differ from the whole call: {errs}")
+        out[dt] = {"bitwise_scalar": bitwise, "max_abs_err": errs, "pieces_ms": pieces_ms, "whole_ms": whole_ms,
+                   "whole_scalar_ms": scalar_ms}
+        del r, k, v, w, u, joined, whole, scalar, plain
+    torch.cuda.empty_cache()
+    return out
+
+
 def _layout_world_checks() -> dict:
     """Phase 15f on each rank of the four-rank world: each arch of
     LAYOUT_PROMPTS (smoke, seed-0 weights) generating LAYOUT_NEW_TOKENS
@@ -3332,6 +3430,9 @@ def distribution_phase(counters, eta: float) -> dict:
     print(f"[15] the flash kernel on each rank's head piece of a {LAYOUT_EXTENT}-way model axis, joined, against "
           f"the whole call", flush=True)
     out["pieces"] = layout_pieces()
+    print(f"[15] the wkv kernel on each rank's V piece of a {LAYOUT_EXTENT}-way model axis (rwkv6-3b), joined, "
+          f"against the whole call", flush=True)
+    out["value_pieces"] = value_pieces()
     out["sweep"] = sweep_world(eta)
     out["phase_s"] = time.perf_counter() - phase_t0
     print(f"  phase 15 took {out['phase_s']:.1f} s")
@@ -3369,8 +3470,25 @@ LLAMA_DECODE_COLL_GATHERED, LLAMA_DECODE_CACHE = 6.03e10, 28 * 2 * 8 * 32768 * 8
 # vocab (163.6 GB, on the card's torch); the vocab-parallel CE must take at
 # least 70 GB of it away
 QWEN_AG_GATHERED, QWEN_AG_CUT = 163.6e9, 70e9
+# The two scans in the reference's value-side layout: rwkv6-3b's 40 heads and
+# hymba-1.5b's 25 do not divide the 16-way model axis and their head dim
+# does, so each rank scans V/16 (P/16) columns of every head and the time mix
+# and the SSM gather only their key side.  rwkv6-3b train_4k on 16x16 is
+# traced beside the jobs above, of which hymba-1.5b train_4k and rwkv6-3b
+# prefill_32k on 2x16x16 moved too.  {job: (all-gather bytes a rank with v and
+# xs gathered, on the card's torch (NVIDIA H100 80GB HBM3, torch 2.11); the
+# bytes of the gathers of v (xs) that the forward passes no longer make, a
+# layer's whole bf16 v a rank in the step's forward and its eval forward, in
+# the prefill's one forward less the final state it now gathers)}.  Each
+# job's all-gather bytes must fall by at least SCAN_CUT_SHARE of that.
+DRYRUN_SCANS = {("rwkv6-3b", "train_4k", False): (2.250755e11, 32 * 2 * 16 * 4096 * 2560 * 2),
+                ("hymba-1.5b", "train_4k", False): (8.301481e10, 32 * 2 * 16 * 4096 * 1600 * 2),
+                ("rwkv6-3b", "prefill_32k", True): (3.907516e10, 32 * (32768 * 2560 * 2 - 40 * 64 * 64 * 4))}
+SCAN_CUT_SHARE = 0.9
 # The traces are Python-bound (15-100 s each at full depth on the card's
-# host); they start before phase 14 and run beside it.
+# host); they start before phase 12 and run beside phases 12 and 13, whose
+# work is on the card (beside phases 14 and 15 they slowed those phases'
+# CPU workers).
 DRYRUN_TIMEOUT_S = 600
 # Phase 16's prefill: llama3.2-3b, batch 4 x prompt 1024, bf16 (phase 4's).
 ROOFLINE_PREFILL = ("llama3.2-3b", 4, 1024)
@@ -3386,7 +3504,8 @@ def start_dryruns(out_dir: Path) -> list:
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     started = []
-    for job in DRYRUN_TRIO + DRYRUN_REPAIRED + DRYRUN_LAYOUTS:
+    jobs = DRYRUN_TRIO + DRYRUN_REPAIRED + DRYRUN_LAYOUTS
+    for job in jobs + [j for j in DRYRUN_SCANS if j not in jobs]:
         arch, shape, pod = job
         name = f"{arch}__{shape}__{'pod2' if pod else 'base'}"
         out, log = out_dir / f"{name}.json", open(out_dir / f"{name}.log", "w")
@@ -3444,7 +3563,8 @@ def finish_dryruns(started, t_started: float) -> dict:
             if any(r["kernel_launches"].values()):
                 raise AssertionError(f"{arch} {shape}: a fake trace launched a kernel: {r['kernel_launches']}")
             kernel = "wkv6" if arch.startswith("rwkv") else "flash_attention"
-            if (arch, shape, pod) in DRYRUN_REPAIRED and shape != "decode_32k" and not r["kernel_calls"][kernel]:
+            checked = (arch, shape, pod) in DRYRUN_REPAIRED or (arch, shape, pod) in DRYRUN_SCANS
+            if checked and shape != "decode_32k" and not r["kernel_calls"][kernel]:
                 raise AssertionError(f"{arch} {shape}: the step traced no call of {kernel}: {r['kernel_calls']}")
             out[(arch, shape, pod)] = r
     finally:
@@ -3456,6 +3576,13 @@ def finish_dryruns(started, t_started: float) -> dict:
           f"{LLAMA_DECODE_CACHE / 1e9:.2f} GB required)")
     if not decode["total"] < LLAMA_DECODE_COLL_GATHERED - LLAMA_DECODE_CACHE:
         raise AssertionError(f"llama3.2-3b decode_32k moves {decode['total']:.4e} collective bytes a rank")
+    for (arch, shape, pod), (before, cut) in DRYRUN_SCANS.items():
+        ag = out[(arch, shape, pod)]["collectives"]["all-gather"]
+        print(f"  {arch} {shape} on {'2x16x16' if pod else '16x16'} all-gathers {ag:.4e} bytes a rank with the "
+              f"scan's value side sharded, against {before:.4e} with v (xs) gathered: {(before - ag) / 1e9:.3f} GB "
+              f"less (at least {SCAN_CUT_SHARE * cut / 1e9:.3f} GB required)")
+        if not ag < before - SCAN_CUT_SHARE * cut:
+            raise AssertionError(f"{arch} {shape}: the value-side layout all-gathers {ag:.4e} bytes a rank")
     qwen, _, rwkv = (out[job] for job in DRYRUN_TRIO)
     if not qwen["analytic_memory"]["fits_80gb"]:
         raise AssertionError("qwen1.5-0.5b train_4k does not fit 80 GB by the analytic model")
@@ -3851,18 +3978,18 @@ def main(argv=None) -> int:
     sys.stdout.flush()
     p11 = train_phase()
 
-    # 12. the MoE and hybrid families: the kernel at their prefill shapes, serving and training at full width
-    sys.stdout.flush()
-    p12 = family_phase(counters)
-
-    # 13. the vlm and encdec families and the large dense archs: the kernel at head dims 192 and 256, serving and
-    # training at full width
-    sys.stdout.flush()
-    p13 = new_families_phase()
-
-    # 16's dry runs start here, on the host's cores beside phases 14 and 15
+    # 16's dry runs start here, on the host's cores beside phases 12 and 13, whose work is on the card
     dryruns, t_dryruns = start_dryruns(dryrun_dir), time.perf_counter()
     try:
+        # 12. the MoE and hybrid families: the kernel at their prefill shapes, serving and training at full width
+        sys.stdout.flush()
+        p12 = family_phase(counters)
+
+        # 13. the vlm and encdec families and the large dense archs: the kernel at head dims 192 and 256, serving
+        # and training at full width
+        sys.stdout.flush()
+        p13 = new_families_phase()
+
         # 14. the experiment entry points: train --simulate and the figure functions (no kernel of the port on
         # their path)
         sys.stdout.flush()
@@ -3929,6 +4056,8 @@ def main(argv=None) -> int:
         "scalar_bound_ms": scalar_bound_ms,
         "scalar_bound_by": scalar_bound_by,
         "train_launches": p11["smoke"]["rwkv_sync_wkv_launches"],
+        "value_piece_launches": p15["value_pieces"]["launches"],
+        "value_pieces": {dt: p15["value_pieces"][dt] for dt in VALUE_PIECE_DTYPES},
     }]
     print(f"[17] chip_smoke.py took {time.perf_counter() - script_t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -11,11 +11,14 @@ mode with an input that requires grad the wrapper raises
 (`kernels.forbid_autograd`).
 
 Under a mesh it takes DTensors (u and s0 may be plain tensors that every
-rank holds whole).  A layout that shards T, K or V is first redistributed
-to one that shards only the batch and the heads (an explicit gather: the
-scan needs whole sequences and whole K x V states; rwkv6-3b's 40 heads on
-a model axis that does not divide them shard hd, which is gathered here),
-then the kernel runs on each rank's local shard, each launch counted.
+rank holds whole), laid out by `shardctx.on_local_shards`: the batch and
+the heads stay sharded where the heads divide their mesh dims; where v
+shards its head dim instead (rwkv6-3b's 40 heads on a 16-way model axis,
+which shards hd: the reference's layout), v, s0, y and the final state
+stay sharded on V and r, k, w and u are gathered whole, since the scan's
+V columns are independent; a layout that shards T, or K alone, is
+gathered.  Then the kernel runs once on each rank's (batch shard, heads,
+K, V piece), each launch counted: at V/m < 64 that is the scalar route.
 
 The CUDA launch is the custom op ``repro_torch::wkv6`` (`torch.library`)
 wherever a dispatch mode is active, so a trace on fake CUDA tensors (the
@@ -36,6 +39,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import forbid_autograd
 from repro_torch.kernels.wkv import kernel, ref
+from repro_torch.models.linear_scan import WKV6_DIMS
 from repro_torch.shardctx import is_dtensor, on_local_shards
 
 # Kernel launches since import or since a caller last set them to 0: all of
@@ -114,8 +118,23 @@ def wkv6_flops(r_shape, k_shape, v_shape, w_shape, u_shape, s0_shape, chunk, rou
 
 
 def _wkv6_sharded(r, k, v, w, u, s0, *, chunk: int):
-    """`wkv6` on DTensor r: each rank's (batch, heads) shard through the
-    kernel (`shardctx.on_local_shards`); u (H, K) and s0 (B, H, K, V)
-    follow the layout r, k, v and w decide."""
-    return on_local_shards(lambda *xs: wkv6(*xs, chunk=chunk), (r, k, v, w, u, s0),
-                           [(0, 2)] * 4 + [(None, 0), (0, 1)], (r.shape[2],), [(0, 2), (0, 1)])
+    """`wkv6` on DTensor r: each rank's (batch, heads) or (batch, V) piece
+    through the kernel, one launch a rank (`shardctx.on_local_shards`,
+    `linear_scan.WKV6_DIMS`); u (H, K) and s0 (B, H, K, V) follow the
+    layout r, k, v and w decide."""
+    return on_local_shards(lambda *xs: wkv6(*xs, chunk=chunk), (r, k, v, w, u, s0), WKV6_DIMS[0], (r.shape[2],),
+                           WKV6_DIMS[1])
+
+
+def wkv6_piece(r, k, v, w, u, s0, rank: int, extent: int, *, chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block ``rank`` of ``extent`` of `wkv6` over V, from whole tensors, as
+    a rank of the value-side layout runs it (`_wkv6_sharded`): r, k, w and u
+    whole, v's and s0's V/extent columns, one launch.  v's columns are a
+    view read through its strides; s0's are copied (the kernels take a
+    contiguous s0).  Returns (y, s_T) of the piece: columns [rank V/extent,
+    (rank + 1) V/extent) of the whole call's."""
+    if v.shape[-1] % extent:
+        raise ValueError(f"V={v.shape[-1]} does not split into {extent} pieces")
+    vl = v.shape[-1] // extent
+    cols = slice(rank * vl, (rank + 1) * vl)
+    return wkv6(r, k, v[..., cols], w, u, None if s0 is None else s0[..., cols].contiguous(), chunk=chunk)

@@ -42,13 +42,13 @@ def ssm_branch_init(gen: torch.Generator, cfg: ModelConfig, device, lead: tuple 
 
 def _ssm_chunked(xs, dt, a, bmat, cmat, s0, *, chunk: int):
     """`linear_scan.ssm_chunked`; on DTensors, on each rank's (batch, heads)
-    shard (`shardctx.on_local_shards`): DTensor's views of the scan's
-    chunked tensors do not match their local shards where the heads do not
-    divide the mesh."""
+    shard, or (batch, P) shard where xs shards its head dim
+    (`shardctx.on_local_shards`, `linear_scan.SSM_DIMS`): DTensor's views of
+    the scan's chunked tensors do not match their local shards where the
+    heads do not divide the mesh."""
     if is_dtensor(xs):
         return on_local_shards(lambda *zs: linear_scan.ssm_chunked(*zs, chunk=chunk), (xs, dt, a, bmat, cmat, s0),
-                               [(0, 2), (0, 2), (None, 0), (0, 2), (0, 2), (0, 1)], (xs.shape[2],),
-                               [(0, 2), (0, 1)])
+                               linear_scan.SSM_DIMS[0], (xs.shape[2],), linear_scan.SSM_DIMS[1])
     return linear_scan.ssm_chunked(xs, dt, a, bmat, cmat, s0, chunk=chunk)
 
 

@@ -25,6 +25,15 @@ import numpy as np
 import torch
 
 
+# The (batch, head[, value]) dims of each scan's arguments and outputs, as
+# `shardctx.on_local_shards` takes them: the scans are independent across
+# the batch, the heads and the value side of a head (wkv's V: y[..., v] and
+# S[..., :, v] read only v[..., v], with r, k, w and u whole; the SSM's P:
+# y[..., p] and its state read only x[..., p], with dt, a, B and C whole).
+WKV6_DIMS = ([(0, 2), (0, 2), (0, 2, 3), (0, 2), (None, 0), (0, 1, 3)], [(0, 2, 3), (0, 1, 3)])
+SSM_DIMS = ([(0, 2, 3), (0, 2), (None, 0), (0, 2), (0, 2), (0, 1, 3)], [(0, 2, 3), (0, 1, 3)])
+
+
 def _straddle_levels(chunk: int):
     """Host-side (chunk is static) straddle-boundary pairing: every ordered
     pair tau < t straddles a unique power-of-two-aligned boundary (the odd

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import linear_scan
 from repro_torch.models.layers import _dense_init, _dtype, project_heads, project_out
-from repro_torch.shardctx import constrain, constrain_alt, is_dtensor, on_local_shards
+from repro_torch.shardctx import constrain, constrain_alt, gather_dims, grad_like, is_dtensor, on_local_shards
 
 DECAY_LORA = 64
 # r, k, v, g layouts: heads on the model axis, else the head dim
@@ -73,12 +73,13 @@ def _lerp(x, xs, mu):
 
 def _wkv6_chunked(r, k, v, w, u, s0, *, chunk: int):
     """`linear_scan.wkv6_chunked`; on DTensors, on each rank's (batch,
-    heads) shard (`shardctx.on_local_shards`), as the kernel's wrapper runs:
-    DTensor's views of the scan's chunked tensors do not match their local
-    shards where the heads do not divide the mesh."""
+    heads) shard, or (batch, V) shard where the head dim is sharded
+    (`shardctx.on_local_shards`, `linear_scan.WKV6_DIMS`), as the kernel's
+    wrapper runs: DTensor's views of the scan's chunked tensors do not match
+    their local shards where the heads do not divide the mesh."""
     if is_dtensor(r):
         return on_local_shards(lambda *xs: linear_scan.wkv6_chunked(*xs, chunk=chunk), (r, k, v, w, u, s0),
-                               [(0, 2)] * 4 + [(None, 0), (0, 1)], (r.shape[2],), [(0, 2), (0, 1)])
+                               linear_scan.WKV6_DIMS[0], (r.shape[2],), linear_scan.WKV6_DIMS[1])
     return linear_scan.wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
 
 
@@ -120,10 +121,19 @@ def time_mix(
     else:
         y, s_new = _wkv6_chunked(r, k, v, w, params["bonus_u"], s0, chunk=min(cfg.wkv_chunk, x.shape[1]))
 
-    # per-head groupnorm (scale only) + silu(g) gating
+    # per-head groupnorm (scale only) + silu(g) gating.  On a mesh, where the
+    # scan leaves y sharded on V, the mean over V is a sum across the ranks,
+    # all-reduced, and the mean and the gated y keep their layouts in the
+    # backward pass too (`shardctx.grad_like`), so that it gathers none of
+    # y's operands; a decode step's y keeps DTensor's own layouts
     y = y.float()
-    y = y * torch.rsqrt(torch.mean(torch.square(y), dim=-1, keepdim=True) + 1e-6)
+    ms = torch.mean(torch.square(y), dim=-1, keepdim=True)
+    if x.shape[1] > 1:
+        ms = grad_like(gather_dims(ms, -1))
+    y = y * torch.rsqrt(ms + 1e-6)
     y = (y * params["ln_out"]).to(x.dtype) * F.silu(g)
+    if x.shape[1] > 1:
+        y = grad_like(y)
     out = project_out(y, params["wo"])
     return out, x[:, -1], s_new
 

@@ -109,6 +109,15 @@ def ffn_input(p: dict, x: torch.Tensor) -> torch.Tensor:
     return layers.rmsnorm(p["ln2"], x)
 
 
+def _state_to_cache(s: torch.Tensor) -> torch.Tensor:
+    """A scan's final state (B, H, K or N, V or P) in its decode cache's
+    layout (`launch.sharding.CACHE_RULES`' "s" and "ssm"): the heads on
+    the model axis where they divide it, else replicated there.  A scan run
+    on V pieces (`shardctx.on_local_shards`) leaves its state sharded on
+    V; this gathers it, once a layer of a prefill.  No-op without a mesh."""
+    return constrain(s, "batch", "tp", "none", "none")
+
+
 def block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, *, window: int,
                causal: bool = True, enc_out: torch.Tensor | None = None, capture_cache: bool = False):
     """One layer over the whole sequence.  Returns (x_out, aux, cache_l):
@@ -128,12 +137,15 @@ def block_full(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tens
         x = x + y
         h = layers.rmsnorm(p["ln2"], x)
         y, x_ffn = rwkv.channel_mix(p["cmix"], cfg, h)
-        return x + y, None, ({"x_att": x_att, "x_ffn": x_ffn, "s": s} if capture_cache else None)
+        if not capture_cache:
+            return x + y, None, None
+        return x + y, None, {"x_att": x_att, "x_ffn": x_ffn, "s": _state_to_cache(s)}
     attn, h = attention_input(p, cfg, x)
     aux, cache_l = None, {}
     if cfg.family == "hybrid":
-        y, cache_l["ssm"], (k, v) = hybrid.hymba_mix_full(p["mix"], cfg, h, positions, window=window,
-                                                         return_kv=True)
+        y, s, (k, v) = hybrid.hymba_mix_full(p["mix"], cfg, h, positions, window=window, return_kv=True)
+        if capture_cache:
+            cache_l["ssm"] = _state_to_cache(s)
     else:
         y, (k, v) = layers.attention_full(attn, cfg, h, positions, causal=causal, window=window, return_kv=True)
     x = x + y

@@ -19,6 +19,7 @@ Logical activation axes:
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -106,6 +107,33 @@ def constrain(x: torch.Tensor, *logical: str) -> torch.Tensor:
     if sharding is None:
         return x
     return _apply(x, tuple(sharding.placements))
+
+
+class _GradAs(torch.autograd.Function):
+    """Identity whose backward redistributes the gradient to ``placements``."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _apply(grad, ctx.placements), None
+
+
+def grad_like(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient the backward pass lays out as ``x`` is laid out
+    (the cotangent's constraint that the transpose of
+    `jax.lax.with_sharding_constraint` adds).  DTensor otherwise gives a
+    product's input gradient the layout its sharding rule picks: the
+    residual stream's batch split over the model axis too, which each
+    elementwise op of the backward then meets by gathering the saved
+    operands that shard the head dim.  No-op on a plain tensor or without a
+    resolver."""
+    if _resolver() is None or not is_dtensor(x):
+        return x
+    return _GradAs.apply(x, tuple(x.placements))
 
 
 def constrain_alt(x: torch.Tensor, *alternatives: Tuple[str, ...]) -> torch.Tensor:
@@ -304,58 +332,80 @@ def on_attention_shards(fn: Callable, q, k, v, *, query: bool = True):
     return global_of(fn(ql, kl, vl, rank * (q.shape[1] // extent)), mesh, qp)
 
 
-def on_local_shards(fn: Callable, xs: Sequence, dims: Sequence[Tuple[Optional[int], Optional[int]]],
-                    heads: Sequence[int], out_dims: Sequence[Tuple[Optional[int], Optional[int]]]):
+def on_local_shards(fn: Callable, xs: Sequence, dims: Sequence[Tuple[Optional[int], ...]],
+                    heads: Sequence[int], out_dims: Sequence[Tuple[Optional[int], ...]]):
     """``fn(*local tensors)`` on each rank's shard of ``xs``, for work that is
-    independent across the batch and the heads (attention, the wkv scan):
-    the counterpart of `local_map` over a (batch, heads) layout.
+    independent across the batch and the heads (attention, the scans), and,
+    for the scans, across the value side of each head: the counterpart of
+    `local_map` over a (batch, heads, value) layout.
 
-    ``dims[j]`` is (batch dim, head dim) of ``xs[j]`` (None where it has
-    none).  The DTensors among ``xs`` with both (with a batch dim, where
-    none has heads) decide the layout: for each mesh dim, `Shard` of the
-    batch where every one of them shards its batch there, `Shard` of the
-    heads where every one shards its heads there and every count in
-    ``heads`` divides by the extent of all mesh dims that shard heads (so
-    each rank's q heads keep their kv head), else `Replicate`.  A layout
-    that shards another dim (a sequence, a head's features) or is partial
-    is gathered first: an explicit redistribute.  A plain tensor among
-    ``xs`` is one that every rank holds whole, and each rank takes its
-    slice; None passes through.  The outputs (one, or a tuple) are
-    DTensors with ``out_dims``' (batch dim, head dim) sharded as the
-    layout says.  Every step is differentiable; the gradient of a DTensor
-    that every rank of a sharded mesh dim holds whole (a parameter beside
-    the batch, a tensor without heads beside the heads) is partial there,
-    each rank's shard's part of the sum."""
+    ``dims[j]`` is (batch dim, head dim) of ``xs[j]``, or (batch dim, head
+    dim, value dim) for a tensor of the value side (None where it has
+    none): a dim that the work does not contract, such as the V of the wkv
+    scan's v, state and y, or the P of the SSM's xs, state and y.  The
+    DTensors among ``xs`` with a batch dim and a head dim (with a batch dim,
+    where none has heads) decide the layout, for each mesh dim:
+
+    - `Shard` of the batch, where every one of them shards its batch there;
+    - `Shard` of the heads, where every one shards its heads there and
+      every count in ``heads`` divides by the extent of all mesh dims that
+      shard heads (so each rank's q heads keep their kv head);
+    - `Shard` of the value dim, where every one of them that has a value dim
+      shards it there (the reference's layout where the heads do not divide
+      the model axis and the head dim does: rwkv6-3b's 40 heads and
+      hymba-1.5b's 25 on 16 ranks) and each value-side tensor's value dim
+      divides by the extent of the mesh dims that shard it: the value-side
+      tensors keep their shard, the others (the key side: wkv's r, k, w,
+      u; the SSM's dt, a, B, C) are gathered whole;
+    - else `Replicate`: a layout that shards another dim (a sequence, a
+      head's features where no value dim is named, heads that do not
+      divide) or is partial is gathered first, an explicit redistribute.
+
+    A plain tensor among ``xs`` is one that every rank holds whole, and each
+    rank takes its slice; None passes through.  The outputs (one, or a
+    tuple) are DTensors with ``out_dims``' dims sharded as the layout says.
+    Every step is differentiable; the gradient of a DTensor that every rank
+    of a sharded mesh dim holds whole (a parameter beside the batch, a
+    tensor without heads beside the heads, the key side beside the value
+    dim) is partial there, each rank's shard's part of the sum."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = next(x.device_mesh for x in xs if is_dtensor(x))
     n = len(mesh.shape)
+    dims = [tuple(d) + (None,) * (3 - len(d)) for d in dims]
+    out_dims = [tuple(d) + (None,) * (3 - len(d)) for d in out_dims]
 
     def placements(x):
         return tuple(x.placements) if is_dtensor(x) else (Replicate(),) * n
 
-    deciding = [(placements(x), bd, hd) for x, (bd, hd) in zip(xs, dims) if is_dtensor(x) and bd is not None
-                and (hd is not None or all(h is None for _, h in dims))]
+    deciding = [(placements(x), bd, hd, vd) for x, (bd, hd, vd) in zip(xs, dims) if is_dtensor(x)
+                and bd is not None and (hd is not None or all(h is None for _, h, _ in dims))]
+    valued = [(p, vd) for p, _, _, vd in deciding if vd is not None]
     layout = []
     for i in range(n):
-        if deciding and all(p[i].is_shard(bd) for p, bd, _ in deciding):
+        if deciding and all(p[i].is_shard(bd) for p, bd, _, _ in deciding):
             layout.append("batch")
-        elif deciding and all(hd is not None and p[i].is_shard(hd) for p, _, hd in deciding):
+        elif deciding and all(hd is not None and p[i].is_shard(hd) for p, _, hd, _ in deciding):
             layout.append("heads")
+        elif valued and all(p[i].is_shard(vd) for p, vd in valued):
+            layout.append("value")
         else:
             layout.append(None)
-    ext = 1
-    for i, o in enumerate(layout):
-        ext *= int(mesh.shape[i]) if o == "heads" else 1
-    if ext > 1 and any(h % ext for h in heads):
-        layout = [None if o == "heads" else o for o in layout]
 
-    def under(bd, hd):
+    def extent(kind):
+        return math.prod(int(mesh.shape[i]) for i, o in enumerate(layout) if o == kind)
+
+    if any(h % extent("heads") for h in heads):
+        layout = [None if o == "heads" else o for o in layout]
+    if any(vd is not None and x is not None and x.shape[vd] % extent("value") for x, (_, _, vd) in zip(xs, dims)):
+        layout = [None if o == "value" else o for o in layout]
+
+    def under(bd, hd, vd):
         return tuple(Shard(bd) if o == "batch" and bd is not None else Shard(hd) if o == "heads" and hd is not None
-                     else Replicate() for o in layout)
+                     else Shard(vd) if o == "value" and vd is not None else Replicate() for o in layout)
 
     sharded = [i for i, o in enumerate(layout) if o is not None]
-    out = fn(*(local_of(x, mesh, under(bd, hd), sharded) for x, (bd, hd) in zip(xs, dims)))
+    out = fn(*(local_of(x, mesh, under(*d), sharded) for x, d in zip(xs, dims)))
     if isinstance(out, tuple):
-        return tuple(global_of(y, mesh, under(bd, hd)) for y, (bd, hd) in zip(out, out_dims))
+        return tuple(global_of(y, mesh, under(*d)) for y, d in zip(out, out_dims))
     return global_of(out, mesh, under(*out_dims[0]))

@@ -1011,19 +1011,20 @@ def test_flash_attention_on_a_world1_mesh_equals_the_mesh_free_call(world1, dtyp
 
 
 def test_wkv6_on_a_world1_mesh_equals_the_mesh_free_call(world1):
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor import Shard, distribute_tensor
 
     g = torch.Generator(device="cuda").manual_seed(29)
     r, k, v = (torch.randn(2, 128, 4, 64, generator=g, device="cuda") * 0.5 for _ in range(3))
     w = torch.exp(-torch.exp(torch.randn(2, 128, 4, 64, generator=g, device="cuda") * 0.5 - 1.0))
     u = torch.randn(4, 64, generator=g, device="cuda") * 0.1
     y0, s0 = wkv_ops.wkv6(r, k, v, w, u, chunk=64)
-    # the head dim sharded on "model" (rwkv6-3b's PARAM_ALTS layout) is gathered first
+    # the head dim sharded on "model" (rwkv6-3b's PARAM_ALTS layout): v, y and the state stay sharded on V,
+    # r, k and w are gathered (the reference's layout)
     dr, dk, dv, dw = (distribute_tensor(x, world1, (Shard(0), Shard(3)), src_data_rank=None) for x in (r, k, v, w))
     before = wkv_ops.launches
     y, s = wkv_ops.wkv6(dr, dk, dv, dw, u, chunk=64)
     assert wkv_ops.launches == before + 1
-    assert tuple(y.placements) == (Shard(0), Replicate())
+    assert tuple(y.placements) == tuple(s.placements) == (Shard(0), Shard(3))
     assert torch.equal(y.full_tensor(), y0) and torch.equal(s.full_tensor(), s0)
 
 
@@ -1073,6 +1074,32 @@ def test_flash_head_pieces_of_a_16_way_model_axis_join_to_the_whole_call(cuda_de
     assert ops.launches == before + 16
     tol = TOL[dtype]
     np.testing.assert_allclose(joined.float().cpu().numpy(), whole.float().cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_value_pieces_of_a_16_way_model_axis_join_to_the_whole_call(cuda_device, dtype):
+    """`wkv_ops.wkv6_piece` (one rank's call of the wrapper in the
+    value-side layout: V/16 = 4 columns of v and s0, r, k, w and u whole)
+    for all 16 ranks on the one card, joined along V: the scalar kernel's
+    whole call (each column of y and s_T sums over k alone), and the plain
+    version within the wkv tolerances (PERF.md section 2)."""
+    b, t, h, hd = 2, 256, 4, 64
+    g = torch.Generator(device="cuda").manual_seed(41)
+    n = lambda *sh: torch.randn(sh, generator=g, device="cuda")  # noqa: E731
+    dt = getattr(torch, dtype)
+    r, k, v = n(b, t, h, hd).to(dt), n(b, t, h, hd).to(dt), n(b, t, h, hd).to(dt)
+    w, u, s0 = torch.exp(-torch.exp(n(b, t, h, hd) * 0.5)), n(h, hd) * 0.1, n(b, h, hd, hd) * 0.2
+    before = wkv_ops.route_launches["wkv6"]
+    pieces = [wkv_ops.wkv6_piece(r, k, v, w, u, s0, j, 16, chunk=32) for j in range(16)]
+    torch.cuda.synchronize()
+    assert wkv_ops.route_launches["wkv6"] == before + 16
+    scalar = wkv_kernel.wkv6_bthk(r, k, v, w, u, s0, chunk=32, kernel="wkv6")
+    plain = wkv_ref.wkv6_ref(r, k, v, w, u, s0, chunk=32)
+    atol, rtol = (5e-4, 1e-3) if dtype == "float32" else (5e-2, 5e-2)
+    for i in range(2):
+        joined = torch.cat([p[i] for p in pieces], dim=-1)
+        np.testing.assert_allclose(joined.cpu().numpy(), scalar[i].cpu().numpy(), atol=atol, rtol=rtol)
+        np.testing.assert_allclose(joined.cpu().numpy(), plain[i].cpu().numpy(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])

@@ -2,8 +2,9 @@
 same inputs: the token stream, the optimizers, the per-row loss and its
 gradients, the fastest-k train step in every mode, checkpoints across both
 packages, and the train CLI.  Weights cross from the JAX `model.init`
-through `params_from_jax`.  The train step of rwkv6-3b and qwen1.5-0.5b
-and Pflug on the LM are in tests/test_torch_train_steps.py, the MoE and
+through `params_from_jax`.  The per-row loss and gradient cases are in
+tests/test_torch_loss.py, the train step of rwkv6-3b and qwen1.5-0.5b and
+Pflug on the LM in tests/test_torch_train_steps.py, the MoE and
 hybrid archs' cases in tests/test_torch_train_families.py, the vlm and
 encdec archs' in tests/test_torch_vlm.py and tests/test_torch_encdec.py,
 through the `check_*` helpers here (tier-1's workers take a file each).
@@ -116,15 +117,18 @@ def _leafwise(jtree, ttree):
 _PAIRS = {}
 
 
-def _model_pair(arch):
+def _model_pair(arch, widths=None):
     """(arch, JAX model, JAX params, port model, port params) at smoke size,
-    built once per architecture."""
-    if arch not in _PAIRS:
-        jmodel = jax_build_model(jax_smoke_config(arch))
+    the smoke configs with ``widths`` (fields that change the weights, such
+    as n_heads and d_model), built once per architecture and widths."""
+    tag = (arch,) + tuple(sorted((widths or {}).items()))
+    if tag not in _PAIRS:
+        jmodel = jax_build_model(jax_smoke_config(arch).replace(**(widths or {})))
         jparams = jmodel.init(jax.random.PRNGKey(0))
         tparams = params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
-        _PAIRS[arch] = (arch, jmodel, jparams, build_model(get_smoke_config(arch), device="cpu"), tparams)
-    return _PAIRS[arch]
+        tmodel = build_model(get_smoke_config(arch).replace(**(widths or {})), device="cpu")
+        _PAIRS[tag] = (arch, jmodel, jparams, tmodel, tparams)
+    return _PAIRS[tag]
 
 
 def _zeros_like(tree):
@@ -239,15 +243,6 @@ def check_per_row_loss(arch, t, vocab):
     assert (float(gmet["moe_aux"]) > 0) == (tcfg.family == "moe")
 
 
-@pytest.mark.parametrize("arch,t,vocab", [
-    ("llama3.2-3b", 32, None), ("rwkv6-3b", 32, None), ("qwen1.5-0.5b", 32, None),
-    ("qwen1.5-0.5b", 1024, None),  # the chunked cross-entropy: two chunks of 512
-    ("llama3.2-3b", 32, 500),  # a padded vocab: 500 of 512 columns
-])
-def test_per_row_loss_matches_reference(arch, t, vocab):
-    check_per_row_loss(arch, t, vocab)
-
-
 def check_loss_gradients(arch, t, remat):
     jcfg, tcfg, jmodel, jparams, tparams, jbatch, tbatch = _loss_case(arch, t)
     b = tbatch["tokens"].shape[0]
@@ -270,15 +265,6 @@ def check_loss_gradients(arch, t, remat):
     tol = GRAD_TOL[arch]
     for path, a, g in _leafwise(want, got):
         np.testing.assert_allclose(g, a, rtol=0, atol=tol * max(np.abs(a).max(), 1e-30), err_msg=path)
-
-
-@pytest.mark.parametrize("arch,t,remat", [
-    ("llama3.2-3b", 32, False), ("llama3.2-3b", 32, True), ("rwkv6-3b", 32, False), ("rwkv6-3b", 32, True),
-    ("qwen1.5-0.5b", 32, False),
-    ("qwen1.5-0.5b", 1024, True),  # remat of every block and of each cross-entropy chunk
-])
-def test_weighted_loss_gradients_match_jax_grad(arch, t, remat):
-    check_loss_gradients(arch, t, remat)
 
 
 def test_remat_under_a_torch_func_transform_raises():
@@ -336,15 +322,16 @@ PFLUG = dict(k0=1, step=1, thresh=0, burnin=0)
 _RUNS = {}
 
 
-def run_both(arch, mode, n_micro, opt_name, steps=3, overrides=None):
+def run_both(arch, mode, n_micro, opt_name, steps=3, overrides=None, widths=None):
     """Both packages' train steps from the same weights, batches (with the
     family's `frontend_inputs`) and keys (Pflug with thresh 0, so k moves; a
     comm model), the smoke configs with ``overrides`` (fields that change no
-    weight); memoised, as the checkpoint tests read the same states."""
-    tag = (arch, mode, n_micro, opt_name) + tuple(sorted((overrides or {}).items()))
+    weight) and ``widths`` (`_model_pair`'s); memoised, as the checkpoint
+    tests read the same states."""
+    tag = (arch, mode, n_micro, opt_name) + tuple(sorted({**(overrides or {}), **(widths or {})}.items()))
     if tag in _RUNS:
         return _RUNS[tag]
-    _, jmodel, jparams, tmodel, tparams = _model_pair(arch)
+    _, jmodel, jparams, tmodel, tparams = _model_pair(arch, widths)
     if overrides:
         jmodel = jax_build_model(jmodel.cfg.replace(**overrides))
         tmodel = build_model(tmodel.cfg.replace(**overrides), device="cpu")

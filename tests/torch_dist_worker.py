@@ -531,3 +531,138 @@ def full_width_pieces(archs: list, train: str = "train_4k", decode: str = "decod
             res["cache_placements"] = tuple(str(p) for p in cache["k"].placements)
         out[arch] = res
     return out
+
+
+# ------------------------------------------------------ the scan layouts
+
+
+@contextlib.contextmanager
+def scan_spy():
+    """Record every call of the scans on DTensors (`rwkv._wkv6_chunked`, the
+    plain scan training differentiates; `kernels.wkv.ops._wkv6_sharded`,
+    the kernel's wrapper; `hybrid._ssm_chunked`) and of the scans on a
+    rank's piece (`linear_scan.wkv6_chunked`, `ssm_chunked` and the wkv
+    wrapper's plain version `ref.wkv6_ref`): the function, its tensors'
+    shapes and, on DTensors, their placements and the all-gather bytes of
+    the call, counted by `roofline.analysis.StepCounter` (the forward's:
+    a backward's collectives run after the call).  Yields the list of
+    records."""
+    from repro_torch.kernels.wkv import ops, ref
+    from repro_torch.models import hybrid, linear_scan, rwkv
+    from repro_torch.roofline import analysis
+    from repro_torch.shardctx import is_dtensor
+
+    calls = []
+    saved = {(mod, name): getattr(mod, name) for mod, name in (
+        (rwkv, "_wkv6_chunked"), (ops, "_wkv6_sharded"), (hybrid, "_ssm_chunked"),
+        (linear_scan, "wkv6_chunked"), (linear_scan, "ssm_chunked"), (ref, "wkv6_ref"))}
+
+    def described(xs):
+        return [None if x is None else {"shape": tuple(x.shape), "local": tuple(x.to_local().shape),
+                                        "placements": tuple(str(p) for p in x.placements)} if is_dtensor(x)
+                else {"shape": tuple(x.shape)} for x in xs]
+
+    def spy(name, fn):
+        def run(*args, **kwargs):
+            if not is_dtensor(args[0]):
+                out = fn(*args, **kwargs)
+                calls.append({"fn": name, "in": described(args), "out": described(out)})
+                return out
+            with analysis.dtensor_metadata_uncounted(), analysis.StepCounter() as counter:
+                out = fn(*args, **kwargs)
+            calls.append({"fn": name, "in": described(args), "out": described(out),
+                          "all_gather": counter.collectives["all-gather"]})
+            return out
+
+        return run
+
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, spy(name, fn))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def scan_train(arch: str, shape, params_file: str, overrides: dict):
+    """`train_steps` in sync mode with the scan calls recorded (`scan_spy`)."""
+    with scan_spy() as calls:
+        out = train_steps(arch, shape, "sync", params_file, overrides=overrides)
+    return {**out, "calls": calls}
+
+
+def scan_serving(arch: str, shape, params_file: str, overrides: dict, prompt_len: int, steps: int = 2):
+    """On a ("data", "model") mesh of ``shape``: `steps.make_prefill_step`
+    of ``arch``'s smoke config with ``overrides`` (batch 4, prompts from
+    seed 1) and ``steps`` greedy `make_decode_step` steps, the kv cache
+    grown as `serve` grows it, with the scan calls recorded (`scan_spy`).
+    Returns the logits, the prefill's cache whole and its placements, the
+    tokens and the calls."""
+    from repro_torch.configs import InputShape, get_smoke_config
+    from repro_torch.launch import serve as serve_lib, sharding, specs, steps as steps_lib
+    from repro_torch.models import build_model
+
+    mesh = _mesh(shape)
+    cfg = get_smoke_config(arch).replace(**overrides)
+    model = build_model(cfg, "cpu")
+    params = torch.load(params_file, weights_only=False)
+    prompts = serve_lib.random_prompts(cfg, 4, prompt_len, 1, "cpu")
+    shape_in = InputShape("prefill", prompt_len, 4, "prefill")
+    placed = sharding.place_state(params, mesh)
+    prefill = steps_lib.make_prefill_step(model, cfg, shape_in, mesh=mesh)
+    decode = steps_lib.make_decode_step(model, cfg, shape_in, mesh=mesh)
+    with torch.no_grad(), scan_spy() as calls:
+        lg, cache = prefill(placed, {"tokens": prompts})
+        # cloned: where no mesh dim splits a leaf, its whole tensor is the local one, which decode updates in place
+        whole = sharding.gathered(cache)
+        out = {"prefill_logits": sharding.gathered(lg), "cache": {k: v.clone() for k, v in whole.items()},
+               "cache_placements": {k: tuple(str(p) for p in v.placements) for k, v in cache.items()}}
+        if cfg.family != "ssm":
+            cache = serve_lib._grow_kv_cache(model, cache, 4, prompt_len + steps, specs.window_for(cfg, shape_in),
+                                             mesh)
+        tok = torch.argmax(out["prefill_logits"], dim=-1)[:, None]
+        tokens, step_logits = [tok], []
+        for i in range(steps):
+            lg, cache = decode(placed, tok, cache, prompt_len + i)
+            step_logits.append(sharding.gathered(lg))
+            tok = torch.argmax(step_logits[-1], dim=-1)[:, None]
+            tokens.append(tok)
+    return {**out, "step_logits": step_logits, "tokens": torch.cat(tokens, dim=1), "calls": calls}
+
+
+def time_mix_collectives(shape, params_file: str, overrides: dict, seq: int = 32):
+    """rwkv6-3b's time mix (layer 0 of the smoke config with ``overrides``)
+    on a ("data", "model") mesh of ``shape``, forward and backward, under
+    `roofline.analysis.StepCounter`: each collective's type, its output's
+    element count and whether the backward pass ran it, and the gradient
+    of x whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import sharding
+    from repro_torch.models import rwkv
+    from repro_torch.models.transformer import layer_params
+    from repro_torch.roofline import analysis
+
+    class Log(analysis.StepCounter):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            kind = analysis._collective_kind(func._schema.name)
+            if out is not NotImplemented and kind not in (None, "none"):
+                self.log.append((kind, tuple(analysis._tensors(out)[0].shape), torch._C._current_graph_task_id() != -1))
+            return out
+
+    mesh = _mesh(shape)
+    cfg = get_smoke_config("rwkv6-3b").replace(**overrides)
+    params = layer_params(sharding.place_state(torch.load(params_file, weights_only=False), mesh)["layers"], 0)
+    x = torch.randn(4, seq, cfg.d_model, generator=torch.Generator().manual_seed(5))
+    with sharding.mesh_context(mesh):
+        x = sharding.place_spanning(x, sharding.activation_resolver(mesh)(("batch", "none", "none"), tuple(x.shape)))
+        x.requires_grad_()
+        with analysis.dtensor_metadata_uncounted(), Log() as counter:
+            counter.log = []
+            y, _, _ = rwkv.time_mix(params["tmix"], cfg, x)
+            y.sum().backward()
+    assert isinstance(x.grad, DTensor)
+    return {"log": counter.log, "grad": x.grad.full_tensor()}
